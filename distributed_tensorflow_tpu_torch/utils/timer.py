@@ -1,0 +1,54 @@
+"""Step timing: this package's own copy of ``StepTimer`` from
+``distributed_tensorflow_tpu/utils/timer.py``."""
+
+from __future__ import annotations
+
+import time
+
+
+class StepTimer:
+    """Tracks steps/sec over drained windows, excluding warmup/compile steps.
+
+    Tick only at completion barriers (after ``torch.cuda.synchronize()``):
+    a tick after an asynchronous launch measures the enqueue, not the work.
+    ``start(step)`` marks t0 and consumes one warmup slot, so with the
+    default ``warmup_steps=2`` the first measured window — which holds the
+    kernel builds and first-call costs — is dropped; ``tick_to(step)``
+    closes a window at a barrier; ``mark(step)`` restarts the window after
+    boundary work without counting it."""
+
+    def __init__(self, warmup_steps: int = 2):
+        self.warmup_steps = warmup_steps
+        self._count = 0
+        self._timed_steps = 0
+        self._timed_seconds = 0.0
+        self._last = None
+        self._last_step = 0
+
+    def tick(self, steps: int = 1) -> None:
+        """Record one window covering ``steps`` optimizer steps."""
+        now = time.time()
+        if self._last is not None and self._count >= self.warmup_steps:
+            self._timed_steps += steps
+            self._timed_seconds += now - self._last
+        self._last = now
+        self._count += 1
+
+    def mark(self, step: int | None = None) -> None:
+        self._last = time.time()
+        if step is not None:
+            self._last_step = step
+
+    def start(self, step: int) -> None:
+        self.tick(0)
+        self._last_step = step
+
+    def tick_to(self, step: int) -> None:
+        self.tick(step - self._last_step)
+        self._last_step = step
+
+    @property
+    def steps_per_sec(self) -> float:
+        if self._timed_seconds <= 0:
+            return 0.0
+        return self._timed_steps / self._timed_seconds
