@@ -1,0 +1,90 @@
+"""Run the tp trainer on one card and across the cards of one host, and
+compare.
+
+    python -m distributed_tensorflow_tpu_torch.cli.tp_cards [--cards 4] [trainer flags]
+
+Three runs of ``cli/train_lm.py --parallelism tp`` with the same flags and
+seed (default: the bench flagship, 6 steps): ``--model_parallel 1`` on one
+card, then under ``torchrun --standalone --nproc_per_node N`` with
+``--model_parallel N`` and with ``--model_parallel N/2`` (data 2 x model
+N/2). Every split trains the same whole model, so the losses must agree up
+to bf16 rounding (relative ``LOSS_TOL``). Prints each run's command and
+its chief's JSON records, then one summary line; exits non-zero when a run
+fails or the losses disagree. The summary names the cards as ``nvidia-smi
+--query-gpu=name,power.limit`` gives them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+
+import torch
+
+FLAGSHIP = [
+    "--attention", "flash", "--d_model", "2048", "--num_heads", "16", "--num_layers", "8",
+    "--d_ff", "8192", "--seq_len", "2048", "--batch_size", "12", "--use_bias", "0",
+    "--training_steps", "6", "--eval_step_interval", "2",
+]
+TRAINER = ["-m", "distributed_tensorflow_tpu_torch.cli.train_lm", "--parallelism", "tp"]
+LOSS_TOL = 1e-2  # bf16 compute: splits sum partial products in other orders
+
+
+def run(cmd: list[str]) -> list[dict]:
+    print(json.dumps({"command": " ".join(cmd)}), flush=True)
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
+    if res.returncode != 0:
+        sys.exit(f"tp_cards: {' '.join(cmd)} exited {res.returncode}\n{res.stderr[-4000:]}")
+    records = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
+    for r in records:
+        print(json.dumps(r), flush=True)
+    return records
+
+
+def nvidia_smi() -> list[str]:
+    """Each card's name and power limit, or [] where there is no nvidia-smi."""
+    if shutil.which("nvidia-smi") is None:
+        return []
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()
+
+
+def main(argv: list[str] | None = None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--cards", type=int, default=torch.cuda.device_count())
+    args, flags = p.parse_known_args(argv)
+    if args.cards < 2 or args.cards % 2:
+        sys.exit(f"tp_cards: needs an even number of cards >= 2, got {args.cards}")
+    flags = flags or FLAGSHIP
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(args.cards)]
+    runs = {
+        "tp1_one_card": run([sys.executable, *TRAINER, *flags, "--model_parallel", "1"]),
+        f"tp{args.cards}": run([*torchrun, *TRAINER, *flags,
+                                "--model_parallel", str(args.cards)]),
+        f"data2_tp{args.cards // 2}": run([*torchrun, *TRAINER, *flags,
+                                           "--model_parallel", str(args.cards // 2)]),
+    }
+    base = [r["loss"] for r in runs["tp1_one_card"]]
+    summary = {"cards": args.cards, "nvidia_smi": nvidia_smi()}
+    ok = True
+    for name, records in runs.items():
+        losses = [r["loss"] for r in records]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, base)) if losses else None
+        agree = len(losses) == len(base) and worst is not None and worst <= LOSS_TOL
+        ok &= agree
+        last = records[-1] if records else {}
+        summary[name] = {"losses": losses, "loss_rel_diff": worst, "agree": agree,
+                         **{k: last.get(k) for k in ("steps_per_sec", "tokens_per_sec", "mfu")}}
+    summary["ok"] = ok
+    print(json.dumps(summary), flush=True)
+    if not ok:
+        sys.exit("tp_cards: the splits' losses disagree")
+
+
+if __name__ == "__main__":
+    main()

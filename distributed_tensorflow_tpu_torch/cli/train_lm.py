@@ -1,23 +1,32 @@
-"""Transformer-LM training CLI on one device — the port of
-``tools/train_lm.py`` in its ``dp`` mode.
+"""Transformer-LM training CLI — the port of ``tools/train_lm.py`` in its
+``dp`` mode (one device) and ``tp`` mode (Megatron tensor parallelism).
 
     python -m distributed_tensorflow_tpu_torch.cli.train_lm \\
         --d_model 2048 --num_heads 16 --num_layers 8 --d_ff 8192 \\
         --seq_len 2048 --batch_size 12 --use_bias 0 --attention flash
+    torchrun --nproc_per_node N -m distributed_tensorflow_tpu_torch.cli.train_lm \\
+        --parallelism tp --model_parallel N --attention flash ...
 
 Flags keep the JAX trainer's names and defaults. It runs on the card
 (``--device cuda``, the default) in bf16, or on the CPU in f32 when asked
-with ``--device cpu``; with no card it raises rather than fall back. Data:
-``--text_file`` trains byte-level (vocab 256) on random windows of a file;
-without it, the JAX trainer's synthetic copy task from
-``np.random.default_rng(seed)``. One JSON record per eval boundary: step,
-loss, parallelism and, after the first (warm-up) window, steps/s, tokens/s
-and MFU, timed over windows drained by ``torch.cuda.synchronize()``.
+with ``--device cpu``; with no card it raises rather than fall back. ``tp``
+joins a process group (``parallel/distributed.py``: ``torchrun``'s
+environment, else ``--worker_hosts``/``--task_index``, else a world of one
+in-process), splits it into data x model groups of ``--model_parallel``
+ranks, and gives each data group's ranks their slice of the global
+``--batch_size``. Data: ``--text_file`` trains byte-level (vocab 256) on
+random windows of a file; without it, the JAX trainer's synthetic copy task
+from ``np.random.default_rng(seed)``. One JSON record per eval boundary,
+printed by the chief (rank 0): step, loss, parallelism and, after the first
+(warm-up) window, steps/s, tokens/s and MFU (over the peak of every rank's
+card), timed over windows drained by ``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 
 import numpy as np
@@ -33,8 +42,11 @@ def synthetic_tokens(rng, batch, seq_len, vocab):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--parallelism", choices=("dp",), default="dp",
-                   help="dp on one device (other modes are not ported yet)")
+    p.add_argument("--parallelism", choices=("dp", "tp"), default="dp",
+                   help="dp: one device; tp: tensor parallelism over --model_parallel "
+                        "ranks, data parallelism across the rest (other modes are not "
+                        "ported yet)")
+    p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--training_steps", type=int, default=100)
     p.add_argument("--eval_step_interval", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=8)
@@ -65,6 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attention", default="dense", choices=("dense", "flash"))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # Reference-style cluster flags: worker_hosts[0] is the rendezvous,
+    # task_index this process's rank (torchrun's environment wins).
+    p.add_argument("--worker_hosts", default="localhost:12355")
+    p.add_argument("--task_index", type=int, default=0)
     return p
 
 
@@ -72,20 +88,33 @@ def main(argv=None) -> float:
     """Train; returns the last step's loss."""
     args = build_parser().parse_args(argv)
 
+    from distributed_tensorflow_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.parallelism == "tp":
+        from distributed_tensorflow_tpu_torch.parallel.distributed import process_group
+
+        cluster = process_group(device, args.worker_hosts, args.task_index)
+    else:
+        cluster = contextlib.nullcontext()
+    with cluster as c:
+        return _train(args, device if c is None else c.device, c)
+
+
+def _train(args, device, cluster) -> float:
     from distributed_tensorflow_tpu_torch.models.transformer import (
         TransformerConfig,
         TransformerLM,
     )
     from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_train_step
     from distributed_tensorflow_tpu_torch.train.optimizers import make_optimizer
-    from distributed_tensorflow_tpu_torch.utils.device import compute_dtype, resolve_device
+    from distributed_tensorflow_tpu_torch.utils.device import compute_dtype
     from distributed_tensorflow_tpu_torch.utils.flops import (
         chip_peak_flops,
         transformer_train_flops,
     )
     from distributed_tensorflow_tpu_torch.utils.timer import StepTimer
 
-    device = resolve_device(args.device)
     text_data = None
     if args.text_file:
         from distributed_tensorflow_tpu_torch.data.text import ByteTextDataset, load_byte_tokens
@@ -109,13 +138,32 @@ def main(argv=None) -> float:
         attention=args.attention,
         compute_dtype=compute_dtype(device),
     )
-    model = TransformerLM(cfg, seed=args.seed, device=device)
+    world, chief, rows = 1, True, slice(None)
+    if cluster is None:
+        model = TransformerLM(cfg, seed=args.seed, device=device)
+        build_step = build_lm_train_step
+    else:
+        from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+        from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+            TpTransformerLM,
+            build_tp_lm_train_step,
+        )
+
+        mesh = make_mesh(args.model_parallel)
+        if args.batch_size % mesh.data_size:
+            raise ValueError(f"--batch_size {args.batch_size} does not split over "
+                             f"{mesh.data_size} data-parallel ranks")
+        per = args.batch_size // mesh.data_size
+        world, chief = cluster.world_size, cluster.is_chief
+        rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)  # this rank's batch rows
+        model = TpTransformerLM(cfg, mesh, seed=args.seed, device=device)
+        build_step = functools.partial(build_tp_lm_train_step, mesh=mesh)
     opt = make_optimizer(
         args.optimizer, model.parameters(), args.learning_rate,
         total_steps=args.training_steps, schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, grad_clip_norm=args.grad_clip_norm,
     )
-    step = build_lm_train_step(model, opt)
+    step = build_step(model, opt)
     rng = np.random.default_rng(args.seed)
 
     def batch_for(i):
@@ -133,7 +181,8 @@ def main(argv=None) -> float:
     timer.start(0)
     loss = float("nan")
     for i in range(args.training_steps):
-        tokens = torch.from_numpy(batch_for(i)).to(device, non_blocking=True)
+        # Every rank draws the same global batch and trains on its rows.
+        tokens = torch.from_numpy(batch_for(i)[rows]).to(device, non_blocking=True)
         m = step(tokens)
         i_end = i + 1
         if i_end % args.eval_step_interval == 0 or i_end == args.training_steps:
@@ -147,8 +196,9 @@ def main(argv=None) -> float:
                     timer.steps_per_sec * args.batch_size * args.seq_len, 0
                 )
                 if peak is not None:
-                    record["mfu"] = round(flops * timer.steps_per_sec / peak, 4)
-            print(json.dumps(record), flush=True)
+                    record["mfu"] = round(flops * timer.steps_per_sec / (peak * world), 4)
+            if chief:
+                print(json.dumps(record), flush=True)
             timer.mark(i_end)
     return loss
 

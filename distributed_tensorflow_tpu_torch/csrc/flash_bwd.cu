@@ -1,39 +1,55 @@
-// Flash self-attention backward on the packed qkv projection, for Hopper.
+// Flash attention backward on strided (B, H, S, D) operands, for Hopper.
 //
-// Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_bwd_fused_kernel
-// as launched by _flash_backward_qkv — p recomputed from the saved
-// logsumexp, delta = rowsum(dO∘O), dv = pᵀ·dO, dS = p∘(dO·vᵀ − delta),
-// dq = s·dS·k, dk = dSᵀ·(q·s), dq/dk rotated back by the inverse rope, and
-// the kv grads of a GQA group summed into their shared kv columns.
+// Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_bwd_fused_kernel,
+// the one Pallas backward body behind two launch sites:
+//   * _flash_backward_qkv (K2): the packed qkv projection's backward, with
+//     dq/dk rotated back by the inverse rope and the kv grads of a GQA group
+//     summed into their shared kv head;
+//   * _flash_backward_fused (K4): q (B, H, Sq, D) against k/v (B, H, Skv, D)
+//     with end-aligned causal masking; the caller's q_pos_offset places q row
+//     0 in the key sequence, so a call on a q segment of a longer sequence
+//     computes that segment's dq and its share of dk/dv, as the TPU kernel's
+//     segmented calls do.
+// p is recomputed from the saved logsumexp (and zeroed on rows whose lse says
+// they attended nothing: there NEG_INF is finite, so exp(logit - lse) would
+// be 1), delta = rowsum(dO∘O), dv = pᵀ·dO, dS = p∘(dO·vᵀ − delta),
+// dq = s·dS·k, dk = dSᵀ·(q·s).
 //
 // Bound on this card: five tile products against the forward's two, ~5.2e11
 // FLOPs at the flagship call (B 12, S 2048, 16 heads of 128, causal, bf16)
-// against ~0.8 GB moved — the tensor cores bound it (about 0.52 ms at
+// against ~0.6-0.8 GB moved — the tensor cores bound it (about 0.52 ms at
 // 989 TFLOP/s).
 //
 // Design: the TPU kernel walks its grid in order and keeps dq for the whole
 // sequence in VMEM; blocks on Hopper run in no order, so nothing carries
 // between them. Three launches instead:
-//   1. delta pre-pass: one warp per (b, s, h) row, rowsum(dO∘O) in f32.
+//   1. delta pre-pass: one warp per (b, h, s) row, rowsum(dO∘O) in f32.
 //   2. main kernel: one block of 4 warps per (64-row kv tile, kv head,
 //      batch); each warp owns 16 kv rows and keeps their dk and dv in f32
-//      registers while it loops over every q head of the GQA group and over
-//      the 32-row q tiles from the causal diagonal to the window's end, so
-//      the group sum happens in registers and dk/dv are written once. Sᵀ,
-//      Pᵀ and dSᵀ are computed kv-rows-major, so dV += Pᵀ·dO and
-//      dK += dSᵀ·Q need no transpose; dQ += s·dS·K reads the block's dSᵀ
-//      tile from shared memory transposed and is added with f32 atomics
-//      into a zeroed (B, S, H, D) scratch the wrapper allocated.
-//   3. dq pass: rotate the summed f32 dq back and cast it into dqkv.
-// The products run on mma.sync (bf16) with ldmatrix fragments from padded
-// shared memory, and each step's q-side tiles are double-buffered with
-// cp.async, as in flash_fwd.cu; dq's float2 atomics and the missing TMA
-// and wgmma are the levers of a later version.
+//      registers while the block loops over every q head of the GQA group and
+//      over the 32-row q tiles from the causal diagonal to the window's end,
+//      so the group sum happens in registers and dk/dv are written once. Sᵀ,
+//      Pᵀ and dSᵀ are computed kv-rows-major, so dV += Pᵀ·dO and dK += dSᵀ·Q
+//      need no transpose; dQ += s·dS·K reads the block's dSᵀ tile from shared
+//      memory transposed and is added with float2 atomics into a zeroed f32
+//      (B, H, Sq, D) scratch the wrapper allocated.
+//   3. dq pass: rotate the summed f32 dq back (rope) and cast it into the
+//      caller's layout.
+// Products run on mma.sync (bf16) with ldmatrix fragments from padded shared
+// memory; each step's q-side tiles are double-buffered with cp.async. Every
+// operand is read or written through its own (b, h, s) strides, so neither
+// the packed projection nor the tp block's head-transposed views need a
+// copy; rope is a template parameter. dq's atomics and the missing TMA and
+// wgmma are the levers of a later version.
 #include "flash_common.cuh"
 
 namespace dtt {
 
 constexpr int BWD_BKV = 64, BWD_BQ = 32, BWD_THREADS = 128;
+
+struct BwdStrides {
+  Bhsd q, k, v, g, dk, dv;
+};
 
 template <typename T, int D>
 constexpr size_t bwd_smem_bytes() {
@@ -42,33 +58,33 @@ constexpr size_t bwd_smem_bytes() {
                       (4 * 16 + BWD_BKV) * (BWD_BQ + kPad<T>));
 }
 
-// delta[b, h, s] = sum_d dO[b, s, h, d] · O[b, s, h, d]; one warp per row.
+// delta[r] = sum_d dO[b, h, s, d] · O[b, h, s, d] for row r = (b·H + h)·Sq + s;
+// one warp per row.
 template <typename T>
 __global__ void flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                                       float* __restrict__ delta, int S, int H, int D,
-                                       long long rows) {
+                                       float* __restrict__ delta, Bhsd so, Bhsd sg, int H,
+                                       int Sq, int D, long long rows) {
   const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
-  const T* o = out + r * D;
-  const T* d = dout + r * D;
+  const long long b = r / ((long long)H * Sq), h = (r / Sq) % H, s = r % Sq;
+  const T* o = out + b * so.b + h * so.h + s * so.s;
+  const T* d = dout + b * sg.b + h * sg.h + s * sg.s;
   float acc = 0.f;
   for (int i = lane; i < D; i += 32) acc = fmaf(to_f32<T>(d[i]), to_f32<T>(o[i]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const long long b = r / ((long long)S * H), s = (r / H) % S, h = r % H;
-    delta[(b * H + h) * S + s] = acc;
-  }
+  if (lane == 0) delta[r] = acc;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ROPE>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
-                 const float* __restrict__ delta, const T* __restrict__ dout,
-                 const float* __restrict__ cos, const float* __restrict__ sin,
-                 T* __restrict__ dqkv, float* __restrict__ dq_acc, int S, int H, int KV,
-                 int causal, int window, long long tstride, float scale) {
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const float* __restrict__ cos,
+                 const float* __restrict__ sin, T* __restrict__ dk_out, T* __restrict__ dv_out,
+                 float* __restrict__ dq_acc, BwdStrides st, int H, int group, int Sq, int Skv,
+                 int off, int causal, int window, long long tstride, float scale) {
   constexpr int LD = D + kPad<T>, LDQ = BWD_BQ + kPad<T>, NT = D / 8, NQ = BWD_BQ / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sStats = reinterpret_cast<float*>(smem);  // two buffers of [lse | delta] rows
@@ -79,139 +95,156 @@ flash_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
   T* sdS = sP + 4 * 16 * LDQ;
 
   const int k0 = blockIdx.x * BWD_BKV;  // low tiles first: under causal masking they see most q
-  const int kvh = blockIdx.y, b = blockIdx.z, group = H / KV;
-  const int width = (H + 2 * KV) * D;
-  const T* src = qkv + (size_t)b * S * width;
-  const T* gsrc = dout + (size_t)b * S * H * D;
-  const float* cb = cos ? cos + b * tstride : nullptr;
-  const float* sb = sin ? sin + b * tstride : nullptr;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const T* kb = k + b * st.k.b + kvh * st.k.h;
+  const T* vb = v + b * st.v.b + kvh * st.v.h;
+  T* dkb = dk_out + b * st.dk.b + kvh * st.dk.h;
+  T* dvb = dv_out + b * st.dv.b + kvh * st.dv.h;
+  // Rope tables are indexed by row: the wrapper passes them only with off 0.
+  const float* cb = ROPE ? cos + b * tstride : nullptr;
+  const float* sb = ROPE ? sin + b * tstride : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kv_row[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
 
-  int q_begin = 0, q_end = S;
+  // q rows whose positions (row + off) can see this kv tile.
+  int q_begin = 0, q_end = Sq;
   if (causal) {
-    q_begin = k0 / BWD_BQ * BWD_BQ;
-    if (window > 0) q_end = min(S, k0 + BWD_BKV - 1 + window);
+    q_begin = min(Sq, max(0, k0 - off)) / BWD_BQ * BWD_BQ;
+    if (window > 0) q_end = min(Sq, max(0, k0 + BWD_BKV - 1 + window - off));
   }
-  // Steps walk (q head of the group, q tile); the copy of step n + 1's q,
-  // dO, lse and delta runs while step n is multiplied.
-  const int n_q = (q_end - q_begin + BWD_BQ - 1) / BWD_BQ, n_steps = group * n_q;
-  auto q_buf = [&](int n) { return sQdO + (n & 1) * 2 * BWD_BQ * LD; };
-  auto stats_buf = [&](int n) { return sStats + (n & 1) * 2 * BWD_BQ; };
-  auto issue_q = [&](int n) {
-    const int h = kvh * group + n / n_q, q0 = q_begin + (n % n_q) * BWD_BQ;
-    tile_issue<T, D, BWD_BQ, BWD_THREADS>(q_buf(n), LD, src, width, h * D, q0, S);
-    tile_issue<T, D, BWD_BQ, BWD_THREADS>(q_buf(n) + BWD_BQ * LD, LD, gsrc, H * D, h * D, q0, S);
-    float* st = stats_buf(n);
-    for (int i = threadIdx.x; i < 2 * BWD_BQ; i += blockDim.x) {
-      const int q = q0 + i % BWD_BQ;
-      const float* from = (i < BWD_BQ ? lse : delta) + ((size_t)b * H + h) * S + q;
-      if (q < S) cp_async4(st + i, from);
-      else st[i] = 0.f;
-    }
-    cp_async_commit();
-  };
-  tile_issue<T, D, BWD_BKV, BWD_THREADS>(sK, LD, src, width, (H + kvh) * D, k0, S);
-  tile_issue<T, D, BWD_BKV, BWD_THREADS>(sV, LD, src, width, (H + KV + kvh) * D, k0, S);
-  cp_async_commit();
-  issue_q(0);
+  // Steps walk (q head of the group, q tile).
+  const int n_q = q_end > q_begin ? (q_end - q_begin + BWD_BQ - 1) / BWD_BQ : 0;
+  const int n_steps = group * n_q;
+  // This head's rows of lse, delta and dq_acc.
+  auto head_row = [&](int h) { return ((size_t)b * H + h) * Sq; };
 
   float dk[NT][4], dv[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  const int kv_row[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  T* myP = sP + warp * 16 * LDQ;
-  T* mydS = sdS + warp * 16 * LDQ;
-  // dQ split: warp w adds q rows [16·(w%2), +16) x head columns [(w/2)·D/2, +D/2).
-  const int dq_r0 = (warp & 1) * 16, dq_c0 = (warp >> 1) * (D / 2);
 
-  for (int n = 0; n < n_steps; ++n) {
-    const int h = kvh * group + n / n_q, q0 = q_begin + (n % n_q) * BWD_BQ;
-    T* sQ = q_buf(n);
-    const T* sdO = sQ + BWD_BQ * LD;
-    const float* sLse = stats_buf(n);
-    const float* sDelta = sLse + BWD_BQ;
-    if (n + 1 < n_steps) {
-      issue_q(n + 1);  // its buffers were last read before the previous barrier
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if (n == 0) tile_finish<T, D, BWD_BKV, BWD_THREADS>(sK, LD, k0, S, cb, sb, false, 1.f);
-    tile_finish<T, D, BWD_BQ, BWD_THREADS>(sQ, LD, q0, S, cb, sb, true, scale);
-    __syncthreads();
-
-    // Sᵀ = K·Qᵀ for this warp's 16 kv rows, then Pᵀ = exp(Sᵀ − lse).
-    float pt[NQ][4];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) pt[j][0] = pt[j][1] = pt[j][2] = pt[j][3] = 0.f;
-    warp_mma<T, NQ, D, true, true>(pt, sK + warp * 16 * LD, LD, sQ, LD);
-    // Tiles wholly inside the causal/window band skip the per-element mask.
-    const int kv_lo = k0 + warp * 16;
-    const bool full = q0 + BWD_BQ <= S && kv_lo + 15 < S &&
-                      (!causal || (kv_lo + 15 <= q0 &&
-                                   (window <= 0 || kv_lo > q0 + BWD_BQ - 1 - window)));
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1);
-        const bool live = (full || attends(q0 + c, kv_row[e >> 1], S, causal, window)) &&
-                          sLse[c] > NEG_INF / 2;
-        pt[j][e] = live ? expf(pt[j][e] - sLse[c]) : 0.f;
+  if (n_steps > 0) {
+    // The copy of step n + 1's q, dO, lse and delta runs while step n is
+    // multiplied.
+    auto q_buf = [&](int n) { return sQdO + (n & 1) * 2 * BWD_BQ * LD; };
+    auto stats_buf = [&](int n) { return sStats + (n & 1) * 2 * BWD_BQ; };
+    auto issue_q = [&](int n) {
+      const int h = kvh * group + n / n_q, q0 = q_begin + (n % n_q) * BWD_BQ;
+      tile_issue<T, D, BWD_BQ, BWD_THREADS>(q_buf(n), LD, q + b * st.q.b + h * st.q.h,
+                                            (int)st.q.s, q0, Sq);
+      tile_issue<T, D, BWD_BQ, BWD_THREADS>(q_buf(n) + BWD_BQ * LD, LD,
+                                            dout + b * st.g.b + h * st.g.h, (int)st.g.s, q0,
+                                            Sq);
+      float* sst = stats_buf(n);
+      for (int i = threadIdx.x; i < 2 * BWD_BQ; i += blockDim.x) {
+        const int qr = q0 + i % BWD_BQ;
+        const float* from = (i < BWD_BQ ? lse : delta) + head_row(h) + qr;
+        if (qr < Sq) cp_async4(sst + i, from);
+        else sst[i] = 0.f;
       }
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        store_pair<T>(myP + (g + 8 * i) * LDQ + 8 * j + 2 * t, pt[j][2 * i], pt[j][2 * i + 1]);
-    __syncwarp();
-    warp_mma<T, NT, BWD_BQ, true, false>(dv, myP, LDQ, sdO, LD);  // dV += Pᵀ·dO
+      cp_async_commit();
+    };
+    tile_issue<T, D, BWD_BKV, BWD_THREADS>(sK, LD, kb, (int)st.k.s, k0, Skv);
+    tile_issue<T, D, BWD_BKV, BWD_THREADS>(sV, LD, vb, (int)st.v.s, k0, Skv);
+    cp_async_commit();
+    issue_q(0);
 
-    // dPᵀ = V·dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta), rounded to T like the TPU kernel's ds.
-    float dpt[NQ][4];
+    T* myP = sP + warp * 16 * LDQ;
+    T* mydS = sdS + warp * 16 * LDQ;
+    // dQ split: warp w adds q rows [16·(w%2), +16) x head columns [(w/2)·D/2, +D/2).
+    const int dq_r0 = (warp & 1) * 16, dq_c0 = (warp >> 1) * (D / 2);
+
+    for (int n = 0; n < n_steps; ++n) {
+      const int h = kvh * group + n / n_q, q0 = q_begin + (n % n_q) * BWD_BQ;
+      T* sQ = q_buf(n);
+      const T* sdO = sQ + BWD_BQ * LD;
+      const float* sLse = stats_buf(n);
+      const float* sDelta = sLse + BWD_BQ;
+      if (n + 1 < n_steps) {
+        issue_q(n + 1);  // its buffers were last read before the previous barrier
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      if constexpr (ROPE) {
+        if (n == 0) tile_finish<T, D, BWD_BKV, BWD_THREADS>(sK, LD, k0, Skv, cb, sb, false, 1.f);
+      }
+      tile_finish<T, D, BWD_BQ, BWD_THREADS>(sQ, LD, q0, Sq, cb, sb, true, scale);
+      __syncthreads();
+
+      // Sᵀ = K·Qᵀ for this warp's 16 kv rows, then Pᵀ = exp(Sᵀ − lse).
+      float pt[NQ][4];
 #pragma unroll
-    for (int j = 0; j < NQ; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-    warp_mma<T, NQ, D, true, true>(dpt, sV + warp * 16 * LD, LD, sdO, LD);
+      for (int j = 0; j < NQ; ++j) pt[j][0] = pt[j][1] = pt[j][2] = pt[j][3] = 0.f;
+      warp_mma<T, NQ, D, true, true>(pt, sK + warp * 16 * LD, LD, sQ, LD);
+      // Tiles wholly inside the causal/window band skip the per-element mask.
+      const int kv_lo = k0 + warp * 16, p0 = q0 + off;  // p0: position of the tile's first row
+      const bool full = q0 + BWD_BQ <= Sq && kv_lo + 15 < Skv &&
+                        (!causal || (kv_lo + 15 <= p0 &&
+                                     (window <= 0 || kv_lo > p0 + BWD_BQ - 1 - window)));
 #pragma unroll
-    for (int j = 0; j < NQ; ++j)
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const bool live =
+              (full || attends_at(q0 + c, kv_row[e >> 1], Sq, Skv, off, causal, window)) &&
+              sLse[c] > NEG_INF / 2;
+          pt[j][e] = live ? expf(pt[j][e] - sLse[c]) : 0.f;
+        }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          store_pair<T>(myP + (g + 8 * i) * LDQ + 8 * j + 2 * t, pt[j][2 * i], pt[j][2 * i + 1]);
+      __syncwarp();
+      warp_mma<T, NT, BWD_BQ, true, false>(dv, myP, LDQ, sdO, LD);  // dV += Pᵀ·dO
+
+      // dPᵀ = V·dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta), rounded to T like the TPU kernel's ds.
+      float dpt[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+      warp_mma<T, NQ, D, true, true>(dpt, sV + warp * 16 * LD, LD, sdO, LD);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = 8 * j + 2 * t;
+          store_pair<T>(mydS + (g + 8 * i) * LDQ + c,
+                        pt[j][2 * i] * (dpt[j][2 * i] - sDelta[c]),
+                        pt[j][2 * i + 1] * (dpt[j][2 * i + 1] - sDelta[c + 1]));
+        }
+      __syncthreads();  // dSᵀ of all four warps is in shared memory
+
+      warp_mma<T, NT, BWD_BQ, true, false>(dk, mydS, LDQ, sQ, LD);  // dK += dSᵀ·(q·s)
+
+      // dQ += s · dS·K over this block's 64 kv rows; dS(q, kv) = sdS[kv][q].
+      float dq[NT / 2][4];
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+      warp_mma<T, NT / 2, BWD_BKV, false, false>(dq, sdS + dq_r0, LDQ, sK + dq_c0, LD);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int c = 8 * j + 2 * t;
-        store_pair<T>(mydS + (g + 8 * i) * LDQ + c,
-                      pt[j][2 * i] * (dpt[j][2 * i] - sDelta[c]),
-                      pt[j][2 * i + 1] * (dpt[j][2 * i + 1] - sDelta[c + 1]));
+        const int qr = q0 + dq_r0 + g + 8 * i;
+        if (qr >= Sq) continue;
+        float* dst = dq_acc + (head_row(h) + qr) * D + dq_c0 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j)
+          atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
+                    make_float2(scale * dq[j][2 * i], scale * dq[j][2 * i + 1]));
       }
-    __syncthreads();  // dSᵀ of all four warps is in shared memory
-
-    warp_mma<T, NT, BWD_BQ, true, false>(dk, mydS, LDQ, sQ, LD);  // dK += dSᵀ·(q·s)
-
-    // dQ += s · dS·K over this block's 64 kv rows; dS(q, kv) = sdS[kv][q].
-    float dq[NT / 2][4];
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-    warp_mma<T, NT / 2, BWD_BKV, false, false>(dq, sdS + dq_r0, LDQ, sK + dq_c0, LD);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = q0 + dq_r0 + g + 8 * i;
-      if (q >= S) continue;
-      float* dst = dq_acc + (((size_t)b * S + q) * H + h) * D + dq_c0 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j)
-        atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
-                  make_float2(scale * dq[j][2 * i], scale * dq[j][2 * i + 1]));
+      __syncthreads();  // every warp is done with this step's buffers
     }
-    __syncthreads();  // every warp is done with this step's buffers
   }
 
   // dk rotates back by the inverse rope at its kv rows; columns i and i + D/2
   // are fragments j and j + NT/2 of the same lane.
+  if constexpr (ROPE) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = kv_row[e >> 1];
-    if (r >= S) continue;
-    if (cb != nullptr) {
+    for (int e = 0; e < 4; ++e) {
+      const int r = kv_row[e >> 1];
+      if (r >= Skv) continue;
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         const int i = 8 * j + 2 * t + (e & 1);
@@ -222,91 +255,107 @@ flash_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
       }
     }
   }
+  // dk and dv of kv rows no query sees (n_steps == 0) are zeros.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = kv_row[i];
-    if (r >= S) continue;
-    T* row = dqkv + ((size_t)b * S + r) * width + 2 * t;
+    if (r >= Skv) continue;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      store_pair<T>(row + (H + kvh) * D + 8 * j, dk[j][2 * i], dk[j][2 * i + 1]);
-      store_pair<T>(row + (H + KV + kvh) * D + 8 * j, dv[j][2 * i], dv[j][2 * i + 1]);
+      store_pair<T>(dkb + r * st.dk.s + 8 * j + 2 * t, dk[j][2 * i], dk[j][2 * i + 1]);
+      store_pair<T>(dvb + r * st.dv.s + 8 * j + 2 * t, dv[j][2 * i], dv[j][2 * i + 1]);
     }
   }
 }
 
-// dq (B, S, H, D) f32 -> rotated back, cast, into dqkv's q columns.
-template <typename T>
-__global__ void flash_bwd_dq_kernel(const float* __restrict__ dq_acc, const float* __restrict__ cos,
-                                    const float* __restrict__ sin, T* __restrict__ dqkv, int S,
-                                    int H, int KV, int D, long long tstride, long long pairs) {
+// dq (B, H, Sq, D) f32 scratch -> rotated back (rope), cast, into the
+// caller's dq; a thread owns columns i and i + D/2 of a row.
+template <typename T, bool ROPE>
+__global__ void flash_bwd_dq_kernel(const float* __restrict__ dq_acc,
+                                    const float* __restrict__ cos, const float* __restrict__ sin,
+                                    T* __restrict__ dq, Bhsd sd, int H, int Sq, int D,
+                                    long long tstride, long long pairs) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= pairs) return;
   const int half = D / 2;
-  const long long row = idx / half;  // (b, s, h) row of dq_acc
-  const int i = idx % half;
-  const long long bs = row / H;      // b·S + s
-  const int h = row % H;
-  const long long b = bs / S, s = bs % S;
+  const long long row = idx / half;  // (b·H + h)·Sq + s
+  const int i = (int)(idx % half);
+  const long long b = row / ((long long)H * Sq), h = (row / Sq) % H, s = row % Sq;
   float x1 = dq_acc[row * D + i], x2 = dq_acc[row * D + i + half];
-  if (cos != nullptr) {
+  if constexpr (ROPE) {
     const float c = cos[b * tstride + s * half + i], sn = sin[b * tstride + s * half + i];
     const float y1 = x1 * c + x2 * sn, y2 = x2 * c - x1 * sn;
     x1 = y1;
     x2 = y2;
   }
-  T* dst = dqkv + bs * (long long)(H + 2 * KV) * D + h * D;
+  T* dst = dq + b * sd.b + h * sd.h + s * sd.s;
   dst[i] = from_f32<T>(x1);
   dst[i + half] = from_f32<T>(x2);
 }
 
-template <typename T, int D>
-int launch_bwd(const void* qkv, const void* out, const void* lse, const void* dout,
-               const void* cos, const void* sin, void* dqkv, void* dq_acc, void* delta, int B,
-               int S, int H, int KV, int causal, int window, long long tstride, float scale,
+template <typename T, int D, bool ROPE>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
+               const void* lse, const void* cos, const void* sin, void* dq, void* dk, void* dv,
+               void* dq_acc, void* delta, const long long* s, int B, int H, int KV, int Sq,
+               int Skv, int off, int causal, int window, long long tstride, float scale,
                cudaStream_t stream) {
-  const long long rows = (long long)B * S * H;
+  auto at = [&](int i) { return Bhsd{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; };
+  const Bhsd sq = at(0), sk = at(1), sv = at(2), so = at(3), sg = at(4), sdq = at(5),
+             sdk = at(6), sdv = at(7);
+  const long long rows = (long long)B * H * Sq;
   cudaError_t err = cudaMemsetAsync(dq_acc, 0, rows * D * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<float*>(delta), S,
-      H, D, rows);
+      static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<float*>(delta), so,
+      sg, H, Sq, D, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem = bwd_smem_bytes<T, D>();
-  if ((err = set_smem(flash_bwd_kernel<T, D>, smem)) != cudaSuccess) return (int)err;
-  const dim3 grid((S + BWD_BKV - 1) / BWD_BKV, KV, B);
-  flash_bwd_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const T*>(dout),
-      static_cast<const float*>(cos), static_cast<const float*>(sin), static_cast<T*>(dqkv),
-      static_cast<float*>(dq_acc), S, H, KV, causal, window, tstride, scale);
+  if ((err = set_smem(flash_bwd_kernel<T, D, ROPE>, smem)) != cudaSuccess) return (int)err;
+  const dim3 grid((Skv + BWD_BKV - 1) / BWD_BKV, KV, B);
+  flash_bwd_kernel<T, D, ROPE><<<grid, BWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(cos),
+      static_cast<const float*>(sin), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<float*>(dq_acc), BwdStrides{sq, sk, sv, sg, sdk, sdv}, H, H / KV, Sq, Skv,
+      off, causal, window, tstride, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const long long pairs = rows * (D / 2);
-  flash_bwd_dq_kernel<T><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+  flash_bwd_dq_kernel<T, ROPE><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(dq_acc), static_cast<const float*>(cos),
-      static_cast<const float*>(sin), static_cast<T*>(dqkv), S, H, KV, D, tstride, pairs);
+      static_cast<const float*>(sin), static_cast<T*>(dq), sdq, H, Sq, D, tstride, pairs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace dtt
 
-// qkv (B, S, (H + 2·KV)·D) bf16|f32; out and dout (B, S, H·D) like qkv;
-// lse (B, H, S) f32; cos/sin (1|B, S, D/2) f32 or null (tstride as in
-// dtt_flash_fwd); dqkv like qkv; scratch: dq_acc (B, S, H, D) f32 and
-// delta (B, H, S) f32. Returns a cudaError_t.
-extern "C" int dtt_flash_bwd(const void* qkv, const void* out, const void* lse,
-                             const void* dout, const void* cos, const void* sin, void* dqkv,
-                             void* dq_acc, void* delta, int B, int S, int H, int KV, int D,
-                             int is_bf16, int causal, int window, long long tstride,
-                             float scale, void* stream) {
+// q, out, dout, dq (B, H, Sq, D) and k, v, dk, dv (B, KV, Skv, D), bf16|f32,
+// each with its own (b, h, s) element strides in `strides` (in that order:
+// q, k, v, out, dout, dq, dk, dv — 24 values) and a contiguous last
+// dimension; lse (B, H, Sq) f32 contiguous; scratch: dq_acc (B, H, Sq, D)
+// f32 and delta (B, H, Sq) f32. Query head h reads kv head h / (H / KV),
+// and dk/dv sum over each kv head's group. q_pos_offset is the position of
+// query row 0; cos/sin as in dtt_flash_fwd. Returns a cudaError_t.
+extern "C" int dtt_flash_bwd(const void* q, const void* k, const void* v, const void* out,
+                             const void* dout, const void* lse, const void* cos,
+                             const void* sin, void* dq, void* dk, void* dv, void* dq_acc,
+                             void* delta, const long long* strides, int B, int H, int KV, int Sq,
+                             int Skv, int D, int is_bf16, int causal, int window,
+                             int q_pos_offset, long long tstride, float scale, void* stream) {
   using namespace dtt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
-#define DTT_BWD(T, DIM)                                                                    \
-  return launch_bwd<T, DIM>(qkv, out, lse, dout, cos, sin, dqkv, dq_acc, delta, B, S, H, KV, \
-                            causal, window, tstride, scale, st)
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
+  if (cos != nullptr && (Sq != Skv || q_pos_offset != 0)) return (int)cudaErrorInvalidValue;
+#define DTT_BWD(T, DIM)                                                                          \
+  return cos != nullptr                                                                          \
+             ? launch_bwd<T, DIM, true>(q, k, v, out, dout, lse, cos, sin, dq, dk, dv, dq_acc,   \
+                                        delta, strides, B, H, KV, Sq, Skv, q_pos_offset, causal, \
+                                        window, tstride, scale, st)                              \
+             : launch_bwd<T, DIM, false>(q, k, v, out, dout, lse, cos, sin, dq, dk, dv, dq_acc,  \
+                                         delta, strides, B, H, KV, Sq, Skv, q_pos_offset,        \
+                                         causal, window, tstride, scale, st)
   if (is_bf16 && D == 64) DTT_BWD(bf16, 64);
   if (is_bf16 && D == 128) DTT_BWD(bf16, 128);
   if (!is_bf16 && D == 64) DTT_BWD(float, 64);

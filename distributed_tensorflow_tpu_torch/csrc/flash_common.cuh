@@ -1,6 +1,7 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// dtype conversions, the asynchronous packed-qkv tile loader with the
-// split-half rope rotation, and a one-warp tile product on mma.sync.
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// on strided (B, H, S, D) operands): dtype conversions, the asynchronous
+// row-tile loader with the split-half rope rotation, and a one-warp tile
+// product on mma.sync.
 //
 // Tile products: every operand is read from shared memory through a strided
 // view (ldmatrix for bf16) and the sum lives in registers in the C-fragment
@@ -63,7 +64,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Tiles of one head (columns [col, col + D)) of a packed (S, width) slice,
+// Tiles of one head's (S, D) rows, `ldg` elements apart in global memory,
 // rows [row0, row0 + NROWS), staged in shared memory with row stride `lds`
 // in two steps. tile_issue starts 16-byte asynchronous copies (the wrapper
 // checks 16-byte alignment) and zero-fills rows at or past S (masked later;
@@ -76,8 +77,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // columns i0 and i0 + D/2 of a row, so the rotation needs no other thread's
 // data.
 template <typename T, int D, int NROWS, int THREADS>
-__device__ __forceinline__ void tile_issue(T* dst, int lds, const T* src, int width, int col,
-                                           int row0, int S) {
+__device__ __forceinline__ void tile_issue(T* dst, int lds, const T* src, int ldg, int row0,
+                                           int S) {
   constexpr int half = D / 2, V = 16 / sizeof(T), VPR = half / V, N = NROWS * VPR;
 #pragma unroll
   for (int it = 0; it < (N + THREADS - 1) / THREADS; ++it) {
@@ -86,7 +87,7 @@ __device__ __forceinline__ void tile_issue(T* dst, int lds, const T* src, int wi
     const int r = idx / VPR, i0 = (idx % VPR) * V;
     T* d = dst + r * lds + i0;
     if (row0 + r < S) {
-      const T* p = src + (size_t)(row0 + r) * width + col + i0;
+      const T* p = src + (size_t)(row0 + r) * ldg + i0;
       cp_async16(d, p);
       cp_async16(d + half, p + half);
     } else {
@@ -237,11 +238,22 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// Whether key position kp is attended by query position qp (self-attention,
-// so causal masking needs no end-alignment offset).
-__device__ __forceinline__ bool attends(int qp, int kp, int S, int causal, int window) {
-  if (qp >= S || kp >= S) return false;
+// Element strides of a (B, H, S, D) operand whose last dimension is
+// contiguous: element (b, h, s, d) sits at b·b + h·h + s·s + d. A contiguous
+// BHSD tensor and a head-transposed view of a (B, S, H·D) projection are both
+// such operands.
+struct Bhsd {
+  long long b, h, s;
+};
+
+// Whether query row qr (of Sq) attends key kp (of Skv) when the query's
+// position is qr + off — end-aligned causal masking for Sq != Skv, and the
+// position of a q segment inside a longer sequence.
+__device__ __forceinline__ bool attends_at(int qr, int kp, int Sq, int Skv, int off, int causal,
+                                           int window) {
+  if (qr >= Sq || kp >= Skv) return false;
   if (!causal) return true;
+  const int qp = qr + off;
   return kp <= qp && (window <= 0 || kp > qp - window);
 }
 

@@ -1,28 +1,38 @@
-// Flash self-attention forward on the packed qkv projection, for Hopper.
+// Flash attention forward on strided (B, H, S, D) operands, for Hopper.
 //
-// Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_kernel as
-// launched by _flash_forward_qkv — online-softmax causal/window attention
-// with the split-half rope rotation applied to the q/k tiles on load, out in
-// the input dtype and the row logsumexp in f32.
+// Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_kernel, the one
+// Pallas forward body behind two launch sites:
+//   * _flash_forward_qkv (K1): self-attention on the packed qkv projection,
+//     with GQA and the split-half rope rotation applied to the q/k tiles on
+//     load. The wrapper hands q, k and v over as head-transposed views of
+//     qkv's column sections and out as a view of (B, S, H·D).
+//   * _flash_forward (K3): q (B, H, Sq, D) against k/v (B, H, Skv, D), rope
+//     and kv-head repetition done by the caller; causal masking end-aligned
+//     (query row i sits at position i + off, off = Skv - Sq unless the caller
+//     passes one), so Sq != Skv and q segments are covered.
+// Online softmax with an optional sliding window (keys in [p - window + 1,
+// p]) or no mask at all; out in the input dtype, the row logsumexp in f32.
+// A row with no attended key gets out 0 and lse NEG_INF + log(1e-30), as the
+// TPU kernel writes them.
 //
 // Bound on this card: at the flagship call (B 12, S 2048, 16 heads of 128,
 // causal, bf16) the work is ~2.1e11 FLOPs against ~0.4 GB moved, so the
-// tensor cores bound it (about 0.21 ms at 989 TFLOP/s); only the causal
-// half of the tiles is ever loaded or multiplied.
+// tensor cores bound it (about 0.21 ms at 989 TFLOP/s); only the causal half
+// of the tiles is ever loaded or multiplied.
 //
-// Design: one block of 4 warps per (64-row q tile, head, batch); each warp
-// owns 16 q rows. q, k and v are read straight out of `qkv` (column offsets
-// h·D, (H + h/group)·D, (H + KV + h/group)·D; GQA shares kv columns, no
-// expanded copy exists). The q tile is rotated, scale-folded and rounded
-// once into shared memory; each 64-row kv tile is rotated on load, then
-// S = Q·Kᵀ and O += P·V run on mma.sync (bf16) with the running max,
-// denominator and accumulator in f32 registers. kv tiles wholly outside the
-// causal/window band are never visited, and the q tiles with the most work
-// (the last ones, under causal masking) are scheduled first. It is the
-// simple first kernel: kv tiles are double-buffered with cp.async (the
-// next tile's copy overlaps this tile's products), fragments come from
-// padded shared memory by ldmatrix, and there is no TMA, wgmma or warp
-// specialisation yet.
+// Design: one block of 4 warps per (64-row q tile, head, batch), each warp
+// owning 16 q rows; the q tile is rotated (rope), scale-folded and rounded
+// once in shared memory, the kv loop runs inside the block with the running
+// max, denominator and accumulator in f32 registers, kv tiles are
+// double-buffered with cp.async (rotated on arrival under rope), and
+// fragments come from padded shared memory by ldmatrix into mma.sync (bf16;
+// FMAs for f32). Each operand is read through its own (b, h, s) element
+// strides with a contiguous last dimension, so neither layout needs a copy:
+// GQA divides the head index by the group size for k/v. Rope is a template
+// parameter, so a rope-free call carries none of its registers. kv tiles
+// wholly outside the causal/window band are never visited, and the q tiles
+// with the most work are scheduled first. TMA, wgmma and warp specialisation
+// are later work.
 #include "flash_common.cuh"
 
 namespace dtt {
@@ -34,11 +44,17 @@ constexpr size_t fwd_smem_bytes() {
   return sizeof(T) * ((FWD_BQ + 4 * FWD_BKV) * (D + kPad<T>) + 4 * 16 * (FWD_BKV + kPad<T>));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(FWD_THREADS)
-flash_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ cos,
-                 const float* __restrict__ sin, T* __restrict__ out, float* __restrict__ lse,
-                 int S, int H, int KV, int causal, int window, long long tstride, float scale) {
+// Shared memory already holds a bf16 dh-128 block to two per SM, so asking
+// for two costs no occupancy. It lets ptxas keep all the kernel's live state
+// in registers; left to itself it picks 168 and spills ~100 bytes in the kv
+// loop (7% slower on an H100).
+template <typename T, int D, bool ROPE>
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ out, float* __restrict__ lse, const float* __restrict__ cos,
+                 const float* __restrict__ sin, Bhsd sq, Bhsd sk, Bhsd sv, Bhsd so, int H,
+                 int group, int Sq, int Skv, int off, int causal, int window, long long tstride,
+                 float scale) {
   constexpr int LD = D + kPad<T>, LDP = FWD_BKV + kPad<T>, NT = D / 8, NS = FWD_BKV / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -46,30 +62,46 @@ flash_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ cos,
   T* sP = sQ + (FWD_BQ + 4 * FWD_BKV) * LD;
   auto k_buf = [&](int n) { return sKV + (n & 1) * 2 * FWD_BKV * LD; };
 
-  const int num_q = (S + FWD_BQ - 1) / FWD_BQ;
+  const int num_q = (Sq + FWD_BQ - 1) / FWD_BQ;
   const int q0 = (num_q - 1 - (int)blockIdx.x) * FWD_BQ;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
-  const int width = (H + 2 * KV) * D;
-  const T* src = qkv + (size_t)b * S * width;
-  const float* cb = cos ? cos + b * tstride : nullptr;
-  const float* sb = sin ? sin + b * tstride : nullptr;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+  T* ob = out + b * so.b + h * so.h;
+  float* lb = lse + ((size_t)b * H + h) * Sq;
+  // Rope tables are indexed by row: the wrapper passes them only with off 0.
+  const float* cb = ROPE ? cos + b * tstride : nullptr;
+  const float* sb = ROPE ? sin + b * tstride : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  int kv_begin = 0, kv_end = S;
+  int kv_begin = 0, kv_end = Skv;
   if (causal) {
-    kv_end = min(S, q0 + FWD_BQ);
-    if (window > 0) kv_begin = max(0, q0 - (window - 1)) / FWD_BKV * FWD_BKV;
+    kv_end = min(Skv, min(q0 + FWD_BQ, Sq) + off);  // keys up to the last row's position
+    if (window > 0) kv_begin = max(0, q0 + off - (window - 1)) / FWD_BKV * FWD_BKV;
   }
-  const int n_tiles = (kv_end - kv_begin + FWD_BKV - 1) / FWD_BKV;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + FWD_BKV - 1) / FWD_BKV : 0;
+  if (n_tiles == 0) {  // every row of the tile attends nothing (Sq > Skv, causal)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= Sq) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) store_pair<T>(ob + row[i] * so.s + 8 * j + 2 * t, 0.f, 0.f);
+      if (t == 0) lb[row[i]] = NEG_INF + logf(1e-30f);
+    }
+    return;
+  }
+
   // The copy of kv tile n + 1 runs while tile n is multiplied.
   auto issue_kv = [&](int n) {
     const int k0 = kv_begin + n * FWD_BKV;
-    tile_issue<T, D, FWD_BKV, FWD_THREADS>(k_buf(n), LD, src, width, (H + kvh) * D, k0, S);
-    tile_issue<T, D, FWD_BKV, FWD_THREADS>(k_buf(n) + FWD_BKV * LD, LD, src, width,
-                                           (H + KV + kvh) * D, k0, S);
+    tile_issue<T, D, FWD_BKV, FWD_THREADS>(k_buf(n), LD, kb, (int)sk.s, k0, Skv);
+    tile_issue<T, D, FWD_BKV, FWD_THREADS>(k_buf(n) + FWD_BKV * LD, LD, vb, (int)sv.s, k0,
+                                           Skv);
     cp_async_commit();
   };
-  tile_issue<T, D, FWD_BQ, FWD_THREADS>(sQ, LD, src, width, h * D, q0, S);
+  tile_issue<T, D, FWD_BQ, FWD_THREADS>(sQ, LD, qb, (int)sq.s, q0, Sq);
   cp_async_commit();
   issue_kv(0);
 
@@ -77,7 +109,6 @@ flash_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ cos,
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   T* myP = sP + warp * 16 * LDP;
 
   for (int n = 0; n < n_tiles; ++n) {
@@ -90,8 +121,9 @@ flash_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ cos,
     } else {
       cp_async_wait<0>();
     }
-    if (n == 0) tile_finish<T, D, FWD_BQ, FWD_THREADS>(sQ, LD, q0, S, cb, sb, true, scale);
-    tile_finish<T, D, FWD_BKV, FWD_THREADS>(cK, LD, k0, S, cb, sb, false, 1.f);
+    if (n == 0) tile_finish<T, D, FWD_BQ, FWD_THREADS>(sQ, LD, q0, Sq, cb, sb, true, scale);
+    if constexpr (ROPE)
+      tile_finish<T, D, FWD_BKV, FWD_THREADS>(cK, LD, k0, Skv, cb, sb, false, 1.f);
     __syncthreads();
 
     float sc[NS][4];
@@ -100,16 +132,17 @@ flash_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ cos,
     warp_mma<T, NS, D, true, true>(sc, sQ + warp * 16 * LD, LD, cK, LD);
 
     // Tiles wholly inside the causal/window band skip the per-element mask.
-    const int r_lo = q0 + warp * 16;
-    const bool full = k0 + FWD_BKV <= S &&
-                      (!causal || (k0 + FWD_BKV - 1 <= r_lo &&
-                                   (window <= 0 || k0 > r_lo + 15 - window)));
+    const int p_lo = q0 + warp * 16 + off;  // position of the warp's first row
+    const bool full = k0 + FWD_BKV <= Skv &&
+                      (!causal || (k0 + FWD_BKV - 1 <= p_lo &&
+                                   (window <= 0 || k0 > p_lo + 15 - window)));
     float tmax[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (!full && !attends(row[e >> 1], k0 + 8 * j + 2 * t + (e & 1), S, causal, window))
+        if (!full &&
+            !attends_at(row[e >> 1], k0 + 8 * j + 2 * t + (e & 1), Sq, Skv, off, causal, window))
           sc[j][e] = NEG_INF;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], sc[j][e]);
       }
@@ -142,53 +175,65 @@ flash_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ cos,
     __syncthreads();  // every warp is done with this tile's buffers
   }
 
-  T* dst = out + (size_t)b * S * H * D + h * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (row[i] >= S) continue;
+    if (row[i] >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
-      store_pair<T>(dst + (size_t)row[i] * H * D + 8 * j + 2 * t, acc[j][2 * i] / denom,
+      store_pair<T>(ob + row[i] * so.s + 8 * j + 2 * t, acc[j][2 * i] / denom,
                     acc[j][2 * i + 1] / denom);
-    if (t == 0) lse[((size_t)b * H + h) * S + row[i]] = m[i] + logf(denom);
+    if (t == 0) lb[row[i]] = m[i] + logf(denom);
   }
 }
 
-template <typename T, int D>
-int launch_fwd(const void* qkv, const void* cos, const void* sin, void* out, void* lse, int B,
-               int S, int H, int KV, int causal, int window, long long tstride, float scale,
+template <typename T, int D, bool ROPE>
+int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+               const void* cos, const void* sin, const long long* st, int B, int H, int KV,
+               int Sq, int Skv, int off, int causal, int window, long long tstride, float scale,
                cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes<T, D>();
-  cudaError_t err = set_smem(flash_fwd_kernel<T, D>, smem);
+  cudaError_t err = set_smem(flash_fwd_kernel<T, D, ROPE>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + FWD_BQ - 1) / FWD_BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, FWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(cos),
-      static_cast<const float*>(sin), static_cast<T*>(out), static_cast<float*>(lse), S, H, KV,
-      causal, window, tstride, scale);
+  const Bhsd sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
+      so{st[9], st[10], st[11]};
+  const dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ, H, B);
+  flash_fwd_kernel<T, D, ROPE><<<grid, FWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<const float*>(cos),
+      static_cast<const float*>(sin), sq, sk, sv, so, H, H / KV, Sq, Skv, off, causal, window,
+      tstride, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace dtt
 
-// qkv (B, S, (H + 2·KV)·D) bf16|f32; cos/sin (1|B, S, D/2) f32 or null
-// (tstride = elements between batch rows of the tables, 0 when shared);
-// out (B, S, H·D) like qkv; lse (B, H, S) f32. Returns a cudaError_t.
-extern "C" int dtt_flash_fwd(const void* qkv, const void* cos, const void* sin, void* out,
-                             void* lse, int B, int S, int H, int KV, int D, int is_bf16,
-                             int causal, int window, long long tstride, float scale,
+// q, out (B, H, Sq, D) and k, v (B, KV, Skv, D), bf16|f32, each with its own
+// (b, h, s) element strides in `strides` (q, k, v, out: 12 values) and a
+// contiguous last dimension; lse (B, H, Sq) f32 contiguous. Query head h
+// reads kv head h / (H / KV). q_pos_offset is the position of query row 0.
+// cos/sin (1|B, S, D/2) f32 or null (tstride = elements between batch rows
+// of the tables, 0 when shared) rotate q and k; they need Sq == Skv and
+// q_pos_offset 0. Returns a cudaError_t.
+extern "C" int dtt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                             const void* cos, const void* sin, const long long* strides, int B,
+                             int H, int KV, int Sq, int Skv, int D, int is_bf16, int causal,
+                             int window, int q_pos_offset, long long tstride, float scale,
                              void* stream) {
   using namespace dtt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
-  if (is_bf16 && D == 64)
-    return launch_fwd<bf16, 64>(qkv, cos, sin, out, lse, B, S, H, KV, causal, window, tstride, scale, st);
-  if (is_bf16 && D == 128)
-    return launch_fwd<bf16, 128>(qkv, cos, sin, out, lse, B, S, H, KV, causal, window, tstride, scale, st);
-  if (!is_bf16 && D == 64)
-    return launch_fwd<float, 64>(qkv, cos, sin, out, lse, B, S, H, KV, causal, window, tstride, scale, st);
-  if (!is_bf16 && D == 128)
-    return launch_fwd<float, 128>(qkv, cos, sin, out, lse, B, S, H, KV, causal, window, tstride, scale, st);
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
+  if (cos != nullptr && (Sq != Skv || q_pos_offset != 0)) return (int)cudaErrorInvalidValue;
+#define DTT_FWD(T, DIM)                                                                        \
+  return cos != nullptr                                                                        \
+             ? launch_fwd<T, DIM, true>(q, k, v, out, lse, cos, sin, strides, B, H, KV, Sq,    \
+                                        Skv, q_pos_offset, causal, window, tstride, scale, st) \
+             : launch_fwd<T, DIM, false>(q, k, v, out, lse, cos, sin, strides, B, H, KV, Sq,   \
+                                         Skv, q_pos_offset, causal, window, tstride, scale, st)
+  if (is_bf16 && D == 64) DTT_FWD(bf16, 64);
+  if (is_bf16 && D == 128) DTT_FWD(bf16, 128);
+  if (!is_bf16 && D == 64) DTT_FWD(float, 64);
+  if (!is_bf16 && D == 128) DTT_FWD(float, 128);
+#undef DTT_FWD
   return (int)cudaErrorInvalidValue;
 }

@@ -79,14 +79,16 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 class Dense(nn.Linear):
     """``flax.linen.Dense(dtype=compute_dtype)``: input, weight and bias cast
-    to the compute dtype; lecun-normal weight, zero bias."""
+    to the compute dtype; lecun-normal weight, zero bias, drawn from ``gen``
+    (None: left to be loaded)."""
 
     def __init__(self, in_features, out_features, bias, compute_dtype, gen):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
-        _lecun_normal_(self.weight, in_features, gen)
-        if self.bias is not None:
-            nn.init.zeros_(self.bias)
+        if gen is not None:
+            _lecun_normal_(self.weight, in_features, gen)
+            if self.bias is not None:
+                nn.init.zeros_(self.bias)
 
     def forward(self, x):
         dt = self.compute_dtype
@@ -109,13 +111,15 @@ class LayerNorm(nn.LayerNorm):
 
 class Embed(nn.Embedding):
     """``flax.linen.Embed(dtype=compute_dtype)``: table in the compute dtype,
-    flax's default init (normal, variance 1/num_embeddings)."""
+    flax's default init (normal, variance 1/num_embeddings) drawn from
+    ``gen`` (None: left to be loaded)."""
 
     def __init__(self, num, d, compute_dtype, gen):
         super().__init__(num, d)
         self.compute_dtype = compute_dtype
-        with torch.no_grad():
-            self.weight.normal_(0.0, 1.0 / math.sqrt(num), generator=gen)
+        if gen is not None:
+            with torch.no_grad():
+                self.weight.normal_(0.0, 1.0 / math.sqrt(num), generator=gen)
 
     def forward(self, ids):
         return F.embedding(ids, self.weight.to(self.compute_dtype))

@@ -7,6 +7,11 @@ compared value by value with optax's. The CLI runs on the CPU.
 """
 
 import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +30,8 @@ from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_tra
 from distributed_tensorflow_tpu_torch.train import optimizers as TO
 
 pytestmark = pytest.mark.torch_port
+
+ROOT = Path(__file__).resolve().parent.parent
 
 B, S = 2, 32
 SHAPE = dict(vocab_size=32, d_model=32, num_heads=2, num_layers=1, d_ff=64, max_seq_len=S,
@@ -144,8 +151,65 @@ def test_cli_trains_on_a_text_file(tmp_path, capsys):
     assert record["step"] == 2 and np.isfinite(record["loss"])
 
 
+def test_cli_tp_trains_in_a_world_of_one_on_cpu(capsys):
+    loss = cli.main([
+        "--device", "cpu", "--parallelism", "tp", "--training_steps", "4",
+        "--eval_step_interval", "2", "--seq_len", "32", "--batch_size", "2", "--d_model", "32",
+        "--num_heads", "2", "--num_layers", "1", "--d_ff", "64", "--attention", "flash",
+        "--position", "rope",
+    ])
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["step"] for r in records] == [2, 4]
+    assert all(r["parallelism"] == "tp" and np.isfinite(r["loss"]) for r in records)
+    assert "steps_per_sec" not in records[0] and records[1]["tokens_per_sec"] > 0
+    assert "mfu" not in records[1]  # no peak rate on the CPU
+    assert loss == pytest.approx(records[1]["loss"], abs=1e-4)
+    assert not torch.distributed.is_initialized()  # the world of one is torn down
+
+
+def test_cli_tp_over_worker_hosts_matches_one_process(capsys):
+    """Two processes joined by the reference-style --worker_hosts/--task_index
+    (gloo over loopback, rendezvous at the first host) train the model split
+    in two and print the losses of one process training it whole."""
+    flags = ["--device", "cpu", "--parallelism", "tp", "--training_steps", "4",
+             "--eval_step_interval", "2", "--seq_len", "32", "--batch_size", "2",
+             "--d_model", "32", "--num_heads", "2", "--num_layers", "1", "--d_ff", "64",
+             "--attention", "flash", "--position", "rope"]
+    cli.main(flags)
+    want = [json.loads(line)["loss"] for line in capsys.readouterr().out.splitlines()]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    hosts = f"127.0.0.1:{port},127.0.0.1:{port + 1}"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    env["OMP_NUM_THREADS"] = "1"  # tiny shapes: one thread per rank keeps the host free
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train_lm", *flags,
+         "--model_parallel", "2", "--worker_hosts", hosts, "--task_index", str(r)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for r in range(2)]
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err
+        outs.append(out)
+    records = [json.loads(line) for line in outs[0].splitlines()]
+    assert outs[1] == ""  # only the chief prints
+    assert [r["step"] for r in records] == [2, 4]
+    np.testing.assert_allclose([r["loss"] for r in records], want, atol=1e-4, rtol=0)
+
+
+def test_cli_tp_raises_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["--parallelism", "tp", "--device", "cuda", "--training_steps", "1"])
+
+
 @pytest.mark.parametrize("flag", [
-    ["--parallelism", "tp"], ["--remat"], ["--steps_per_call", "2"], ["--train_dir", "x"],
+    ["--parallelism", "sp"], ["--remat"], ["--steps_per_call", "2"], ["--train_dir", "x"],
     ["--output", "x"], ["--profile_dir", "x"], ["--obs_dir", "x"], ["--slo", "default"],
     ["--attention", "blockwise"],
 ])
