@@ -11,37 +11,52 @@ Phases, in order; any failed check exits non-zero and no result is printed:
   3. kernels   — each kernel against its plain PyTorch version on the same
                  inputs, by a max-based and a blockwise normwise limit (see
                  TOL and BLOCK_TOL). One CUDA kernel per direction serves
-                 both layouts. Packed-qkv wrappers (K1/K2): the dp path's
-                 call shape (batch 12, seq 2048, 16 heads of 128, bf16), and
-                 a small GQA + window + rope case at head_dim 64 with a
-                 ragged sequence, in bf16 and f32. BHSD wrappers (K3/K4): the
-                 tp path's call shape (the same sizes, as the head-transposed
-                 views the tp block hands over) with planted-fault controls,
-                 cross-length causal with a window (Sq 192, Skv 320, head_dim
-                 64) in bf16 and f32, Sq > Skv with fully masked rows (out
-                 exactly 0, everything finite), non-causal at head_dim 128 in
-                 f32, and K4 called on q segments placed by q_pos_offset
-                 against one whole call;
-  4. main      — the trainer (cli/train_lm.py) at the bench flagship's full
-                 width and depth (d_model 2048, 16 heads, 8 layers, d_ff
-                 8192, seq 2048, batch 12, bias-free, flash attention) for 6
-                 steps, in dp mode and then in tp mode (--model_parallel 1,
-                 a world of one): finite loss at every boundary, and exactly
-                 8 forward and 8 backward launches per step of that mode's
-                 kernels and none of the other mode's;
-  5. parity    — one step at flagship width (batch 2) through the kernels and
+                 every layout, and the two-pass pair adds a dq kernel.
+                 Packed-qkv wrappers (K1/K2): the dp path's call shape (batch
+                 12, seq 2048, 16 heads of 128, bf16), and a small GQA +
+                 window + rope case at head_dim 64 with a ragged sequence, in
+                 bf16 and f32. BHSD wrappers (K3/K4): the tp path's call
+                 shape (the head-transposed views the tp block hands over)
+                 with planted-fault controls, cross-length causal with a
+                 window in bf16 and f32, Sq > Skv with fully masked rows,
+                 non-causal at head_dim 128 in f32, and K4 on q segments
+                 against one whole call. The long-sequence family (K7
+                 forward, K8 fused backward on q segments, K5/K6 two-pass
+                 pair) on BSHD operands: the long path's segment call (seq
+                 8192, 4 query heads on one kv head of 128, bf16, rope θ
+                 500000, four segments), GQA + window + cross-length + rope
+                 in bf16 and f32, non-causal, fully masked rows, and planted
+                 faults in K8's, K5's and K6's products;
+  4. main      — the trainer (cli/train_lm.py) for 6 steps on each main path:
+                 dp and tp (--model_parallel 1, a world of one) at the bench
+                 flagship's full width and depth (d_model 2048, 16 heads, 8
+                 layers, d_ff 8192, seq 2048, batch 12, bias-free, flash
+                 attention), and long-context training (the same width with
+                 4 kv heads, seq 8192, batch 3, rope θ 500000): finite loss
+                 at every boundary and exactly the path's launches per step
+                 (8 + 8 of dp's or tp's pair; 8 K1 and 32 K8 on the long
+                 path) and none of any other kernel;
+  5. routes    — one long-context step (batch 1, 2 layers) through the three
+                 backward routes the gate can take (K8 segments, K2 whole,
+                 K5/K6 two-pass) on the same weights: equal launches to the
+                 route, losses and gradients agreeing; then the public
+                 flash_attention_bshd forward and backward at one batch row
+                 of the long call (one K7 launch, four K8 segments) against
+                 the plain versions;
+     parity    — one step at flagship width (batch 2) through the kernels and
                  through plain dense attention, same weights and tokens: the
                  dp model, and the tp model against the dp model (its fused
                  qkv weight split into q/k/v) and against dense attention;
   6. timing    — each kernel at its path's call shape beside its plain
                  version, its bound on this card and the library's nearest
                  call (scaled_dot_product_attention, forward for a forward
-                 kernel and forward+backward for a backward kernel, with its
-                 backward alone beside it; its top-left causal alignment
-                 agrees with ours because Sq == Skv);
-  7. profile   — one flagship training step of each mode under
-                 torch.profiler: device time by kernel class and the device's
-                 idle share.
+                 kernel and forward+backward for a fused backward kernel,
+                 with its backward alone beside it; its top-left causal
+                 alignment agrees with ours because Sq == Skv); K5-K8 at the
+                 long path's call (batch 3, seq 8192, 16 heads on 4 kv
+                 heads), and the three backward routes of one long layer;
+  7. profile   — one training step of each main path under torch.profiler:
+                 device time by kernel class and the device's idle share.
 
 Then a line with nvidia-smi's name and power limit, a JSON line with the
 kernels' numbers, and last ``{"ok": true, "device": {...}}``. Needs one
@@ -65,6 +80,10 @@ from distributed_tensorflow_tpu_torch.ops import attention as A  # noqa: E402
 
 FLAGSHIP = dict(d_model=2048, num_heads=16, num_layers=8, d_ff=8192, seq_len=2048,
                 batch_size=12)
+# Long-context training: the Llama-3 recipe (8192 context, rope theta 500000,
+# 4 query heads per kv head) at the flagship's width; batch 3 keeps its
+# 24576 tokens a step.
+LONG = dict(FLAGSHIP, num_kv_heads=4, seq_len=8192, batch_size=3, rope_theta=500000.0)
 STEPS, INTERVAL = 6, 2
 # Tolerances, as max |kernel - plain| / max |plain|, except lse (absolute).
 # f32 runs every product in full f32 (no TF32); bf16 rounds p and dS to
@@ -89,6 +108,14 @@ BLOCK_TOL = {  # largest sound readings: f32 4.8e-7 / 4.5e-7, bf16 2.7e-3 / 3.6e
     torch.bfloat16: {"out": 8.2e-3, "dqkv": 1.1e-2},
 }
 REPLACES = {
+    "bshd_fwd": "distributed_tensorflow_tpu/ops/attention.py:1261 (_flash_kernel via "
+                "_flash_forward_bshd)",
+    "bshd_bwd": "distributed_tensorflow_tpu/ops/attention.py:1347 (_flash_bwd_fused_kernel "
+                "via _flash_backward_fused_bshd)",
+    "bwd_dq": "distributed_tensorflow_tpu/ops/attention.py:1114 (_flash_bwd_dq_kernel via "
+              "_flash_backward)",
+    "bwd_dkv": "distributed_tensorflow_tpu/ops/attention.py:1140 (_flash_bwd_dkv_kernel via "
+               "_flash_backward)",
     "flash_fwd": "distributed_tensorflow_tpu/ops/attention.py:1660 (_flash_kernel via "
                  "_flash_forward_qkv)",
     "flash_bwd": "distributed_tensorflow_tpu/ops/attention.py:1796 (_flash_bwd_fused_kernel "
@@ -98,13 +125,22 @@ REPLACES = {
     "bhsd_bwd": "distributed_tensorflow_tpu/ops/attention.py:1004 (_flash_bwd_fused_kernel "
                 "via _flash_backward_fused)",
 }
-# The wrappers' launch counters and the source each one launches: both
-# layouts go through one kernel per direction, as the TPU's do.
-SOURCES = {"flash_fwd": "flash_fwd", "bhsd_fwd": "flash_fwd",
-           "flash_bwd": "flash_bwd", "bhsd_bwd": "flash_bwd"}
-# Each mode's wrappers: its main phase must launch these 8 + 8 times a step
-# and the other mode's not at all.
-MODE_KERNELS = {"dp": ("flash_fwd", "flash_bwd"), "tp": ("bhsd_fwd", "bhsd_bwd")}
+# The wrappers' launch counters and the source each one launches: every
+# layout goes through one forward and one fused backward kernel, as the
+# TPU's do; the two-pass pair is flash_bwd_dq.cu (K5) and flash_bwd.cu with
+# dq compiled out (K6).
+SOURCES = {"flash_fwd": "flash_fwd", "bhsd_fwd": "flash_fwd", "bshd_fwd": "flash_fwd",
+           "flash_bwd": "flash_bwd", "bhsd_bwd": "flash_bwd", "bshd_bwd": "flash_bwd",
+           "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd"}
+# Each main path: its trainer flags and its launches per layer per step
+# (every other counter must stay at 0). The long path's backward runs the
+# fused kernel on four q segments of 2048 rows (the JAX package's gate).
+MAIN_PATHS = {
+    "dp": ([], {"flash_fwd": 1, "flash_bwd": 1}),
+    "tp": (["--parallelism", "tp", "--model_parallel", "1"], {"bhsd_fwd": 1, "bhsd_bwd": 1}),
+    "long": (["--num_kv_heads", "4", "--position", "rope", "--rope_theta", "500000"],
+             {"flash_fwd": 1, "bshd_bwd": 4}),
+}
 
 
 def emit(**record):
@@ -262,18 +298,21 @@ def compare_bhsd(case, b, h, sq, skv, d, dtype, causal=True, window=None, bshd=F
     return errs
 
 
-def fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads):
+def fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads,
+                   products=("out: P.V", "dq: dS.K", "dk: dS^T.Q", "dv: P^T.dO")):
     """Plant the fault the max-based limit can miss — one 64-key kv tile
     dropped from the products of the last q tile of head (0, 0) — into the
     kernel's results, one product at a time, and require the blockwise
-    check to fail on each (causal, Sq == Skv, no window)."""
+    check to fail on each of ``products`` (causal, Sq == Skv, no window,
+    no rope; head 0 reads kv head 0 under GQA too). ``out`` or any grad not
+    checked may be None."""
     dtype, s, d = q.dtype, q.shape[2], q.shape[3]
     rows, keys = slice(s - BLOCK_ROWS, s), slice(s // 2, s // 2 + BLOCK_ROWS)
     scale = d ** -0.5
     qs = (q[0, 0, rows].float() * scale).to(dtype).float()
     kt, vt, go = k[0, 0, keys].float(), v[0, 0, keys].float(), g[0, 0, rows].float()
     p = torch.exp(qs @ kt.T - lse[0, 0, rows, None])
-    delta = (go * out[0, 0, rows].float()).sum(-1, keepdim=True)
+    delta = (go * ref_out[0, 0, rows].float()).sum(-1, keepdim=True)
     ds = p * (go @ vt.T - delta)
     planted = (
         ("out: P.V", "out", out, ref_out, rows, p @ vt),
@@ -282,6 +321,8 @@ def fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads):
         ("dv: P^T.dO", "dqkv", grads[2], ref_grads[2], keys, p.T @ go),
     )
     for name, kind, got, ref, at, part in planted:
+        if name not in products:
+            continue
         bad = got.to(torch.float32, copy=True)
         bad[0, 0, at] -= part
         _, rel = _err(bad, ref)
@@ -341,26 +382,117 @@ def phase_kernels():
     return errs
 
 
+def _long_operands(b, h, kv, sq, skv, d, dtype, seed):
+    """q, g (B, Sq, H, D) and k, v (B, Skv, KV, D) on the card: the BSHD
+    layout of K7/K8."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    make = lambda s, n: torch.randn(b, s, n, d, device="cuda", generator=gen).to(dtype)
+    return make(sq, h), make(skv, kv), make(skv, kv), make(sq, h)
+
+
+def compare_long(case, b, h, kv, sq, skv, d, dtype, causal=True, window=None, rope=False,
+                 segments=1, seed=0, controls=False):
+    """K7, K8, K5 and K6 against their plain versions on the same BSHD
+    operands (GQA through the head-group divisor, rope tables of Skv rows
+    read at each row's position, end-aligned causal masking): K7's forward
+    first, then every backward on the kernel's own forward results. K8 runs
+    on ``segments`` q segments placed by q_pos_offset, their dq rows
+    concatenated and their dk/dv shares summed in f32, as the packed long
+    branch runs it. Rows that attend nothing must give out and dq exactly 0.
+    With ``controls`` the planted faults of each product are checked too.
+    Returns the max abs errors of out and of each backward's worst grad."""
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+
+    q, k, v, g = _long_operands(b, h, kv, sq, skv, d, dtype, seed)
+    V = lambda t: t.transpose(1, 2)  # BSHD <-> BHSD view
+    cos = sin = None
+    if rope:
+        cos, sin = rope_tables(d, skv, LONG["rope_theta"], device="cuda")
+    off = skv - sq
+    out, lse = A.flash_forward_kernel(V(q), V(k), V(v), causal, window, None, off, cos, sin,
+                                      counter="bshd_fwd")
+    seg = sq // segments
+    parts = [A.flash_backward_bshd(q[:, a:a + seg], k, v, V(out)[:, a:a + seg],
+                                   lse[:, :, a:a + seg].contiguous(), g[:, a:a + seg], causal,
+                                   window, None, off + a, cos, sin)
+             for a in range(0, sq, seg)]
+    k8 = (V(torch.cat([p[0] for p in parts], dim=1)),
+          V(sum(p[1].float() for p in parts)).to(dtype), V(sum(p[2].float() for p in parts)).to(dtype))
+    del parts
+    args = (causal, window, None, off, cos, sin)
+    dk6, dv6, delta = A.flash_backward_dkv_kernel(V(q), V(k), V(v), out, lse, V(g), *args)
+    dq5 = A.flash_backward_dq_kernel(V(q), V(k), V(v), lse, V(g), delta, *args)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = A.flash_forward_reference(V(q), V(k), V(v), *args)
+    ref = A.flash_backward_reference(V(q), V(k), V(v), out, lse, V(g), *args)
+    outputs = (("out", out), ("lse", lse), *zip(("k8_dq", "k8_dk", "k8_dv"), k8),
+               ("k5_dq", dq5), ("k6_dk", dk6), ("k6_dv", dv6))
+    for name, t in outputs:
+        if not torch.isfinite(t).all():
+            fail(f"{case}: non-finite {name}")
+    dead = ref_lse <= A.NEG_INF / 2  # rows that attend no key
+    if dead.any():
+        if not (lse[dead] <= A.NEG_INF / 2).all() or (out[dead] != 0).any() \
+                or (k8[0][dead] != 0).any() or (dq5[dead] != 0).any():
+            fail(f"{case}: fully masked rows must give out and dq 0 and lse NEG_INF")
+        emit(phase="kernels", case=case, masked_rows=int(dead.sum()), zero_out_dq=True)
+    errs = {"bshd_fwd": _check(case, "out", dtype, out, ref_out, "out")}
+    _check(case, "lse", dtype, lse[~dead], ref_lse[~dead], "lse")
+    errs["bshd_bwd"] = max(_check(case, f"k8_{n}", dtype, t, r, "dqkv")
+                           for n, t, r in zip(("dq", "dk", "dv"), k8, ref))
+    errs["bwd_dq"] = _check(case, "k5_dq", dtype, dq5, ref[0], "dqkv")
+    errs["bwd_dkv"] = max(_check(case, f"k6_{n}", dtype, t, r, "dqkv")
+                          for n, t, r in zip(("dk", "dv"), (dk6, dv6), ref[1:]))
+    if controls:
+        qh, kh, vh, gh = V(q), V(k), V(v), V(g)
+        fault_controls(f"{case} K8", qh, kh, vh, gh, out, lse, k8, ref_out, ref)
+        fault_controls(f"{case} K5", qh, kh, vh, gh, None, lse, (dq5, None, None), ref_out, ref,
+                       products=("dq: dS.K",))
+        fault_controls(f"{case} K6", qh, kh, vh, gh, None, lse, (None, dk6, dv6), ref_out, ref,
+                       products=("dk: dS^T.Q", "dv: P^T.dO"))
+    return errs
+
+
+def phase_kernels_long():
+    """K5-K8: the long-context segment call (one batch row, 4 query heads on
+    1 kv head, seq 8192, head_dim 128, bf16, rope θ 500000, four segments of
+    2048 rows: the trainer's call per kv head group, cut to one group so the
+    plain version fits), GQA + window + cross-length cases in bf16 and f32,
+    fully masked rows, and the planted faults on a causal call."""
+    errs = compare_long("long_segment_call", 1, 4, 1, LONG["seq_len"], LONG["seq_len"], 128,
+                        torch.bfloat16, rope=True, segments=4, seed=20)
+    for dtype in (torch.bfloat16, torch.float32):
+        compare_long("long_gqa_window_cross_rope_d64", 2, 8, 2, 192, 320, 64, dtype, window=100,
+                     rope=True, segments=2, seed=21)
+    compare_long("long_noncausal_cross_d128", 1, 4, 2, 136, 200, 128, torch.float32,
+                 causal=False, seed=22)
+    compare_long("long_fully_masked_rows_d64", 2, 4, 4, 200, 72, 64, torch.float32, seed=23)
+    compare_long("long_controls", 1, 4, 1, 4096, 4096, 128, torch.bfloat16, seed=24,
+                 controls=True)
+    return errs
+
+
 def _zero_counts():
     for k in A.KERNEL_LAUNCHES:
         A.KERNEL_LAUNCHES[k] = 0
 
 
-def phase_main(smi, parallelism):
+def phase_main(smi, path):
+    """The trainer (cli/train_lm.py) on one main path for STEPS steps: finite
+    loss at every boundary and exactly the path's launches."""
     from distributed_tensorflow_tpu_torch.cli import train_lm
 
-    fl = FLAGSHIP
+    shape = LONG if path == "long" else FLAGSHIP
+    flags, per_layer = MAIN_PATHS[path]
     argv = [
-        "--d_model", str(fl["d_model"]), "--num_heads", str(fl["num_heads"]),
-        "--num_layers", str(fl["num_layers"]), "--d_ff", str(fl["d_ff"]),
-        "--seq_len", str(fl["seq_len"]), "--batch_size", str(fl["batch_size"]),
+        "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
+        "--num_layers", str(shape["num_layers"]), "--d_ff", str(shape["d_ff"]),
+        "--seq_len", str(shape["seq_len"]), "--batch_size", str(shape["batch_size"]),
         "--use_bias", "0", "--attention", "flash", "--training_steps", str(STEPS),
-        "--eval_step_interval", str(INTERVAL), "--device", "cuda",
-        "--parallelism", parallelism,
+        "--eval_step_interval", str(INTERVAL), "--device", "cuda", *flags,
     ]
-    if parallelism == "tp":
-        argv += ["--model_parallel", "1"]
-    phase = f"main_{parallelism}"
+    parallelism = "tp" if path == "tp" else "dp"
+    phase = f"main_{path}"
     _zero_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -377,8 +509,7 @@ def phase_main(smi, parallelism):
         fail(f"{phase}: records name another parallelism")
     if not all(r["loss"] == r["loss"] and abs(r["loss"]) < float("inf") for r in records):
         fail(f"{phase}: non-finite loss")
-    want = {k: fl["num_layers"] * STEPS if k in MODE_KERNELS[parallelism] else 0
-            for k in A.KERNEL_LAUNCHES}
+    want = {k: per_layer.get(k, 0) * shape["num_layers"] * STEPS for k in A.KERNEL_LAUNCHES}
     emit(phase=phase, launches=launches, expected=want, wall_s=round(wall, 2))
     if launches != want:
         fail(f"{phase}: kernel launches {launches}, expected {want}")
@@ -387,17 +518,19 @@ def phase_main(smi, parallelism):
         fail(f"{phase}: no timed window")
     emit(phase=phase, steps_per_sec=last["steps_per_sec"],
          tokens_per_sec=last["tokens_per_sec"], mfu=last.get("mfu"), card=smi)
-    return launches
+    return {k: v for k, v in launches.items() if k in per_layer}
 
 
-def _flagship_cfg(attention="flash"):
+def _cfg(shape=FLAGSHIP, attention="flash", num_layers=None):
     from distributed_tensorflow_tpu_torch.models.transformer import TransformerConfig
 
-    fl = FLAGSHIP
+    rope = "rope_theta" in shape
     return TransformerConfig(
-        vocab_size=256, d_model=fl["d_model"], num_heads=fl["num_heads"],
-        num_layers=fl["num_layers"], d_ff=fl["d_ff"], max_seq_len=fl["seq_len"],
-        use_bias=False, attention=attention, compute_dtype=torch.bfloat16,
+        vocab_size=256, d_model=shape["d_model"], num_heads=shape["num_heads"],
+        num_kv_heads=shape.get("num_kv_heads"), num_layers=num_layers or shape["num_layers"],
+        d_ff=shape["d_ff"], max_seq_len=shape["seq_len"], use_bias=False, attention=attention,
+        compute_dtype=torch.bfloat16, position="rope" if rope else "learned",
+        rope_theta=shape.get("rope_theta", 10000.0),
     )
 
 
@@ -407,6 +540,98 @@ def _loss_and_backward(model, tokens):
     loss = next_token_loss(model(tokens), tokens)
     loss.backward()
     return loss.item()
+
+
+# The long path's three backward routes, each forced through the trainer's
+# own dispatch (the JAX package's gate), and each one's launches for a step
+# of ROUTE_LAYERS layers.
+ROUTE_LAYERS = 2
+ROUTES = {
+    "k8_segments": (None, False, {"flash_fwd": 1, "bshd_bwd": 4}),
+    "k2_whole": (1 << 40, False, {"flash_fwd": 1, "flash_bwd": 1}),
+    "k5_k6_two_pass": (None, True, {"flash_fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}),
+}
+
+
+@contextlib.contextmanager
+def backward_route(name):
+    """Set the port's backward gate so that the long path takes route
+    ``name``: the default (K8 on four q segments), the scratch limit raised
+    (K2 in one call), or no segmentation (the two-pass K5/K6)."""
+    limit, two_pass, _ = ROUTES[name]
+    saved = A._FUSED_BWD_SCRATCH_LIMIT, A._fused_segment_rows
+    A._FUSED_BWD_SCRATCH_LIMIT = limit
+    if two_pass:
+        A._fused_segment_rows = lambda *a: None
+    try:
+        yield
+    finally:
+        A._FUSED_BWD_SCRATCH_LIMIT, A._fused_segment_rows = saved
+
+
+def phase_routes():
+    """One long-context step (batch 1, ROUTE_LAYERS layers, full width) on
+    the same weights and tokens through each backward route: the same loss,
+    and the first layer's qkv weight gradient within 5e-2 of its largest
+    value (bf16: the routes round dq and the dk/dv partial sums at
+    different places)."""
+    from distributed_tensorflow_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(_cfg(LONG, num_layers=ROUTE_LAYERS), seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, 256, (1, LONG["seq_len"]), device="cuda", generator=gen)
+    results, route_launches = {}, {}
+    for name, (_, _, per_layer) in ROUTES.items():
+        model.zero_grad(set_to_none=True)
+        _zero_counts()
+        with backward_route(name):
+            loss = _loss_and_backward(model, tokens)
+        launches = {k: v for k, v in A.KERNEL_LAUNCHES.items() if v}
+        want = {k: n * ROUTE_LAYERS for k, n in per_layer.items()}
+        emit(phase="routes", route=name, loss=loss, launches=launches, expected=want)
+        if launches != want:
+            fail(f"routes: {name} launched {launches}, expected {want}")
+        results[name] = (loss, model.block_0.qkv.weight.grad.float().clone())
+        route_launches[name] = launches
+    del model
+    torch.cuda.empty_cache()
+    for name in ("k2_whole", "k5_k6_two_pass"):
+        _parity("routes", name, results[name], "k8_segments", results["k8_segments"])
+    route_launches["flash_attention_bshd"] = phase_bshd()
+    return route_launches
+
+
+def phase_bshd():
+    """The public BSHD op, ``flash_attention_bshd``, forward and backward
+    through autograd at one batch row of the long path's call (seq 8192, 16
+    query heads on 4 kv heads of 128, bf16, causal): one K7 launch and K8 on
+    four q segments, out and grads held against the plain versions (the
+    backward's on the kernel's own forward results)."""
+    s, h, kv = LONG["seq_len"], LONG["num_heads"], LONG["num_kv_heads"]
+    d = LONG["d_model"] // h
+    q, k, v, g = _long_operands(1, h, kv, s, s, d, torch.bfloat16, seed=40)
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    _zero_counts()
+    out = A.flash_attention_bshd(*leaves, causal=True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in A.KERNEL_LAUNCHES.items() if n}
+    want = {"bshd_fwd": 1, "bshd_bwd": s // A._segment_rows(s, d)}
+    emit(phase="routes", route="flash_attention_bshd", launches=launches, expected=want)
+    if launches != want:
+        fail(f"routes: flash_attention_bshd launched {launches}, expected {want}")
+    V = lambda t: t.detach().transpose(1, 2)  # BSHD -> BHSD view
+    _, lse = A.flash_forward_bshd(*(t.detach() for t in leaves), True)
+    ref_out, _ = A.flash_forward_reference(V(q), V(k), V(v), True)
+    ref = A.flash_backward_reference(V(q), V(k), V(v), V(out), lse, V(g), True)
+    _check("bshd_api", "out", torch.bfloat16, V(out), ref_out, "out")
+    for name, t, r in zip(("dq", "dk", "dv"), leaves, ref):
+        if not torch.isfinite(t.grad).all():
+            fail(f"bshd_api: non-finite {name}")
+        _check("bshd_api", name, torch.bfloat16, V(t.grad), r, "dqkv")
+    del q, k, v, g, leaves, out, lse, ref_out, ref
+    torch.cuda.empty_cache()
+    return want
 
 
 def _parity(phase, name_a, a, name_b, b):
@@ -431,7 +656,7 @@ def phase_parity():
     tokens = torch.randint(0, 256, (2, fl["seq_len"]), device="cuda", generator=gen)
     results = {}
     for attention in ("flash", "dense"):
-        model = TransformerLM(_flagship_cfg(attention), seed=0, device="cuda")
+        model = TransformerLM(_cfg(attention=attention), seed=0, device="cuda")
         loss = _loss_and_backward(model, tokens)
         results[attention] = (loss, model.block_0.qkv.weight.grad.float()[:d].clone())
         if attention == "flash":
@@ -448,7 +673,7 @@ def phase_parity():
         torch.cuda.empty_cache()
     _parity("parity", "flash", results["flash"], "dense", results["dense"])
     for attention in ("flash", "dense"):
-        model = TpTransformerLM(_flagship_cfg(attention), device="cuda")
+        model = TpTransformerLM(_cfg(attention=attention), device="cuda")
         model.load_state_dict(tp_state)
         loss = _loss_and_backward(model, tokens)
         results[f"tp_{attention}"] = (loss, model.block_0.q.weight.grad.float().clone())
@@ -493,7 +718,7 @@ def _sdpa(q, k, v, g):
     return fwd, fwd_bwd, bwd
 
 
-def phase_timing(launches, errs):
+def phase_timing(launches, errs, notes):
     from distributed_tensorflow_tpu_torch.utils.flops import chip_hbm_bandwidth, chip_peak_flops
 
     fl = FLAGSHIP
@@ -530,7 +755,7 @@ def phase_timing(launches, errs):
         ),
     }
     kernels = _time_kernels(runs, launches, errs, peak, bw,
-                            dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True))
+                            dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True), notes)
     del qkv, g, out, lse, q, k, v, lib
     torch.cuda.empty_cache()
 
@@ -556,11 +781,103 @@ def phase_timing(launches, errs):
     }
     kernels += _time_kernels(runs, launches, errs, peak, bw,
                              dict(B=b, S=s, H=h, D=d, dtype="bf16", causal=True,
-                                  layout="BSHD views"))
+                                  layout="BSHD views"), notes)
     return kernels
 
 
-def _time_kernels(runs, launches, errs, peak, bw, shape):
+def phase_timing_long(launches, errs, notes):
+    """K7, K8 (one whole call), K5 and K6 at the long-context call shape
+    (batch 3, seq 8192, 16 query heads on 4 kv heads of 128, bf16, causal,
+    BSHD operands), each beside its plain version (run one batch row at a
+    time: the whole call's plain backward would need ~13 GB per S² tensor),
+    its bound and SDPA (on kv heads repeated to 16 beforehand; forward for
+    K7, forward+backward for K8, its backward alone — all three gradients —
+    for K5 and K6). Then the three backward routes of one layer of the long
+    path (packed qkv, rope) end to end."""
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+    from distributed_tensorflow_tpu_torch.utils.flops import chip_hbm_bandwidth, chip_peak_flops
+
+    b, s, h, kv = LONG["batch_size"], LONG["seq_len"], LONG["num_heads"], LONG["num_kv_heads"]
+    d = LONG["d_model"] // h
+    peak, bw = chip_peak_flops(), chip_hbm_bandwidth()
+    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)  # q·kᵀ and p·v over the causal pairs
+    q, k, v, g = _long_operands(b, h, kv, s, s, d, torch.bfloat16, seed=30)
+    V = lambda t: t.transpose(1, 2)
+    out, lse = A.flash_forward_bshd(q, k, v, True)
+    _, _, delta = A.flash_backward_dkv_kernel(V(q), V(k), V(v), V(out), lse, V(g), True)
+    kx, vx = (V(t).repeat_interleave(h // kv, dim=1) for t in (k, v))
+    lib = _sdpa(V(q), kx, vx, V(g))
+    qb, kvb, sb = q.numel() * q.element_size(), k.numel() * k.element_size(), lse.numel() * 4
+
+    def rows(fn):  # the plain version, one batch row at a time
+        return lambda: [fn(i) for i in range(b)]
+
+    def plain_args(i):
+        r = slice(i, i + 1)
+        return V(q[r]), V(k[r]), V(v[r]), V(out[r]), lse[r], V(g[r])
+
+    runs = {
+        # reads q, k, v; writes out, lse
+        "bshd_fwd": ((fwd_flops, 2 * qb + 2 * kvb + sb),
+                     lambda: A.flash_forward_bshd(q, k, v, True),
+                     rows(lambda i: A.flash_forward_reference(*plain_args(i)[:3], True)),
+                     lib[0], None),
+        # reads q, k, v, out, dO, lse; writes dq, dk, dv: five products
+        "bshd_bwd": ((fwd_flops * 5 // 2, 4 * qb + 4 * kvb + sb),
+                     lambda: A.flash_backward_bshd(q, k, v, out, lse, g, True),
+                     rows(lambda i: A.flash_backward_reference(*plain_args(i), True)),
+                     lib[1], lib[2]),
+        # reads q, k, v, dO, lse, delta; writes dq: three products
+        "bwd_dq": ((fwd_flops * 3 // 2, 3 * qb + 2 * kvb + 2 * sb),
+                   lambda: A.flash_backward_dq_kernel(V(q), V(k), V(v), lse, V(g), delta, True),
+                   rows(lambda i: A.flash_backward_dq_reference(*plain_args(i), True)),
+                   lib[2], None),
+        # reads q, k, v, out, dO, lse; writes dk, dv, delta: four products
+        "bwd_dkv": ((fwd_flops * 2, 3 * qb + 4 * kvb + 2 * sb),
+                    lambda: A.flash_backward_dkv_kernel(V(q), V(k), V(v), V(out), lse, V(g),
+                                                        True),
+                    rows(lambda i: A.flash_backward_dkv_reference(*plain_args(i), True)),
+                    lib[2], None),
+    }
+    kernels = _time_kernels(runs, launches, errs, peak, bw,
+                            dict(B=b, S=s, H=h, KV=kv, D=d, dtype="bf16", causal=True,
+                                 layout="BSHD"), notes)
+    del q, k, v, g, out, lse, delta, kx, vx, lib
+    torch.cuda.empty_cache()
+
+    # One layer's backward on the long path through each route.
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    qkv = torch.randn(b, s, (h + 2 * kv) * d, device="cuda", generator=gen).to(torch.bfloat16)
+    go = torch.randn(b, s, h * d, device="cuda", generator=gen).to(torch.bfloat16)
+    cos, sin = rope_tables(d, s, LONG["rope_theta"], device="cuda")
+    out, lse = A.flash_forward_qkv_kernel(qkv, h, kv, True, None, cos, sin, None)
+    heads = A._packed_heads(qkv, h, kv, d)
+
+    def route(name):
+        def run():
+            with backward_route(name):
+                dqkv = torch.empty_like(qkv)
+                A._backward_by_route("flash_bwd", "bshd_bwd", *heads, A._heads(out, d),
+                                     A._heads(go, d), lse, *A._packed_heads(dqkv, h, kv, d),
+                                     True, None, 0, None, cos, sin)
+        return run
+
+    shape = dict(B=b, S=s, H=h, KV=kv, D=d, dtype="bf16")
+    for name in ROUTES:
+        emit(phase="timing_routes", route=name, ms=time_ms(route(name), 5),
+             bound_ms=fwd_flops * 5 // 2 / peak * 1e3, shape=dict(shape, rope=True))
+    # What the in-kernel rope costs K1 on this path: the same call without it.
+    for tables in ((cos, sin), (None, None)):
+        ms = time_ms(lambda t=tables: A.flash_forward_qkv_kernel(qkv, h, kv, True, None, *t,
+                                                                 None), 10)
+        emit(phase="timing_rope", kernel="flash_fwd", rope=tables[0] is not None, ms=ms,
+             bound_ms=fwd_flops / peak * 1e3, shape=shape)
+    return kernels
+
+
+def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
+    """Time each kernel, its plain version and the library's call; ``notes``
+    adds fields to a kernel's record."""
     kernels = []
     for name, ((flops, nbytes), kernel, plain, library, library_bwd) in runs.items():
         t_flops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
@@ -576,6 +893,7 @@ def _time_kernels(runs, launches, errs, peak, bw, shape):
             "bound_ms": max(t_flops, t_bytes),
             "bound_by": "operations" if t_flops >= t_bytes else "bytes",
             "library_ms": time_ms(library, 10),
+            **(notes or {}).get(name, {}),
         }
         extra = {} if library_bwd is None else {"library_bwd_only_ms": time_ms(library_bwd, 10)}
         emit(phase="timing", shape=shape, flops=flops, bytes=nbytes, **rec, **extra)
@@ -585,11 +903,13 @@ def _time_kernels(runs, launches, errs, peak, bw, shape):
 
 # Kernel-name substrings → class, checked in order (cuBLAS's Hopper GEMMs
 # are named nvjet_*, sm90_xmma_* or *gemm*). No kernel name of one class
-# contains another class's substring. Each profiled step runs one mode, so
-# attn_fwd is K1 in the dp step and K3 in the tp step (one CUDA kernel).
+# contains another class's substring. Each profiled step runs one path, so
+# attn_fwd is K1 in the dp and long steps and K3 in the tp step, and
+# attn_bwd is K2, K4 and K8 (K8 on four q segments) in them.
 KERNEL_CLASSES = (
     ("attn_fwd", ("dtt::flash_fwd",)),
     ("attn_bwd", ("dtt::flash_bwd",)),  # delta pre-pass, main kernel, dq pass
+    ("attn_bwd_dq", ("dtt::two_pass_dq",)),  # K5
     ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
     ("layer_norm", ("layer_norm",)),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
@@ -597,7 +917,7 @@ KERNEL_CLASSES = (
 )
 
 
-def phase_profile(parallelism):
+def phase_profile(path):
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_tensorflow_tpu_torch.models.transformer import TransformerLM
@@ -608,16 +928,16 @@ def phase_profile(parallelism):
     )
     from distributed_tensorflow_tpu_torch.train.optimizers import make_optimizer
 
-    fl = FLAGSHIP
-    if parallelism == "tp":
-        model = TpTransformerLM(_flagship_cfg(), seed=0, device="cuda")
+    shape = LONG if path == "long" else FLAGSHIP
+    if path == "tp":
+        model = TpTransformerLM(_cfg(), seed=0, device="cuda")
         build = build_tp_lm_train_step
     else:
-        model = TransformerLM(_flagship_cfg(), seed=0, device="cuda")
+        model = TransformerLM(_cfg(shape), seed=0, device="cuda")
         build = build_lm_train_step
     step = build(model, make_optimizer("adam", model.parameters(), 3e-3, 10))
     gen = torch.Generator(device="cuda").manual_seed(11)
-    tokens = torch.randint(0, 256, (fl["batch_size"], fl["seq_len"]), device="cuda",
+    tokens = torch.randint(0, 256, (shape["batch_size"], shape["seq_len"]), device="cuda",
                            generator=gen)
     for _ in range(2):
         step(tokens)
@@ -646,7 +966,7 @@ def phase_profile(parallelism):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     first, last = min(s for s, _ in spans), max(e for _, e in spans)
-    emit(phase=f"profile_{parallelism}", step_wall_ms=wall_ms,
+    emit(phase=f"profile_{path}", step_wall_ms=wall_ms,
          device_span_ms=(last - first) / 1e3, device_busy_ms=busy_us / 1e3,
          idle_share=1.0 - busy_us / (last - first), kernels=len(spans),
          device_ms_by_class={k: round(v, 3) for k, v in by_class.items()})
@@ -658,12 +978,26 @@ def main():
     smi = phase_card()
     phase_build()
     errs = phase_kernels()
-    launches = phase_main(smi, "dp")
-    launches.update({k: v for k, v in phase_main(smi, "tp").items() if k in MODE_KERNELS["tp"]})
+    errs.update(phase_kernels_long())
+    by_path = {path: phase_main(smi, path) for path in MAIN_PATHS}
+    # A kernel's launches are those of the first main path it serves; the
+    # record lists every path's, and the routes phase's for the kernels no
+    # main path takes (K5/K6 run only where no q segmentation exists, K7
+    # only under flash_attention_bshd).
+    launches = {k: next((c[k] for c in by_path.values() if k in c), 0)
+                for k in A.KERNEL_LAUNCHES}
+    notes = {k: {"launches_by_path": {p: c[k] for p, c in by_path.items() if k in c}}
+             for k in A.KERNEL_LAUNCHES}
+    for name, route_launches in phase_routes().items():
+        for k in ("bshd_fwd", "bwd_dq", "bwd_dkv"):
+            if k in route_launches:
+                notes[k]["launches_by_route"] = {name: route_launches[k]}
+    for k in ("bwd_dq", "bwd_dkv"):
+        notes[k]["library_call"] = "SDPA backward alone (all three gradients)"
     phase_parity()
-    kernels = phase_timing(launches, errs)
-    phase_profile("dp")
-    phase_profile("tp")
+    kernels = phase_timing(launches, errs, notes) + phase_timing_long(launches, errs, notes)
+    for path in MAIN_PATHS:
+        phase_profile(path)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 // Flash attention backward on strided (B, H, S, D) operands, for Hopper.
 //
 // Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_bwd_fused_kernel,
-// the one Pallas backward body behind two launch sites:
+// the one Pallas backward body behind three launch sites, and
+// _flash_bwd_dkv_kernel:
 //   * _flash_backward_qkv (K2): the packed qkv projection's backward, with
 //     dq/dk rotated back by the inverse rope and the kv grads of a GQA group
 //     summed into their shared kv head;
@@ -10,6 +11,14 @@
 //     0 in the key sequence, so a call on a q segment of a longer sequence
 //     computes that segment's dq and its share of dk/dv, as the TPU kernel's
 //     segmented calls do.
+//   * _flash_backward_fused_bshd (K8): the same on the (B, S, H, D)
+//     activation layout, one call or one per q segment; the packed long-
+//     sequence backward hands it head views of qkv (GQA and rope as for K2,
+//     the rope tables read at each segment's positions).
+//   * _flash_backward's _flash_bwd_dkv_kernel (K6), the dk/dv half of the
+//     two-pass pair: the same kernel with the dq product compiled out (dq
+//     null); its dq half, K5, is flash_bwd_dq.cu, which reads the delta this
+//     launch writes.
 // p is recomputed from the saved logsumexp (and zeroed on rows whose lse says
 // they attended nothing: there NEG_INF is finite, so exp(logit - lse) would
 // be 1), delta = rowsum(dO∘O), dv = pᵀ·dO, dS = p∘(dO·vᵀ − delta),
@@ -18,7 +27,7 @@
 // Bound on this card: five tile products against the forward's two, ~5.2e11
 // FLOPs at the flagship call (B 12, S 2048, 16 heads of 128, causal, bf16)
 // against ~0.6-0.8 GB moved — the tensor cores bound it (about 0.52 ms at
-// 989 TFLOP/s).
+// 989 TFLOP/s). K6 (dq null) does four of the five products.
 //
 // Design: the TPU kernel walks its grid in order and keeps dq for the whole
 // sequence in VMEM; blocks on Hopper run in no order, so nothing carries
@@ -77,7 +86,7 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ out, const T* __res
   if (lane == 0) delta[r] = acc;
 }
 
-template <typename T, int D, bool ROPE>
+template <typename T, int D, bool ROPE, bool DQ>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
@@ -100,7 +109,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vb = v + b * st.v.b + kvh * st.v.h;
   T* dkb = dk_out + b * st.dk.b + kvh * st.dk.h;
   T* dvb = dv_out + b * st.dv.b + kvh * st.dv.h;
-  // Rope tables are indexed by row: the wrapper passes them only with off 0.
+  // Rope tables are indexed by position: q row r sits at r + off, key row r at r.
   const float* cb = ROPE ? cos + b * tstride : nullptr;
   const float* sb = ROPE ? sin + b * tstride : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -168,9 +177,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         cp_async_wait<0>();
       }
       if constexpr (ROPE) {
-        if (n == 0) tile_finish<T, D, BWD_BKV, BWD_THREADS>(sK, LD, k0, Skv, cb, sb, false, 1.f);
+        if (n == 0)
+          tile_finish<T, D, BWD_BKV, BWD_THREADS>(sK, LD, k0, Skv, cb, sb, false, 1.f, 0);
       }
-      tile_finish<T, D, BWD_BQ, BWD_THREADS>(sQ, LD, q0, Sq, cb, sb, true, scale);
+      tile_finish<T, D, BWD_BQ, BWD_THREADS>(sQ, LD, q0, Sq, cb, sb, true, scale, off);
       __syncthreads();
 
       // Sᵀ = K·Qᵀ for this warp's 16 kv rows, then Pᵀ = exp(Sᵀ − lse).
@@ -215,24 +225,30 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                         pt[j][2 * i] * (dpt[j][2 * i] - sDelta[c]),
                         pt[j][2 * i + 1] * (dpt[j][2 * i + 1] - sDelta[c + 1]));
         }
-      __syncthreads();  // dSᵀ of all four warps is in shared memory
+      if constexpr (DQ) {
+        __syncthreads();  // dSᵀ of all four warps is in shared memory
+      } else {
+        __syncwarp();  // dK reads this warp's own dSᵀ rows only
+      }
 
       warp_mma<T, NT, BWD_BQ, true, false>(dk, mydS, LDQ, sQ, LD);  // dK += dSᵀ·(q·s)
 
-      // dQ += s · dS·K over this block's 64 kv rows; dS(q, kv) = sdS[kv][q].
-      float dq[NT / 2][4];
+      if constexpr (DQ) {
+        // dQ += s · dS·K over this block's 64 kv rows; dS(q, kv) = sdS[kv][q].
+        float dq[NT / 2][4];
 #pragma unroll
-      for (int j = 0; j < NT / 2; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-      warp_mma<T, NT / 2, BWD_BKV, false, false>(dq, sdS + dq_r0, LDQ, sK + dq_c0, LD);
+        for (int j = 0; j < NT / 2; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+        warp_mma<T, NT / 2, BWD_BKV, false, false>(dq, sdS + dq_r0, LDQ, sK + dq_c0, LD);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int qr = q0 + dq_r0 + g + 8 * i;
-        if (qr >= Sq) continue;
-        float* dst = dq_acc + (head_row(h) + qr) * D + dq_c0 + 2 * t;
+        for (int i = 0; i < 2; ++i) {
+          const int qr = q0 + dq_r0 + g + 8 * i;
+          if (qr >= Sq) continue;
+          float* dst = dq_acc + (head_row(h) + qr) * D + dq_c0 + 2 * t;
 #pragma unroll
-        for (int j = 0; j < NT / 2; ++j)
-          atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
-                    make_float2(scale * dq[j][2 * i], scale * dq[j][2 * i + 1]));
+          for (int j = 0; j < NT / 2; ++j)
+            atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
+                      make_float2(scale * dq[j][2 * i], scale * dq[j][2 * i + 1]));
+        }
       }
       __syncthreads();  // every warp is done with this step's buffers
     }
@@ -273,7 +289,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, bool ROPE>
 __global__ void flash_bwd_dq_kernel(const float* __restrict__ dq_acc,
                                     const float* __restrict__ cos, const float* __restrict__ sin,
-                                    T* __restrict__ dq, Bhsd sd, int H, int Sq, int D,
+                                    T* __restrict__ dq, Bhsd sd, int H, int Sq, int D, int off,
                                     long long tstride, long long pairs) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= pairs) return;
@@ -283,7 +299,8 @@ __global__ void flash_bwd_dq_kernel(const float* __restrict__ dq_acc,
   const long long b = row / ((long long)H * Sq), h = (row / Sq) % H, s = row % Sq;
   float x1 = dq_acc[row * D + i], x2 = dq_acc[row * D + i + half];
   if constexpr (ROPE) {
-    const float c = cos[b * tstride + s * half + i], sn = sin[b * tstride + s * half + i];
+    const long long at = b * tstride + (s + off) * half + i;  // the row's position: s + off
+    const float c = cos[at], sn = sin[at];
     const float y1 = x1 * c + x2 * sn, y2 = x2 * c - x1 * sn;
     x1 = y1;
     x2 = y2;
@@ -303,29 +320,36 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   const Bhsd sq = at(0), sk = at(1), sv = at(2), so = at(3), sg = at(4), sdq = at(5),
              sdk = at(6), sdv = at(7);
   const long long rows = (long long)B * H * Sq;
-  cudaError_t err = cudaMemsetAsync(dq_acc, 0, rows * D * sizeof(float), stream);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (dq != nullptr && (err = cudaMemsetAsync(dq_acc, 0, rows * D * sizeof(float), stream)) !=
+                           cudaSuccess)
+    return (int)err;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<float*>(delta), so,
       sg, H, Sq, D, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem = bwd_smem_bytes<T, D>();
-  if ((err = set_smem(flash_bwd_kernel<T, D, ROPE>, smem)) != cudaSuccess) return (int)err;
   const dim3 grid((Skv + BWD_BKV - 1) / BWD_BKV, KV, B);
-  flash_bwd_kernel<T, D, ROPE><<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(cos),
-      static_cast<const float*>(sin), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<float*>(dq_acc), BwdStrides{sq, sk, sv, sg, sdk, sdv}, H, H / KV, Sq, Skv,
-      off, causal, window, tstride, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  auto main_kernel = [&](auto kernel) {
+    cudaError_t e = set_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, BWD_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<const float*>(cos),
+        static_cast<const float*>(sin), static_cast<T*>(dk), static_cast<T*>(dv),
+        static_cast<float*>(dq_acc), BwdStrides{sq, sk, sv, sg, sdk, sdv}, H, H / KV, Sq, Skv,
+        off, causal, window, tstride, scale);
+    return cudaGetLastError();
+  };
+  if (dq == nullptr) return (int)main_kernel(flash_bwd_kernel<T, D, ROPE, false>);
+  if ((err = main_kernel(flash_bwd_kernel<T, D, ROPE, true>)) != cudaSuccess) return (int)err;
 
   const long long pairs = rows * (D / 2);
   flash_bwd_dq_kernel<T, ROPE><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(dq_acc), static_cast<const float*>(cos),
-      static_cast<const float*>(sin), static_cast<T*>(dq), sdq, H, Sq, D, tstride, pairs);
+      static_cast<const float*>(sin), static_cast<T*>(dq), sdq, H, Sq, D, off, tstride, pairs);
   return (int)cudaGetLastError();
 }
 
@@ -337,7 +361,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
 // dimension; lse (B, H, Sq) f32 contiguous; scratch: dq_acc (B, H, Sq, D)
 // f32 and delta (B, H, Sq) f32. Query head h reads kv head h / (H / KV),
 // and dk/dv sum over each kv head's group. q_pos_offset is the position of
-// query row 0; cos/sin as in dtt_flash_fwd. Returns a cudaError_t.
+// query row 0; cos/sin as in dtt_flash_fwd. With dq null only dk and dv are
+// computed (K6; dq_acc unused) and delta is left for flash_bwd_dq.cu (K5).
+// Returns a cudaError_t.
 extern "C" int dtt_flash_bwd(const void* q, const void* k, const void* v, const void* out,
                              const void* dout, const void* lse, const void* cos,
                              const void* sin, void* dq, void* dk, void* dv, void* dq_acc,
@@ -347,7 +373,8 @@ extern "C" int dtt_flash_bwd(const void* q, const void* k, const void* v, const 
   using namespace dtt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
-  if (cos != nullptr && (Sq != Skv || q_pos_offset != 0)) return (int)cudaErrorInvalidValue;
+  if (cos != nullptr && (q_pos_offset < 0 || q_pos_offset + Sq > Skv))
+    return (int)cudaErrorInvalidValue;
 #define DTT_BWD(T, DIM)                                                                          \
   return cos != nullptr                                                                          \
              ? launch_bwd<T, DIM, true>(q, k, v, out, dout, lse, cos, sin, dq, dk, dv, dq_acc,   \

@@ -70,7 +70,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // checks 16-byte alignment) and zero-fills rows at or past S (masked later;
 // zeros keep 0·x finite). Once this thread's copies have landed,
 // tile_finish transforms the same elements in place: with tables (`cos` !=
-// nullptr, rows of D/2 f32 at absolute positions) each row is rotated
+// nullptr, rows of D/2 f32 indexed by position; tile row r sits at position
+// row0 + r + `tpos`, so a q segment placed by q_pos_offset reads its own
+// rows of the tables) each row is rotated
 // split-half in f32 and rounded to T; with `fold` it is then multiplied by
 // `scale` in f32 and rounded again — the kernels' q operand, as the Pallas
 // kernels and the plain version round it. A thread owns the vectors at
@@ -99,7 +101,8 @@ __device__ __forceinline__ void tile_issue(T* dst, int lds, const T* src, int ld
 
 template <typename T, int D, int NROWS, int THREADS>
 __device__ __forceinline__ void tile_finish(T* dst, int lds, int row0, int S, const float* cos,
-                                            const float* sin, bool fold, float scale) {
+                                            const float* sin, bool fold, float scale,
+                                            int tpos) {
   constexpr int half = D / 2, V = 16 / sizeof(T), VPR = half / V, N = NROWS * VPR;
   if (cos == nullptr && !fold) return;
 #pragma unroll
@@ -108,6 +111,7 @@ __device__ __forceinline__ void tile_finish(T* dst, int lds, int row0, int S, co
     if (N % THREADS != 0 && idx >= N) break;
     const int r = idx / VPR, i0 = (idx % VPR) * V, grow = row0 + r;
     if (grow >= S) continue;
+    const size_t trow = (size_t)(grow + tpos) * half;
     T* d = dst + r * lds + i0;
     alignas(16) T x1[V], x2[V];
     alignas(16) float c[V], s[V];
@@ -117,9 +121,9 @@ __device__ __forceinline__ void tile_finish(T* dst, int lds, int row0, int S, co
 #pragma unroll
       for (int v = 0; v < V; v += 4) {
         *reinterpret_cast<float4*>(c + v) =
-            *reinterpret_cast<const float4*>(cos + (size_t)grow * half + i0 + v);
+            *reinterpret_cast<const float4*>(cos + trow + i0 + v);
         *reinterpret_cast<float4*>(s + v) =
-            *reinterpret_cast<const float4*>(sin + (size_t)grow * half + i0 + v);
+            *reinterpret_cast<const float4*>(sin + trow + i0 + v);
       }
     }
 #pragma unroll

@@ -10,6 +10,8 @@
 //     and kv-head repetition done by the caller; causal masking end-aligned
 //     (query row i sits at position i + off, off = Skv - Sq unless the caller
 //     passes one), so Sq != Skv and q segments are covered.
+//   * _flash_forward_bshd (K7): the same on the (B, S, H, D) activation
+//     layout, which the wrapper hands over as head-transposed views.
 // Online softmax with an optional sliding window (keys in [p - window + 1,
 // p]) or no mask at all; out in the input dtype, the row logsumexp in f32.
 // A row with no attended key gets out 0 and lse NEG_INF + log(1e-30), as the
@@ -70,7 +72,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vb = v + b * sv.b + kvh * sv.h;
   T* ob = out + b * so.b + h * so.h;
   float* lb = lse + ((size_t)b * H + h) * Sq;
-  // Rope tables are indexed by row: the wrapper passes them only with off 0.
+  // Rope tables are indexed by position: q row r sits at r + off, key row r at r.
   const float* cb = ROPE ? cos + b * tstride : nullptr;
   const float* sb = ROPE ? sin + b * tstride : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -121,9 +123,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     } else {
       cp_async_wait<0>();
     }
-    if (n == 0) tile_finish<T, D, FWD_BQ, FWD_THREADS>(sQ, LD, q0, Sq, cb, sb, true, scale);
+    if (n == 0) tile_finish<T, D, FWD_BQ, FWD_THREADS>(sQ, LD, q0, Sq, cb, sb, true, scale, off);
     if constexpr (ROPE)
-      tile_finish<T, D, FWD_BKV, FWD_THREADS>(cK, LD, k0, Skv, cb, sb, false, 1.f);
+      tile_finish<T, D, FWD_BKV, FWD_THREADS>(cK, LD, k0, Skv, cb, sb, false, 1.f, 0);
     __syncthreads();
 
     float sc[NS][4];
@@ -212,9 +214,10 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
 // (b, h, s) element strides in `strides` (q, k, v, out: 12 values) and a
 // contiguous last dimension; lse (B, H, Sq) f32 contiguous. Query head h
 // reads kv head h / (H / KV). q_pos_offset is the position of query row 0.
-// cos/sin (1|B, S, D/2) f32 or null (tstride = elements between batch rows
-// of the tables, 0 when shared) rotate q and k; they need Sq == Skv and
-// q_pos_offset 0. Returns a cudaError_t.
+// cos/sin (1|B, Skv, D/2) f32 or null (tstride = elements between batch
+// rows of the tables, 0 when shared) rotate q and k by position: key row r at
+// r, query row i at i + q_pos_offset, which must then lie in [0, Skv - Sq].
+// Returns a cudaError_t.
 extern "C" int dtt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              const void* cos, const void* sin, const long long* strides, int B,
                              int H, int KV, int Sq, int Skv, int D, int is_bf16, int causal,
@@ -223,7 +226,8 @@ extern "C" int dtt_flash_fwd(const void* q, const void* k, const void* v, void* 
   using namespace dtt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
-  if (cos != nullptr && (Sq != Skv || q_pos_offset != 0)) return (int)cudaErrorInvalidValue;
+  if (cos != nullptr && (q_pos_offset < 0 || q_pos_offset + Sq > Skv))
+    return (int)cudaErrorInvalidValue;
 #define DTT_FWD(T, DIM)                                                                        \
   return cos != nullptr                                                                        \
              ? launch_fwd<T, DIM, true>(q, k, v, out, lse, cos, sin, strides, B, H, KV, Sq,    \

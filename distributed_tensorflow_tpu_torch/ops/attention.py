@@ -1,6 +1,6 @@
 """Attention ops: the dense reference and flash attention — on the packed
-qkv projection and on (B, H, S, D) operands — with hand-written CUDA kernels
-for Hopper.
+qkv projection, on (B, H, S, D) operands and on the (B, S, H, D) activation
+layout — with hand-written CUDA kernels for Hopper.
 
 Counterpart of ``distributed_tensorflow_tpu/ops/attention.py``. Semantics
 are the JAX package's:
@@ -12,22 +12,28 @@ are the JAX package's:
     (H + 2·KV)·dh), columns ``[q | k | v]`` with heads contiguous inside
     each section; under GQA each group of H/KV query heads reads its shared
     kv head's columns;
-  * rope tables (1|B, S, dh/2) rotate q and k (split-half, f32 arithmetic,
-    rounded to the operand dtype) before the softmax scale is folded into q
-    and rounded again — the FlashAttention-2 convention the Pallas kernels
-    use;
+  * rope tables (1|B, S, dh/2), indexed by position, rotate q and k
+    (split-half, f32 arithmetic, rounded to the operand dtype) before the
+    softmax scale is folded into q and rounded again — the FlashAttention-2
+    convention the Pallas kernels use;
   * the BHSD flash path (:func:`flash_attention`) takes q (B, H, Sq, D) and
-    k, v (B, H, Skv, D) already rotated and with kv heads repeated, as the
-    tensor-parallel block hands them over.
+    k, v (B, H, Skv, D) already rotated, as the tensor-parallel block hands
+    them over; :func:`flash_attention_bshd` the same on (B, S, H, D).
 
-Two implementations of each flash path: the CUDA kernels ``csrc/
-flash_fwd.cu`` / ``csrc/flash_bwd.cu`` — one pair on strided (B, H, S, D)
-operands, as the Pallas ``_flash_kernel`` / ``_flash_bwd_fused_kernel`` are
-one pair behind ``_flash_forward_qkv`` / ``_flash_backward_qkv`` and
-``_flash_forward`` / ``_flash_backward_fused``; the packed path hands them
-head views of qkv — and their plain PyTorch versions (``*_reference``). A
-CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises — there is no fallback between them.
+The backward follows the JAX package's dispatch: one fused call while its
+whole-sequence dq scratch fits ``_fused_bwd_scratch_limit()`` (the TPU's
+VMEM gate, kept so that a shape takes the same route on both), else the
+fused call once per q segment (:func:`_fused_segment_rows`), else the
+two-pass pair — a dq kernel and a dk/dv kernel. The packed path's long
+branch runs the BSHD fused kernel on head views of qkv.
+
+Kernels (``csrc/``): ``flash_fwd.cu`` — one forward on strided (B, H, S, D)
+operands behind every layout (K1, K3, K7); ``flash_bwd.cu`` — one fused
+backward behind every layout (K2, K4, K8) and, with dq compiled out, the
+two-pass dk/dv kernel (K6); ``flash_bwd_dq.cu`` — the two-pass dq kernel
+(K5). Each has a plain PyTorch version here (``*_reference``). A CPU tensor
+takes the plain version; a CUDA tensor launches the kernel or raises —
+there is no fallback between them.
 """
 
 from __future__ import annotations
@@ -44,7 +50,13 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 # Launches of each kernel since the counts were last zeroed; a wrapper adds
 # one exactly where it launches, so a run can show it went through them.
-KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "bhsd_fwd": 0, "bhsd_bwd": 0}
+# flash_*: the packed path (K1/K2); bhsd_*: BHSD (K3/K4); bshd_*: the BSHD
+# layout and the packed long branch (K7/K8); bwd_dq/bwd_dkv: the two-pass
+# pair (K5/K6).
+KERNEL_LAUNCHES = {
+    "flash_fwd": 0, "flash_bwd": 0, "bhsd_fwd": 0, "bhsd_bwd": 0,
+    "bshd_fwd": 0, "bshd_bwd": 0, "bwd_dq": 0, "bwd_dkv": 0,
+}
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -54,14 +66,17 @@ def _scale(head_dim: int, scale: float | None) -> float:
     return (1.0 / math.sqrt(head_dim)) if scale is None else float(scale)
 
 
+def _offset(sq: int, skv: int, q_pos_offset: int | None) -> int:
+    return skv - sq if q_pos_offset is None else int(q_pos_offset)
+
+
 def _mask(sq: int, skv: int, causal: bool, window: int | None, device,
           q_pos_offset: int | None = None):
     """(sq, skv) bool, True = attend; None when nothing is masked. Query row
     i sits at position i + q_pos_offset (default skv - sq: end-aligned)."""
     if not causal:
         return None
-    offset = skv - sq if q_pos_offset is None else q_pos_offset
-    q_pos = torch.arange(sq, device=device)[:, None] + offset
+    q_pos = torch.arange(sq, device=device)[:, None] + _offset(sq, skv, q_pos_offset)
     k_pos = torch.arange(skv, device=device)[None, :]
     mask = k_pos <= q_pos
     if window is not None:
@@ -93,6 +108,184 @@ def dense_attention(q, k, v, causal: bool = False, scale: float | None = None,
         weights = weights * mask.any(dim=-1)[:, None]
     weights = weights.to(q.dtype).float()
     return torch.einsum("bhqk,bhkd->bhqd", weights, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The backward's route gate: the JAX package's, so that a shape takes the
+# same route on both. The gate is sized for the TPU kernel's VMEM dq
+# scratch; the CUDA kernels have no such limit, but which counterpart runs
+# follows it. Tiles stay the port's own.
+# ---------------------------------------------------------------------------
+
+# None = the JAX default under its default VMEM budget (2 MiB); tests (and
+# callers wanting a fixed gate) may set a byte count here.
+_FUSED_BWD_SCRATCH_LIMIT: int | None = None
+_STAT_LANES = 128  # the TPU kernels' lane-padded statistic rows
+_GATE_BLOCK = 1024  # the JAX functions' default block_q, which the gate fits
+
+
+def _fused_bwd_scratch_limit() -> int:
+    if _FUSED_BWD_SCRATCH_LIMIT is not None:
+        return _FUSED_BWD_SCRATCH_LIMIT
+    return 2 * 1024 * 1024
+
+
+def _dq_scratch_bytes_per_row(d: int) -> int:
+    # f32 dq row (lane dim padded to a multiple of 128) + f32 delta row.
+    return -(-d // 128) * 128 * 4 + _STAT_LANES * 4
+
+
+def _fit_block(requested: int, seq: int) -> int:
+    """Largest block ≤ requested that divides seq and is a multiple of 8,
+    else the whole sequence."""
+    for b in range(min(requested, seq), 7, -1):
+        if seq % b == 0 and b % 8 == 0:
+            return b
+    return seq
+
+
+def _fused_segment_rows(sq: int, d: int, block_q: int) -> int | None:
+    """Largest q-segment length whose f32 dq scratch fits the limit: a
+    multiple of ``block_q`` that divides ``sq`` evenly. None when no such
+    segmentation exists (the two-pass kernels run instead)."""
+    max_rows = _fused_bwd_scratch_limit() // _dq_scratch_bytes_per_row(d)
+    if block_q > max_rows:
+        return None
+    for n_seg in range(-(-sq // max_rows), sq + 1):  # smallest count first
+        if sq % n_seg:
+            continue
+        seg = sq // n_seg
+        if seg <= max_rows and seg % block_q == 0:
+            return seg
+    return None
+
+
+def _segment_rows(sq: int, d: int) -> int | None:
+    """The backward's route for ``sq`` query rows of head_dim ``d``: ``sq``
+    (one fused call), a segment length (one fused call per q segment), or
+    None (the two-pass pair)."""
+    if sq * _dq_scratch_bytes_per_row(d) <= _fused_bwd_scratch_limit():
+        return sq
+    return _fused_segment_rows(sq, d, _fit_block(_GATE_BLOCK, sq))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernels, on (B, H, S, D) views: k and v may carry
+# fewer (kv) heads, each shared by a group of H/KV query heads, and rope
+# tables rotate q rows at their positions (row + q_pos_offset) and k rows at
+# theirs.
+# ---------------------------------------------------------------------------
+
+
+def _bhsd_dims(q, k, v) -> tuple[int, int, int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, H, S, head_dim)")
+    b, h, sq, d = q.shape
+    kv = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or kv < 1 or h % kv:
+        raise ValueError(
+            f"k and v must be (B, KV, Skv, head_dim) with KV dividing H, matching q "
+            f"{tuple(q.shape)}, got {tuple(k.shape)} and {tuple(v.shape)}"
+        )
+    return b, h, sq, k.shape[2], d
+
+
+def _rotate(t, cos, sin, start: int, inverse: bool = False):
+    """``t`` (B, n, S, D) rotated by the tables' rows [start, start + S) —
+    by the inverse rotation with ``inverse`` — in f32, returned in t's
+    dtype; ``t`` itself without tables."""
+    if cos is None:
+        return t
+    rows = slice(start, start + t.shape[2])
+    sin = -sin if inverse else sin
+    return apply_rope(t.transpose(1, 2), cos[:, rows], sin[:, rows]).transpose(1, 2)
+
+
+def _plain_front(q, k, v, causal, window, s, off, cos, sin):
+    """The plain versions' shared front, in f32: q rotated and
+    scale-folded, k rotated, each rounded to its dtype as the kernels round
+    them; k and v with their heads repeated to q's; the masked logits."""
+    group = q.shape[1] // k.shape[1]
+    q, k = _rotate(q, cos, sin, off), _rotate(k, cos, sin, 0)
+    qs = (q.float() * s).to(q.dtype).float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    logits = qs @ kf.transpose(-1, -2)
+    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device, off)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    return qs, kf, vf, logits
+
+
+def _probs(logits, lse):
+    # A row that attended nothing has lse ~ NEG_INF, which is finite, so
+    # exp(logit - lse) would be 1 on its masked logits: zero it, as the
+    # Pallas kernels do.
+    return torch.where(lse[..., None] <= NEG_INF / 2, 0.0, torch.exp(logits - lse[..., None]))
+
+
+def flash_forward_reference(q, k, v, causal=False, window=None, scale=None,
+                            q_pos_offset=None, cos=None, sin=None):
+    """Plain version of the forward kernel: q rotated (rope tables, f32) and
+    scale-folded, kv heads repeated, dense masked softmax in f32. Returns
+    ``out`` (B, H, Sq, D) in q's dtype — 0 on rows that attend nothing — and
+    ``lse`` (B, H, Sq) f32, the row logsumexp (NEG_INF on such rows)."""
+    _check_window(causal, window)
+    _, _, sq, skv, d = _bhsd_dims(q, k, v)
+    _, _, vf, logits = _plain_front(q, k, v, causal, window, _scale(d, scale),
+                                    _offset(sq, skv, q_pos_offset), cos, sin)
+    lse = torch.logsumexp(logits, dim=-1)
+    out = _probs(logits, lse) @ vf
+    return out.to(q.dtype), lse
+
+
+def _plain_backward(q, k, v, out, lse, g, causal, window, scale, q_pos_offset, cos, sin,
+                    want_dq=True, want_dkv=True):
+    """The explicit backward in f32: p from the saved lse (0 on rows that
+    attended nothing), delta = rowsum(dO∘O), dv = pᵀ·dO, dS = p∘(dO·vᵀ −
+    delta), dq = s·dS·k, dk = dSᵀ·(q·s); dk/dv summed over each kv head's
+    query group, dq and dk rotated back by the inverse rope. Returns the
+    asked-for grads, typed like q, k, v."""
+    _check_window(causal, window)
+    b, h, sq, skv, d = _bhsd_dims(q, k, v)
+    kv, s, off = k.shape[1], _scale(d, scale), _offset(sq, skv, q_pos_offset)
+    qs, kf, vf, logits = _plain_front(q, k, v, causal, window, s, off, cos, sin)
+    p = _probs(logits, lse)
+    g32 = g.float()
+    delta = (g32 * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (g32 @ vf.transpose(-1, -2) - delta)
+    grads = []
+    if want_dq:
+        grads.append(_rotate(s * (ds @ kf), cos, sin, off, inverse=True).to(q.dtype))
+    if want_dkv:
+        def group_sum(t):  # (B, H, Skv, D) per query head -> (B, KV, Skv, D)
+            return t.reshape(b, kv, h // kv, skv, d).sum(dim=2)
+
+        dk = _rotate(group_sum(ds.transpose(-1, -2) @ qs), cos, sin, 0, inverse=True)
+        grads += [dk.to(k.dtype), group_sum(p.transpose(-1, -2) @ g32).to(v.dtype)]
+    return grads
+
+
+def flash_backward_reference(q, k, v, out, lse, g, causal=False, window=None, scale=None,
+                             q_pos_offset=None, cos=None, sin=None):
+    """Plain version of the fused backward kernel (K2/K4/K8). Returns
+    ``dq, dk, dv`` typed like q, k, v."""
+    return tuple(_plain_backward(q, k, v, out, lse, g, causal, window, scale, q_pos_offset,
+                                 cos, sin))
+
+
+def flash_backward_dq_reference(q, k, v, out, lse, g, causal=False, window=None, scale=None,
+                                q_pos_offset=None, cos=None, sin=None):
+    """Plain version of the two-pass dq kernel (K5). Returns ``dq``."""
+    return _plain_backward(q, k, v, out, lse, g, causal, window, scale, q_pos_offset, cos, sin,
+                           want_dkv=False)[0]
+
+
+def flash_backward_dkv_reference(q, k, v, out, lse, g, causal=False, window=None, scale=None,
+                                 q_pos_offset=None, cos=None, sin=None):
+    """Plain version of the two-pass dk/dv kernel (K6). Returns ``dk, dv``."""
+    return tuple(_plain_backward(q, k, v, out, lse, g, causal, window, scale, q_pos_offset,
+                                 cos, sin, want_dq=False))
 
 
 # ---------------------------------------------------------------------------
@@ -141,88 +334,56 @@ def rope_operands(qkv, head_dim, rope_cos=None, rope_sin=None, rope_theta=None):
     return rope_cos.float(), rope_sin.float()
 
 
-def _plain_scores(qkv, h, kv, cos, sin, s, causal, window):
-    """The plain versions' shared front: (B, H, S, D) f32 views of the
-    rotated, scale-folded q and of k, v with kv heads repeated to H —
-    rounded exactly as the kernels round them — and the masked f32 logits."""
-    b, sq, _, d = _qkv_dims(qkv, h, kv)
-    q, k, v = qkv.split([h * d, kv * d, kv * d], dim=-1)
-    q = q.reshape(b, sq, h, d)
-    k = k.reshape(b, sq, kv, d)
-    v = v.reshape(b, sq, kv, d)
-    if cos is not None:
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    q = (q.float() * s).to(qkv.dtype)
-    heads = lambda t: t.float().transpose(1, 2)  # (B, S, n, D) -> (B, n, S, D)
-    qh = heads(q)
-    kh = heads(k).repeat_interleave(h // kv, dim=1)
-    vh = heads(v).repeat_interleave(h // kv, dim=1)
-    logits = qh @ kh.transpose(-1, -2)
-    mask = _mask(sq, sq, causal, window, qkv.device)
-    if mask is not None:
-        logits = logits.masked_fill(~mask, NEG_INF)
-    return qh, kh, vh, logits
+def _heads(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The (B, n, S, d) view of the heads of a (B, S, n·d) tensor: no copy."""
+    return t.unflatten(-1, (-1, d)).transpose(1, 2)
+
+
+def _packed_heads(qkv: torch.Tensor, h: int, kv: int, d: int):
+    """q, k, v as head views of qkv's column sections."""
+    return tuple(_heads(t, d) for t in qkv.split([h * d, kv * d, kv * d], dim=-1))
+
+
+def _unheads(t: torch.Tensor) -> torch.Tensor:
+    """(B, n, S, d) -> (B, S, n·d)."""
+    return t.transpose(1, 2).flatten(2)
 
 
 def flash_forward_qkv_reference(qkv, num_heads, num_kv_heads=None, causal=False,
                                 window=None, rope_cos=None, rope_sin=None,
                                 rope_theta=None, scale=None):
-    """Plain version of the forward kernel: unpack, rotate, fold the scale,
-    repeat kv, dense masked softmax in f32. Returns ``out`` (B, S, H·dh) in
-    qkv's dtype and ``lse`` (B, H, S) f32, the row logsumexp."""
+    """Plain version of the packed forward kernel: the plain forward on
+    head views of qkv. Returns ``out`` (B, S, H·dh) in qkv's dtype and
+    ``lse`` (B, H, S) f32, the row logsumexp."""
     h = num_heads
     kv = h if num_kv_heads is None else num_kv_heads
     _check_window(causal, window)
-    b, sq, _, d = _qkv_dims(qkv, h, kv)
+    _, _, _, d = _qkv_dims(qkv, h, kv)
     cos, sin = rope_operands(qkv, d, rope_cos, rope_sin, rope_theta)
-    _, _, vh, logits = _plain_scores(qkv, h, kv, cos, sin, _scale(d, scale), causal, window)
-    lse = torch.logsumexp(logits, dim=-1)
-    out = torch.exp(logits - lse[..., None]) @ vh
-    return out.transpose(1, 2).reshape(b, sq, h * d).to(qkv.dtype), lse
+    out, lse = flash_forward_reference(*_packed_heads(qkv, h, kv, d), causal, window, scale, 0,
+                                       cos, sin)
+    return _unheads(out), lse
 
 
 def flash_backward_qkv_reference(qkv, out, lse, g, num_heads, num_kv_heads=None,
                                  causal=False, window=None, rope_cos=None,
                                  rope_sin=None, rope_theta=None, scale=None):
-    """Plain version of the backward kernel, the explicit formula in f32:
-    p from the saved lse, delta = rowsum(dO∘O), dv = pᵀ·dO,
-    dS = p∘(dO·vᵀ − delta), dq = s·dS·k, dk = dSᵀ·(q·s); dq and dk rotate
-    back by the inverse rope; GQA sums each group's kv grads into its
-    shared kv head. Returns dqkv shaped and typed like qkv."""
+    """Plain version of the packed backward kernel: the plain fused backward
+    on head views of qkv (dq and dk rotated back by the inverse rope, each
+    GQA group's kv grads summed into its shared kv head). Returns dqkv
+    shaped and typed like qkv."""
     h = num_heads
     kv = h if num_kv_heads is None else num_kv_heads
     _check_window(causal, window)
-    b, sq, _, d = _qkv_dims(qkv, h, kv)
-    s = _scale(d, scale)
+    _, _, _, d = _qkv_dims(qkv, h, kv)
     cos, sin = rope_operands(qkv, d, rope_cos, rope_sin, rope_theta)
-    qh, kh, vh, logits = _plain_scores(qkv, h, kv, cos, sin, s, causal, window)
-    heads = lambda t: t.float().reshape(b, sq, h, d).transpose(1, 2)
-    g4, o4 = heads(g), heads(out)
-    p = torch.exp(logits - lse[..., None])
-    dv = p.transpose(-1, -2) @ g4
-    delta = (g4 * o4).sum(dim=-1, keepdim=True)
-    ds = p * (g4 @ vh.transpose(-1, -2) - delta)
-    dk = ds.transpose(-1, -2) @ qh
-    dq = s * (ds @ kh)
-
-    def rows(t, n):
-        # (B, H, S, D) per-q-head grads -> (B, S, n, D), group-summed to n heads.
-        t = t.reshape(b, n, h // n, sq, d).sum(dim=2)
-        return t.transpose(1, 2)
-
-    dq, dk, dv = rows(dq, h), rows(dk, kv), rows(dv, kv)
-    if cos is not None:
-        dq = apply_rope(dq, cos, -sin)
-        dk = apply_rope(dk, cos, -sin)
-    return torch.cat(
-        [dq.reshape(b, sq, h * d), dk.reshape(b, sq, kv * d), dv.reshape(b, sq, kv * d)],
-        dim=-1,
-    ).to(qkv.dtype)
+    grads = flash_backward_reference(*_packed_heads(qkv, h, kv, d), _heads(out, d), lse,
+                                     _heads(g, d), causal, window, scale, 0, cos, sin)
+    return torch.cat([_unheads(t) for t in grads], dim=-1)
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernels' wrappers.
+# The CUDA kernels' launches.
 # ---------------------------------------------------------------------------
 
 _FWD_ARGTYPES = (
@@ -233,6 +394,12 @@ _FWD_ARGTYPES = (
 _BWD_ARGTYPES = (
     # q, k, v, out, dout, lse, cos, sin, dq, dk, dv, dq_acc, delta, strides
     [ctypes.c_void_p] * 14
+    + [ctypes.c_int] * 10
+    + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+)
+_BWD_DQ_ARGTYPES = (
+    # q, k, v, dout, lse, delta, cos, sin, dq, strides
+    [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 10
     + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 )
@@ -265,50 +432,150 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _dims(q, k):
+    """B, H, KV, Sq, Skv, D of (B, H, Sq, D) q against (B, KV, Skv, D) k."""
+    b, h, sq, d = q.shape
+    return b, h, k.shape[1], sq, k.shape[2], d
+
+
 def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, scale,
                     cos=None, sin=None) -> None:
     """Launch ``csrc/flash_fwd.cu`` on q's stream: q, out (B, H, Sq, D) and
     k, v (B, KV, Skv, D) views with a contiguous last dimension, lse (B, H,
-    Sq) f32; rope tables only for self-attention at offset 0. The launch
-    counts under ``KERNEL_LAUNCHES[counter]``."""
-    b, h, sq, d = q.shape
-    kv, skv = k.shape[1], k.shape[2]
+    Sq) f32; rope tables (1|B, Skv, D/2) f32 read at each row's position.
+    The launch counts under ``KERNEL_LAUNCHES[counter]``."""
     strides = _strides(q, k, v, out)
     fn = _kernel_fn("flash_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(cos), _ptr(sin),
-            ctypes.addressof(strides), b, h, kv, sq, skv, d, int(q.dtype == torch.bfloat16),
-            int(causal), window or 0, q_pos_offset, _table_stride(cos), _scale(d, scale),
-            stream,
+            ctypes.addressof(strides), *_dims(q, k), int(q.dtype == torch.bfloat16),
+            int(causal), window or 0, q_pos_offset, _table_stride(cos),
+            _scale(q.shape[-1], scale), stream,
         )
         KERNEL_LAUNCHES[counter] += 1
     _check_status(counter, status)
 
 
 def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,
-                     q_pos_offset, scale, cos=None, sin=None) -> None:
+                     q_pos_offset, scale, cos=None, sin=None, delta=None) -> None:
     """Launch ``csrc/flash_bwd.cu`` on q's stream — a delta pre-pass, the
     kv-tile kernel (dk/dv in registers, GQA group sums included, dq by f32
     atomics into a scratch allocated here) and the dq rotate-back/cast pass —
-    writing dq, dk, dv through their strides."""
+    writing dq, dk, dv through their strides. With ``dq`` None only dk and
+    dv are computed (the two-pass pair's K6) and ``delta`` (B, H, Sq) f32 is
+    left for its dq kernel."""
     b, h, sq, d = q.shape
-    kv, skv = k.shape[1], k.shape[2]
-    dq_acc = torch.empty(b, h, sq, d, dtype=torch.float32, device=q.device)
-    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    strides = _strides(q, k, v, out, g, dq, dk, dv)
+    dq_acc = None
+    if dq is not None:
+        dq_acc = torch.empty(b, h, sq, d, dtype=torch.float32, device=q.device)
+    if delta is None:
+        delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, out, g, dk if dq is None else dq, dk, dv)
     fn = _kernel_fn("flash_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(g), _ptr(lse), _ptr(cos), _ptr(sin),
             _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_acc), _ptr(delta), ctypes.addressof(strides),
-            b, h, kv, sq, skv, d, int(q.dtype == torch.bfloat16), int(causal), window or 0,
+            *_dims(q, k), int(q.dtype == torch.bfloat16), int(causal), window or 0,
             q_pos_offset, _table_stride(cos), _scale(d, scale), stream,
         )
         KERNEL_LAUNCHES[counter] += 1
     _check_status(counter, status)
+
+
+def _launch_backward_dq(q, k, v, g, lse, delta, dq, causal, window, q_pos_offset, scale,
+                        cos=None, sin=None) -> None:
+    """Launch ``csrc/flash_bwd_dq.cu`` (K5) on q's stream: dq in registers
+    over the kv loop, written once through dq's strides; ``delta`` as the
+    dk/dv launch wrote it. Counts under ``KERNEL_LAUNCHES["bwd_dq"]``."""
+    strides = _strides(q, k, v, g, dq)
+    fn = _kernel_fn("flash_bwd_dq", _BWD_DQ_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(cos), _ptr(sin),
+            _ptr(dq), ctypes.addressof(strides), *_dims(q, k), int(q.dtype == torch.bfloat16),
+            int(causal), window or 0, q_pos_offset, _table_stride(cos),
+            _scale(q.shape[-1], scale), stream,
+        )
+        KERNEL_LAUNCHES["bwd_dq"] += 1
+    _check_status("bwd_dq", status)
+
+
+# ---------------------------------------------------------------------------
+# The backward's routes, on (B, H, S, D) views with preallocated outputs.
+# ---------------------------------------------------------------------------
+
+
+def _backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window, off, scale,
+              cos=None, sin=None) -> None:
+    """One fused backward of the q rows placed at ``off`` (K2, K4 or K8:
+    ``counter`` names it) into dq, dk and dv: the kernel for CUDA tensors,
+    the plain version for CPU ones."""
+    if q.device.type == "cuda":
+        _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window, off, scale,
+                         cos, sin)
+        return
+    grads = flash_backward_reference(q, k, v, out, lse, g, causal, window, scale, off, cos, sin)
+    for t, r in zip((dq, dk, dv), grads):
+        t.copy_(r)
+
+
+def _backward_two_pass(q, k, v, out, g, lse, dq, dk, dv, causal, window, off, scale,
+                       cos=None, sin=None) -> None:
+    """The two-pass pair into dq, dk and dv: K6 (dk, dv and delta) then K5
+    (dq) for CUDA tensors, their plain versions for CPU ones."""
+    if q.device.type == "cuda":
+        delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+        _launch_backward("bwd_dkv", q, k, v, out, g, lse, None, dk, dv, causal, window, off,
+                         scale, cos, sin, delta=delta)
+        _launch_backward_dq(q, k, v, g, lse, delta, dq, causal, window, off, scale, cos, sin)
+        return
+    args = (q, k, v, out, lse, g, causal, window, scale, off, cos, sin)
+    dq.copy_(flash_backward_dq_reference(*args))
+    for t, r in zip((dk, dv), flash_backward_dkv_reference(*args)):
+        t.copy_(r)
+
+
+def _backward_by_route(whole, segment, q, k, v, out, g, lse, dq, dk, dv, causal, window, off,
+                       scale, cos=None, sin=None) -> None:
+    """The JAX package's backward dispatch (``_flash_backward`` and
+    ``_flash_backward_bshd``): one fused call (counted under ``whole``)
+    while :func:`_segment_rows` allows it, else one fused call per q
+    segment (counted under ``segment``), placed by ``off + a``, else the
+    two-pass pair. Segment dq rows land in their rows of dq; the segments'
+    dk/dv shares, each rounded to the operand dtype by its kernel, are
+    summed in f32 and rounded once (the JAX package sums them in the
+    operand dtype)."""
+    sq, d = q.shape[2], q.shape[3]
+    seg = _segment_rows(sq, d)
+    if seg == sq:
+        _backward(whole, q, k, v, out, g, lse, dq, dk, dv, causal, window, off, scale, cos, sin)
+        return
+    if seg is None:
+        _backward_two_pass(q, k, v, out, g, lse, dq, dk, dv, causal, window, off, scale, cos,
+                           sin)
+        return
+    dk_sum, dv_sum = (torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                      for t in (dk, dv))
+    dk_s, dv_s = torch.empty_like(dk), torch.empty_like(dv)
+    for a in range(0, sq, seg):
+        rows = slice(a, a + seg)
+        _backward(segment, q[:, :, rows], k, v, out[:, :, rows], g[:, :, rows],
+                  lse[:, :, rows].contiguous(), dq[:, :, rows], dk_s, dv_s, causal, window,
+                  off + a, scale, cos, sin)
+        dk_sum += dk_s
+        dv_sum += dv_s
+    dk.copy_(dk_sum)
+    dv.copy_(dv_sum)
+
+
+# ---------------------------------------------------------------------------
+# Packed-qkv wrappers (K1/K2, and the long branch through K8 or K5/K6).
+# ---------------------------------------------------------------------------
 
 
 def _check_kernel_operands(qkv, h, kv, causal, window, cos, sin, *others):
@@ -330,16 +597,6 @@ def _check_kernel_operands(qkv, h, kv, causal, window, cos, sin, *others):
     return b, sq, width, d
 
 
-def _heads(t: torch.Tensor, d: int) -> torch.Tensor:
-    """The (B, n, S, d) view of the heads of a (B, S, n·d) tensor: no copy."""
-    return t.unflatten(-1, (-1, d)).transpose(1, 2)
-
-
-def _packed_heads(qkv: torch.Tensor, h: int, kv: int, d: int):
-    """q, k, v as head views of qkv's column sections."""
-    return tuple(_heads(t, d) for t in qkv.split([h * d, kv * d, kv * d], dim=-1))
-
-
 def flash_forward_qkv_kernel(qkv, num_heads, num_kv_heads, causal, window,
                              cos, sin, scale):
     """Launch ``csrc/flash_fwd.cu`` on qkv's stream, reading q, k and v in
@@ -357,8 +614,9 @@ def flash_forward_qkv_kernel(qkv, num_heads, num_kv_heads, causal, window,
 
 def flash_backward_qkv_kernel(qkv, out, lse, g, num_heads, num_kv_heads, causal,
                               window, cos, sin, scale):
-    """Launch ``csrc/flash_bwd.cu`` on qkv's stream, writing dq, dk and dv
-    through head views of one dqkv. Returns dqkv."""
+    """Launch ``csrc/flash_bwd.cu`` once on qkv's stream (K2, whatever the
+    length), writing dq, dk and dv through head views of one dqkv. Returns
+    dqkv."""
     h, kv = num_heads, num_kv_heads
     b, sq, width, d = _check_kernel_operands(
         qkv, h, kv, causal, window, cos, sin, out, lse, g
@@ -382,9 +640,12 @@ def _on(t: torch.Tensor) -> str:
 
 class FlashAttentionQKV(torch.autograd.Function):
     """Flash self-attention on packed qkv with a kernel in each direction:
-    CUDA tensors go through ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu``,
-    CPU tensors through the plain versions. The f32 rope tables are
-    constants (integer positions) and get no gradient."""
+    CUDA tensors go through ``csrc/flash_fwd.cu`` forward and, backward, the
+    route the JAX package's ``_flash_backward_qkv`` takes — K2 in one call,
+    else K8 per q segment on head views of qkv (GQA through the kernel's
+    head-group divisor, rope at each segment's positions), else the two-pass
+    K5/K6 — CPU tensors through the plain versions of the same route. The
+    f32 rope tables are constants (integer positions) and get no gradient."""
 
     @staticmethod
     def forward(ctx, qkv, cos, sin, h, kv, causal, window, scale):
@@ -403,14 +664,11 @@ class FlashAttentionQKV(torch.autograd.Function):
         qkv, out, lse, cos, sin = ctx.saved_tensors
         h, kv, causal, window, scale = ctx.args
         g = g.contiguous()
-        if _on(qkv) == "cuda":
-            dqkv = flash_backward_qkv_kernel(
-                qkv, out, lse, g, h, kv, causal, window, cos, sin, scale
-            )
-        else:
-            dqkv = flash_backward_qkv_reference(
-                qkv, out, lse, g, h, kv, causal, window, cos, sin, scale=scale
-            )
+        d = qkv.shape[-1] // (h + 2 * kv)
+        dqkv = torch.empty_like(qkv)
+        _backward_by_route("flash_bwd", "bshd_bwd", *_packed_heads(qkv, h, kv, d),
+                           _heads(out, d), _heads(g, d), lse, *_packed_heads(dqkv, h, kv, d),
+                           causal, window, 0, scale, cos, sin)
         return dqkv, None, None, None, None, None, None, None
 
 
@@ -434,76 +692,12 @@ def flash_attention_qkv(qkv, num_heads: int, num_kv_heads: int | None = None,
 
 
 # ---------------------------------------------------------------------------
-# BHSD flash attention: q (B, H, Sq, D), k and v (B, H, Skv, D).
+# BHSD wrappers: q (B, H, Sq, D), k and v (B, KV, Skv, D).
 # ---------------------------------------------------------------------------
 
 
-def _bhsd_dims(q, k, v) -> tuple[int, int, int, int, int]:
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be (B, H, S, head_dim)")
-    b, h, sq, d = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
-        raise ValueError(
-            f"k and v must be (B, H, Skv, head_dim) matching q {tuple(q.shape)}, "
-            f"got {tuple(k.shape)} and {tuple(v.shape)}"
-        )
-    return b, h, sq, k.shape[2], d
-
-
-def _plain_logits(q, k, causal, window, s, q_pos_offset):
-    """The BHSD plain versions' shared front: q scale-folded and rounded to
-    its dtype as the kernels fold it, as f32, and the masked f32 logits."""
-    qs = (q.float() * s).to(q.dtype).float()
-    logits = qs @ k.float().transpose(-1, -2)
-    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device, q_pos_offset)
-    if mask is not None:
-        logits = logits.masked_fill(~mask, NEG_INF)
-    return qs, logits
-
-
-def _probs(logits, lse):
-    # A row that attended nothing has lse ~ NEG_INF, which is finite, so
-    # exp(logit - lse) would be 1 on its masked logits: zero it, as the
-    # Pallas kernels do.
-    return torch.where(lse[..., None] <= NEG_INF / 2, 0.0, torch.exp(logits - lse[..., None]))
-
-
-def flash_forward_reference(q, k, v, causal=False, window=None, scale=None,
-                            q_pos_offset=None):
-    """Plain version of the BHSD forward kernel: scale folded into q, dense
-    masked softmax in f32. Returns ``out`` (B, H, Sq, D) in q's dtype — 0 on
-    rows that attend nothing — and ``lse`` (B, H, Sq) f32, the row
-    logsumexp (NEG_INF on such rows)."""
-    _check_window(causal, window)
-    _, _, _, _, d = _bhsd_dims(q, k, v)
-    _, logits = _plain_logits(q, k, causal, window, _scale(d, scale), q_pos_offset)
-    lse = torch.logsumexp(logits, dim=-1)
-    out = _probs(logits, lse) @ v.float()
-    return out.to(q.dtype), lse
-
-
-def flash_backward_reference(q, k, v, out, lse, g, causal=False, window=None, scale=None,
-                             q_pos_offset=None):
-    """Plain version of the BHSD backward kernel, the explicit formula in
-    f32: p from the saved lse (0 on rows that attended nothing), delta =
-    rowsum(dO∘O), dv = pᵀ·dO, dS = p∘(dO·vᵀ − delta), dq = s·dS·k,
-    dk = dSᵀ·(q·s). Returns ``dq, dk, dv`` typed like q, k, v."""
-    _check_window(causal, window)
-    _, _, _, _, d = _bhsd_dims(q, k, v)
-    s = _scale(d, scale)
-    qs, logits = _plain_logits(q, k, causal, window, s, q_pos_offset)
-    p = _probs(logits, lse)
-    g32 = g.float()
-    dv = p.transpose(-1, -2) @ g32
-    delta = (g32 * out.float()).sum(dim=-1, keepdim=True)
-    ds = p * (g32 @ v.float().transpose(-1, -2) - delta)
-    dk = ds.transpose(-1, -2) @ qs
-    dq = s * (ds @ k.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the BHSD kernels can read it through its strides
+    """``t`` itself when the kernels can read it through its strides
     (contiguous last dimension, 16-byte aligned rows and start), else a
     contiguous copy."""
     elt = t.element_size()
@@ -514,7 +708,8 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _check_bhsd_kernel_operands(q, k, v, causal, window, *others):
+def _check_bhsd_kernel_operands(q, k, v, causal, window, *others, cos=None, sin=None,
+                                q_pos_offset=None):
     b, h, sq, skv, d = _bhsd_dims(q, k, v)
     _check_window(causal, window)
     if q.device.type != "cuda":
@@ -530,49 +725,93 @@ def _check_bhsd_kernel_operands(q, k, v, causal, window, *others):
         raise ValueError("q, k and v must share a dtype")
     if min(b, h, sq, skv) < 1:
         raise ValueError("the flash kernels take non-empty operands")
+    if cos is not None:
+        off = _offset(sq, skv, q_pos_offset)
+        for t in (cos, sin):
+            if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous() \
+                    or t.dim() != 3 or t.shape[0] not in (1, b) \
+                    or tuple(t.shape[1:]) != (skv, d // 2):
+                raise ValueError(f"rope tables must be contiguous f32 (1|{b}, {skv}, {d // 2})"
+                                 f" on {q.device}")
+        if off < 0 or off + sq > skv:
+            raise ValueError("with rope tables the q rows' positions must lie in [0, Skv)")
     return b, h, sq, skv, d
 
 
-def _offset(sq: int, skv: int, q_pos_offset: int | None) -> int:
-    return skv - sq if q_pos_offset is None else int(q_pos_offset)
-
-
-def flash_forward_kernel(q, k, v, causal=False, window=None, scale=None, q_pos_offset=None):
-    """Launch ``csrc/flash_fwd.cu`` on q's stream. Operands are read through
-    their strides (a head-transposed view of a (B, S, H·D) projection needs
-    no copy); ``out`` is allocated in q's layout. Returns ``out`` (B, H, Sq,
-    D) and ``lse`` (B, H, Sq) f32, like the plain version."""
-    b, h, sq, skv, d = _check_bhsd_kernel_operands(q, k, v, causal, window)
-    q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
-    out = torch.empty_like(q)
-    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    _launch_forward("bhsd_fwd", q, k, v, out, lse, causal, window,
-                    _offset(sq, skv, q_pos_offset), scale)
-    return out, lse
-
-
-def flash_backward_kernel(q, k, v, out, lse, g, causal=False, window=None, scale=None,
-                          q_pos_offset=None):
-    """Launch ``csrc/flash_bwd.cu`` on q's stream. ``q_pos_offset`` places q
-    row 0 in the key sequence, so a call on a q segment gives that segment's
-    dq and its share of dk/dv. Returns ``dq, dk, dv`` in the layouts of q,
-    k, v."""
-    b, h, sq, skv, d = _check_bhsd_kernel_operands(q, k, v, causal, window, out, lse, g)
+def _check_backward_operands(q, k, v, out, lse, g, causal, window, **rope):
+    b, h, sq, _, _ = _check_bhsd_kernel_operands(q, k, v, causal, window, out, lse, g, **rope)
     if out.dtype != q.dtype or g.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError("out and g must match q's dtype and lse must be f32")
     if out.shape != q.shape or g.shape != q.shape or tuple(lse.shape) != (b, h, sq):
         raise ValueError("out/g must be shaped like q and lse (B, H, Sq)")
+
+
+def flash_forward_kernel(q, k, v, causal=False, window=None, scale=None, q_pos_offset=None,
+                         cos=None, sin=None, counter="bhsd_fwd"):
+    """Launch ``csrc/flash_fwd.cu`` on q's stream. Operands are read through
+    their strides (a head-transposed view of a (B, S, H·D) projection needs
+    no copy); ``out`` is allocated in q's layout. Returns ``out`` (B, H, Sq,
+    D) and ``lse`` (B, H, Sq) f32, like the plain version."""
+    b, h, sq, skv, d = _check_bhsd_kernel_operands(q, k, v, causal, window, cos=cos, sin=sin,
+                                                   q_pos_offset=q_pos_offset)
+    q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    _launch_forward(counter, q, k, v, out, lse, causal, window, _offset(sq, skv, q_pos_offset),
+                    scale, cos, sin)
+    return out, lse
+
+
+def flash_backward_kernel(q, k, v, out, lse, g, causal=False, window=None, scale=None,
+                          q_pos_offset=None, cos=None, sin=None, counter="bhsd_bwd"):
+    """Launch ``csrc/flash_bwd.cu`` once on q's stream. ``q_pos_offset``
+    places q row 0 in the key sequence, so a call on a q segment gives that
+    segment's dq and its share of dk/dv. Returns ``dq, dk, dv`` in the
+    layouts of q, k, v."""
+    _check_backward_operands(q, k, v, out, lse, g, causal, window, cos=cos, sin=sin,
+                             q_pos_offset=q_pos_offset)
     q, k, v, out, g = (_kernel_layout(t) for t in (q, k, v, out, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch_backward("bhsd_bwd", q, k, v, out, g, lse.contiguous(), dq, dk, dv, causal, window,
-                     _offset(sq, skv, q_pos_offset), scale)
+    _launch_backward(counter, q, k, v, out, g, lse.contiguous(), dq, dk, dv, causal, window,
+                     _offset(q.shape[2], k.shape[2], q_pos_offset), scale, cos, sin)
     return dq, dk, dv
+
+
+def flash_backward_dkv_kernel(q, k, v, out, lse, g, causal=False, window=None, scale=None,
+                              q_pos_offset=None, cos=None, sin=None):
+    """K6: launch ``csrc/flash_bwd.cu`` with dq compiled out. Returns ``dk,
+    dv`` in the layouts of k, v and ``delta`` (B, H, Sq) f32, the input of
+    :func:`flash_backward_dq_kernel`."""
+    _check_backward_operands(q, k, v, out, lse, g, causal, window, cos=cos, sin=sin,
+                             q_pos_offset=q_pos_offset)
+    q, k, v, out, g = (_kernel_layout(t) for t in (q, k, v, out, g))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    _launch_backward("bwd_dkv", q, k, v, out, g, lse.contiguous(), None, dk, dv, causal, window,
+                     _offset(q.shape[2], k.shape[2], q_pos_offset), scale, cos, sin, delta=delta)
+    return dk, dv, delta
+
+
+def flash_backward_dq_kernel(q, k, v, lse, g, delta, causal=False, window=None, scale=None,
+                             q_pos_offset=None, cos=None, sin=None):
+    """K5: launch ``csrc/flash_bwd_dq.cu``. ``delta`` is the one
+    :func:`flash_backward_dkv_kernel` returned. Returns ``dq`` in q's
+    layout."""
+    _check_bhsd_kernel_operands(q, k, v, causal, window, lse, g, delta, cos=cos, sin=sin,
+                                q_pos_offset=q_pos_offset)
+    q, k, v, g = (_kernel_layout(t) for t in (q, k, v, g))
+    dq = torch.empty_like(q)
+    _launch_backward_dq(q, k, v, g, lse.contiguous(), delta.contiguous(), dq, causal, window,
+                        _offset(q.shape[2], k.shape[2], q_pos_offset), scale, cos, sin)
+    return dq
 
 
 class FlashAttention(torch.autograd.Function):
     """BHSD flash attention with a kernel in each direction: CUDA tensors go
-    through ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu``, CPU tensors through
-    the plain versions."""
+    through ``csrc/flash_fwd.cu`` forward and, backward, the route the JAX
+    package's ``_flash_backward`` takes — K4 in one call or per q segment,
+    else the two-pass K5/K6 — CPU tensors through the plain versions of the
+    same route."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -587,20 +826,97 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.args
         if _on(q) == "cuda":
-            grads = flash_backward_kernel(q, k, v, out, lse, g, *ctx.args)
-        else:
-            grads = flash_backward_reference(q, k, v, out, lse, g, *ctx.args)
+            q, k, v, out, g = (_kernel_layout(t) for t in (q, k, v, out, g))
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        _backward_by_route("bhsd_bwd", "bhsd_bwd", q, k, v, out, g, lse, *grads, causal, window,
+                           _offset(q.shape[2], k.shape[2], None), scale)
         return (*grads, None, None, None)
 
 
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None,
                     window: int | None = None):
-    """Flash attention on q (B, H, Sq, D) against k, v (B, H, Skv, D);
-    returns (B, H, Sq, D), differentiable in q, k and v. Causal masking is
-    end-aligned (query i attends keys <= i + Skv - Sq); ``window`` needs
-    ``causal``. The JAX function's ``block_q``/``block_kv`` and
-    ``interpret`` are TPU arguments and have no counterpart here."""
+    """Flash attention on q (B, H, Sq, D) against k, v (B, KV, Skv, D) (KV
+    divides H; query head h reads kv head h // (H / KV)); returns (B, H, Sq,
+    D), differentiable in q, k and v. Causal masking is end-aligned (query i
+    attends keys <= i + Skv - Sq); ``window`` needs ``causal``. The JAX
+    function's ``block_q``/``block_kv`` and ``interpret`` are TPU arguments
+    and have no counterpart here."""
     _check_window(causal, window)
     _bhsd_dims(q, k, v)
     return FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+# ---------------------------------------------------------------------------
+# BSHD wrappers (K7/K8): q (B, Sq, H, D), k and v (B, Skv, KV, D) — the
+# layout the projections produce, handed to the kernels as head-transposed
+# views.
+# ---------------------------------------------------------------------------
+
+
+def _bhsd(t: torch.Tensor) -> torch.Tensor:
+    return t.transpose(1, 2)
+
+
+def flash_forward_bshd(q, k, v, causal=False, window=None, scale=None):
+    """K7, the forward of :func:`flash_attention_bshd`: the kernel for CUDA
+    tensors (counted under ``bshd_fwd``), the plain version for CPU ones.
+    Returns ``out`` (B, Sq, H, D) and ``lse`` (B, H, Sq) f32."""
+    if _on(q) == "cuda":
+        out, lse = flash_forward_kernel(_bhsd(q), _bhsd(k), _bhsd(v), causal, window, scale,
+                                        counter="bshd_fwd")
+    else:
+        out, lse = flash_forward_reference(_bhsd(q), _bhsd(k), _bhsd(v), causal, window, scale)
+    return _bhsd(out), lse
+
+
+def flash_backward_bshd(q, k, v, out, lse, g, causal=False, window=None, scale=None,
+                        q_pos_offset=None, cos=None, sin=None):
+    """K8 in one call: the fused backward on (B, S, H, D) operands — a q
+    segment when ``q_pos_offset`` places it — with optional rope tables
+    (1|B, Skv, D/2) f32 read at the rows' positions. The kernel for CUDA
+    tensors (counted under ``bshd_bwd``), the plain version for CPU ones.
+    Returns ``dq, dk, dv`` (B, S, ·, D)."""
+    args = (causal, window, scale, q_pos_offset, cos, sin)
+    views = [_bhsd(t) for t in (q, k, v, out)]
+    if _on(q) == "cuda":
+        grads = flash_backward_kernel(*views, lse, _bhsd(g), *args, counter="bshd_bwd")
+    else:
+        grads = flash_backward_reference(*views, lse, _bhsd(g), *args)
+    return tuple(_bhsd(t) for t in grads)
+
+
+class FlashAttentionBSHD(torch.autograd.Function):
+    """:class:`FlashAttention` on (B, S, H, D) operands: K7 forward and,
+    backward, the route of the JAX package's ``_flash_backward_bshd`` — K8
+    in one call or per q segment, else the two-pass K5/K6."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_forward_bshd(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        views = [_bhsd(t) for t in (q, k, v, out, g)]
+        if _on(q) == "cuda":
+            views = [_kernel_layout(t) for t in views]
+        grads = tuple(torch.empty_like(t) for t in views[:3])
+        _backward_by_route("bshd_bwd", "bshd_bwd", *views, lse, *grads, causal, window,
+                           _offset(q.shape[1], k.shape[1], None), scale)
+        return (*(_bhsd(t) for t in grads), None, None, None)
+
+
+def flash_attention_bshd(q, k, v, causal: bool = False, scale: float | None = None,
+                         window: int | None = None):
+    """:func:`flash_attention` on the activation layout: q (B, Sq, H, D)
+    against k, v (B, Skv, KV, D); returns (B, Sq, H, D), differentiable in
+    q, k and v."""
+    _check_window(causal, window)
+    _bhsd_dims(_bhsd(q), _bhsd(k), _bhsd(v))
+    return FlashAttentionBSHD.apply(q, k, v, causal, window, scale)

@@ -80,7 +80,10 @@ def test_cpu_tensors_launch_no_kernel():
     TA.flash_attention_qkv(qkv, 2, causal=True).sum().backward()
     q, k, v = (torch.randn(1, 2, 16, 64, requires_grad=True) for _ in range(3))
     TA.flash_attention(q, k, v, causal=True).sum().backward()
-    assert qkv.grad is not None and q.grad is not None
+    qs, ks, vs = (torch.randn(1, 16, 2, 64, requires_grad=True) for _ in range(3))
+    TA.flash_attention_bshd(qs, ks, vs, causal=True).sum().backward()
+    assert qkv.grad is not None and q.grad is not None and qs.grad is not None
     assert TA.KERNEL_LAUNCHES == before == {
         "flash_fwd": 0, "flash_bwd": 0, "bhsd_fwd": 0, "bhsd_bwd": 0,
+        "bshd_fwd": 0, "bshd_bwd": 0, "bwd_dq": 0, "bwd_dkv": 0,
     }
