@@ -55,7 +55,17 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  alignment agrees with ours because Sq == Skv); K5-K8 at the
                  long path's call (batch 3, seq 8192, 16 heads on 4 kv
                  heads), and the three backward routes of one long layer;
-  7. profile   — one training step of each main path under torch.profiler:
+  7. probes    — the two kernel probes (tools/pipeline_probe.py and
+                 tools/bshd_probe.py of the port): K9, the software-pipelined
+                 forward, against its plain version at both probe shapes
+                 (bf16) and at ragged, cross-length, fully masked and
+                 non-causal cases, with a planted fault in the last kv tile
+                 of its P.V (the tile its flush step handles); K10, the
+                 forward on (B, S, H·dh) views, equal bit for bit to K3 on a
+                 contiguous copy and held against its plain version; both
+                 timed like phase 6; then each probe's main() as a
+                 subprocess, which must exit 0 having launched its kernel;
+  8. profile   — one training step of each main path under torch.profiler:
                  device time by kernel class and the device's idle share.
 
 Then a line with nvidia-smi's name and power limit, a JSON line with the
@@ -66,6 +76,7 @@ card and no network.
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -77,6 +88,7 @@ if not torch.cuda.is_available():
 
 from distributed_tensorflow_tpu_torch.ops import _build  # noqa: E402
 from distributed_tensorflow_tpu_torch.ops import attention as A  # noqa: E402
+from distributed_tensorflow_tpu_torch.utils.timer import cuda_ms  # noqa: E402
 
 FLAGSHIP = dict(d_model=2048, num_heads=16, num_layers=8, d_ff=8192, seq_len=2048,
                 batch_size=12)
@@ -124,14 +136,19 @@ REPLACES = {
                 "_flash_forward)",
     "bhsd_bwd": "distributed_tensorflow_tpu/ops/attention.py:1004 (_flash_bwd_fused_kernel "
                 "via _flash_backward_fused)",
+    "pipe_fwd": "tools/pipeline_probe.py:169 (_pipe_fwd_kernel via pipe_flash_forward)",
+    "probe_bshd_fwd": "tools/bshd_probe.py:49 (_flash_kernel of distributed_tensorflow_tpu/ops/"
+                      "attention.py via bshd_forward)",
 }
 # The wrappers' launch counters and the source each one launches: every
 # layout goes through one forward and one fused backward kernel, as the
 # TPU's do; the two-pass pair is flash_bwd_dq.cu (K5) and flash_bwd.cu with
-# dq compiled out (K6).
+# dq compiled out (K6). The BSHD probe (K10) is the forward on head views;
+# the pipelining probe (K9) has a kernel of its own.
 SOURCES = {"flash_fwd": "flash_fwd", "bhsd_fwd": "flash_fwd", "bshd_fwd": "flash_fwd",
            "flash_bwd": "flash_bwd", "bhsd_bwd": "flash_bwd", "bshd_bwd": "flash_bwd",
-           "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd"}
+           "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd", "pipe_fwd": "flash_fwd_pipe",
+           "probe_bshd_fwd": "flash_fwd"}
 # Each main path: its trainer flags and its launches per layer per step
 # (every other counter must stay at 0). The long path's backward runs the
 # fused kernel on four q segments of 2048 rows (the JAX package's gate).
@@ -267,6 +284,18 @@ def _bhsd(b, h, sq, skv, d, dtype, seed, bshd=False):
     return make(sq), make(skv), make(skv), make(sq)
 
 
+def _masked_rows(case, lse, ref_lse, *zero):
+    """The rows that attend no key (by the plain version's lse): there the
+    kernel's lse must be NEG_INF and each tensor of ``zero`` exactly 0.
+    Returns their mask."""
+    dead = ref_lse <= A.NEG_INF / 2
+    if dead.any():
+        if not (lse[dead] <= A.NEG_INF / 2).all() or any((t[dead] != 0).any() for t in zero):
+            fail(f"{case}: fully masked rows must give exact zeros and lse NEG_INF")
+        emit(phase="kernels", case=case, masked_rows=int(dead.sum()), exact_zeros=len(zero))
+    return dead
+
+
 def compare_bhsd(case, b, h, sq, skv, d, dtype, causal=True, window=None, bshd=False, seed=0,
                  controls=False):
     """K3/K4 vs their plain versions on the same inputs. Rows that attend
@@ -284,11 +313,7 @@ def compare_bhsd(case, b, h, sq, skv, d, dtype, causal=True, window=None, bshd=F
     for name, t in (("out", out), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
         if not torch.isfinite(t).all():
             fail(f"{case}: non-finite {name}")
-    dead = ref_lse <= A.NEG_INF / 2  # rows that attend no key
-    if dead.any():
-        if not (lse[dead] <= A.NEG_INF / 2).all() or (out[dead] != 0).any():
-            fail(f"{case}: fully masked rows must give out 0 and lse NEG_INF")
-        emit(phase="kernels", case=case, masked_rows=int(dead.sum()), zero_out=True)
+    dead = _masked_rows(case, lse, ref_lse, out)
     errs = {"out": _check(case, "out", dtype, out, ref_out, "out")}
     _check(case, "lse", dtype, lse[~dead], ref_lse[~dead], "lse")
     errs["grads"] = max(_check(case, name, dtype, t, r, "dqkv")
@@ -299,27 +324,34 @@ def compare_bhsd(case, b, h, sq, skv, d, dtype, causal=True, window=None, bshd=F
 
 
 def fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads,
-                   products=("out: P.V", "dq: dS.K", "dk: dS^T.Q", "dv: P^T.dO")):
+                   products=("out: P.V", "dq: dS.K", "dk: dS^T.Q", "dv: P^T.dO"), keys=None):
     """Plant the fault the max-based limit can miss — one 64-key kv tile
-    dropped from the products of the last q tile of head (0, 0) — into the
-    kernel's results, one product at a time, and require the blockwise
-    check to fail on each of ``products`` (causal, Sq == Skv, no window,
-    no rope; head 0 reads kv head 0 under GQA too). ``out`` or any grad not
-    checked may be None."""
+    (``keys``, default the one at s//2) dropped from the products of the
+    last q tile of head (0, 0) — into the kernel's results, one product at
+    a time, and require the blockwise check to fail on each of ``products``
+    (causal, Sq == Skv, no window, no rope; head 0 reads kv head 0 under GQA
+    too). ``out`` or any grad not checked may be None, and ``g`` and
+    ``ref_grads`` too when only ``out: P.V`` is checked."""
     dtype, s, d = q.dtype, q.shape[2], q.shape[3]
-    rows, keys = slice(s - BLOCK_ROWS, s), slice(s // 2, s // 2 + BLOCK_ROWS)
+    rows = slice(s - BLOCK_ROWS, s)
+    keys = slice(s // 2, s // 2 + BLOCK_ROWS) if keys is None else keys
     scale = d ** -0.5
     qs = (q[0, 0, rows].float() * scale).to(dtype).float()
-    kt, vt, go = k[0, 0, keys].float(), v[0, 0, keys].float(), g[0, 0, rows].float()
+    kt, vt = k[0, 0, keys].float(), v[0, 0, keys].float()
     p = torch.exp(qs @ kt.T - lse[0, 0, rows, None])
-    delta = (go * ref_out[0, 0, rows].float()).sum(-1, keepdim=True)
-    ds = p * (go @ vt.T - delta)
-    planted = (
-        ("out: P.V", "out", out, ref_out, rows, p @ vt),
-        ("dq: dS.K", "dqkv", grads[0], ref_grads[0], rows, scale * ds @ kt),
-        ("dk: dS^T.Q", "dqkv", grads[1], ref_grads[1], keys, ds.T @ qs),
-        ("dv: P^T.dO", "dqkv", grads[2], ref_grads[2], keys, p.T @ go),
-    )
+    causal = torch.arange(keys.start, keys.stop, device=p.device) \
+        <= torch.arange(rows.start, rows.stop, device=p.device)[:, None]
+    p = p * causal  # the diagonal tile's masked keys carry no weight
+    planted = [("out: P.V", "out", out, ref_out, rows, p @ vt)]
+    if products != ("out: P.V",):
+        go = g[0, 0, rows].float()
+        delta = (go * ref_out[0, 0, rows].float()).sum(-1, keepdim=True)
+        ds = p * (go @ vt.T - delta)
+        planted += [
+            ("dq: dS.K", "dqkv", grads[0], ref_grads[0], rows, scale * ds @ kt),
+            ("dk: dS^T.Q", "dqkv", grads[1], ref_grads[1], keys, ds.T @ qs),
+            ("dv: P^T.dO", "dqkv", grads[2], ref_grads[2], keys, p.T @ go),
+        ]
     for name, kind, got, ref, at, part in planted:
         if name not in products:
             continue
@@ -430,12 +462,7 @@ def compare_long(case, b, h, kv, sq, skv, d, dtype, causal=True, window=None, ro
     for name, t in outputs:
         if not torch.isfinite(t).all():
             fail(f"{case}: non-finite {name}")
-    dead = ref_lse <= A.NEG_INF / 2  # rows that attend no key
-    if dead.any():
-        if not (lse[dead] <= A.NEG_INF / 2).all() or (out[dead] != 0).any() \
-                or (k8[0][dead] != 0).any() or (dq5[dead] != 0).any():
-            fail(f"{case}: fully masked rows must give out and dq 0 and lse NEG_INF")
-        emit(phase="kernels", case=case, masked_rows=int(dead.sum()), zero_out_dq=True)
+    dead = _masked_rows(case, lse, ref_lse, out, k8[0], dq5)
     errs = {"bshd_fwd": _check(case, "out", dtype, out, ref_out, "out")}
     _check(case, "lse", dtype, lse[~dead], ref_lse[~dead], "lse")
     errs["bshd_bwd"] = max(_check(case, f"k8_{n}", dtype, t, r, "dqkv")
@@ -683,19 +710,6 @@ def phase_parity():
     _parity("parity_tp", "tp_flash", results["tp_flash"], "tp_dense", results["tp_dense"])
 
 
-def time_ms(fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _sdpa(q, k, v, g):
     """The library's calls on (B, H, S, D) tensors: forward, forward +
     backward, and backward alone."""
@@ -864,14 +878,167 @@ def phase_timing_long(launches, errs, notes):
 
     shape = dict(B=b, S=s, H=h, KV=kv, D=d, dtype="bf16")
     for name in ROUTES:
-        emit(phase="timing_routes", route=name, ms=time_ms(route(name), 5),
+        emit(phase="timing_routes", route=name, ms=cuda_ms(route(name), 5),
              bound_ms=fwd_flops * 5 // 2 / peak * 1e3, shape=dict(shape, rope=True))
     # What the in-kernel rope costs K1 on this path: the same call without it.
     for tables in ((cos, sin), (None, None)):
-        ms = time_ms(lambda t=tables: A.flash_forward_qkv_kernel(qkv, h, kv, True, None, *t,
+        ms = cuda_ms(lambda t=tables: A.flash_forward_qkv_kernel(qkv, h, kv, True, None, *t,
                                                                  None), 10)
         emit(phase="timing_rope", kernel="flash_fwd", rope=tables[0] is not None, ms=ms,
              bound_ms=fwd_flops / peak * 1e3, shape=shape)
+    return kernels
+
+
+def compare_pipe(case, b, h, sq, skv, d, dtype, causal=True, seed=0, controls=False):
+    """K9 against its plain version on the same (B, H, S, D) inputs: out by
+    the max-based and blockwise limits, lse by its absolute limit, and rows
+    that attend nothing exactly 0. With ``controls`` the last attended
+    64-key tile of the last q tile (the diagonal one, which the kernel's
+    flush step multiplies) is dropped from out as a planted fault that must
+    be caught. Returns out's max abs error."""
+    from distributed_tensorflow_tpu_torch.tools import pipeline_probe as pp
+
+    q, k, v, _ = _bhsd(b, h, sq, skv, d, dtype, seed)
+    out, lse = pp.pipe_flash_forward_kernel(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = A.flash_forward_reference(q, k, v, causal)
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        fail(f"{case}: non-finite out or lse")
+    dead = _masked_rows(case, lse, ref_lse, out)
+    err = _check(case, "out", dtype, out, ref_out, "out")
+    _check(case, "lse", dtype, lse[~dead], ref_lse[~dead], "lse")
+    if controls:
+        fault_controls(case, q, k, v, None, out, lse, None, ref_out, None,
+                       products=("out: P.V",), keys=slice(sq - BLOCK_ROWS, sq))
+    return err
+
+
+def _probe_entry(module, counter):
+    """``python -m distributed_tensorflow_tpu_torch.tools.<module>``: exit 0,
+    its JSON records, and its last record's launches of ``counter`` > 0
+    (a fresh process counts from 0). Returns that count."""
+    res = subprocess.run(
+        [sys.executable, "-m", f"distributed_tensorflow_tpu_torch.tools.{module}"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    if res.returncode != 0:
+        fail(f"probes: {module} exited {res.returncode}: {res.stderr[-2000:]}")
+    records = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
+    for r in records:
+        emit(phase="probes", entry=module, **r)
+    launches = records[-1].get("launches", {}) if records else {}
+    if launches.get(counter, 0) < 1:
+        fail(f"probes: {module} launched no {counter} kernel ({launches})")
+    return launches[counter]
+
+
+def phase_probes():
+    """K9 and K10, the two kernel probes: each against its plain version,
+    K10 bit for bit against K3, each timed at its probe shape like phase 6
+    (beside K3 on the same inputs), and each probe's main() run as a user
+    runs it. No main path launches either kernel; a probe call launches
+    one."""
+    from distributed_tensorflow_tpu_torch.utils.flops import chip_hbm_bandwidth, chip_peak_flops
+
+    peak, bw = chip_peak_flops(), chip_hbm_bandwidth()
+    kernels = _probe_pipe(peak, bw) + _probe_bshd(peak, bw)
+    entry = {"pipe_fwd": _probe_entry("pipeline_probe", "pipe_fwd"),
+             "probe_bshd_fwd": _probe_entry("bshd_probe", "probe_bshd_fwd")}
+    for rec in kernels:
+        rec["launches_by_probe_entry"] = entry[rec["name"]]
+    return kernels
+
+
+# Timing rows of the probes: bound = max(2·b·h·s²·d over the peak, bytes of
+# q, k, v read and out, lse written over the memory rate); library = SDPA's
+# causal forward (Sq == Skv, so its top-left alignment agrees).
+PROBE_NOTE = {"launches_note": "0 on every main path; one a call of the probe function"}
+
+
+def _probe_pipe(peak, bw):
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_tpu_torch.tools import pipeline_probe as pp
+
+    errs = {}
+    for tag, (b, h, s, d) in pp.SHAPES.items():
+        errs[tag] = compare_pipe(f"k9_{tag}", b, h, s, s, d, torch.bfloat16, seed=50,
+                                 controls=tag == "flagship_2k")
+        torch.cuda.empty_cache()
+    compare_pipe("k9_ragged_f32_d64", 2, 4, 200, 200, 64, torch.float32, seed=51)
+    compare_pipe("k9_cross_72_200_d128", 2, 4, 72, 200, 128, torch.bfloat16, seed=52)
+    compare_pipe("k9_fully_masked_rows_200_72_d64", 2, 4, 200, 72, 64, torch.float32, seed=53)
+    compare_pipe("k9_noncausal_f32_d128", 1, 4, 136, 200, 128, torch.float32, causal=False,
+                 seed=54)
+    kernels = []
+    for tag, (b, h, s, d) in pp.SHAPES.items():
+        q, k, v, _ = _bhsd(b, h, s, s, d, torch.bfloat16, seed=57)
+        out3 = A.flash_forward_kernel(q, k, v, True)[0]
+        bitwise = bool(torch.equal(pp.pipe_flash_forward_kernel(q, k, v, True)[0], out3))
+        del out3
+        nbytes = 4 * q.numel() * q.element_size() + b * h * s * 4
+        runs = {"pipe_fwd": ((2 * b * h * s * s * d, nbytes),
+                             lambda: pp.pipe_flash_forward_kernel(q, k, v, True),
+                             lambda: pp.pipe_flash_forward_reference(q, k, v, True),
+                             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                             None)}
+        k3_ms = cuda_ms(lambda: A.flash_forward_kernel(q, k, v, True), 10)
+        notes = {"pipe_fwd": dict(PROBE_NOTE, probe_shape=tag, k3_same_inputs_ms=k3_ms,
+                                  bitwise_equal_k3=bitwise)}
+        kernels += _time_kernels(runs, {"pipe_fwd": 0}, {"pipe_fwd": errs[tag]}, peak, bw,
+                                 dict(B=b, H=h, S=s, D=d, dtype="bf16", causal=True), notes)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return kernels
+
+
+def _probe_bshd(peak, bw):
+    """K10 on (B, S, H·dh) operands at the probe's shape: equal bit for bit
+    to K3 on a contiguous BHSD copy of the same values, within limits of
+    its plain version there and at a small ragged f32 case, then timed."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_tpu_torch.tools import bshd_probe as bp
+
+    b, s, h, dh = bp.B, bp.S, bp.H, bp.DH
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    x = (0.1 * torch.randn(b, s, h * dh, device="cuda", generator=gen)).to(torch.bfloat16)
+    xh = A._heads(x, dh).contiguous()
+    out10, lse10 = bp.bshd_forward(x, x, x, h)
+    out3, lse3 = A.flash_forward_kernel(xh, xh, xh, True)
+    torch.cuda.synchronize()
+    same = {"out": torch.equal(A._heads(out10, dh), out3),
+            "lse": torch.equal(lse10.reshape(b, h, s), lse3)}
+    emit(phase="probes", case="k10_vs_k3", bitwise_equal=same)
+    if not all(same.values()):
+        fail(f"probes: K10 and K3 differ on the same values ({same})")
+    ref_out, ref_lse = bp.bshd_forward_reference(x, x, x, h)
+    err = _check("k10_probe_shape", "out", torch.bfloat16, A._heads(out10, dh),
+                 A._heads(ref_out, dh), "out")
+    _check("k10_probe_shape", "lse", torch.bfloat16, lse10, ref_lse, "lse")
+    del out3, lse3, out10, lse10, ref_out, ref_lse
+    xs = [torch.randn(2, 200, 4 * 64, device="cuda", generator=gen) for _ in range(3)]
+    (got, got_lse), (want, want_lse) = bp.bshd_forward(*xs, 4), bp.bshd_forward_reference(*xs, 4)
+    case = "k10_ragged_f32_d64"
+    _check(case, "out", torch.float32, A._heads(got, 64), A._heads(want, 64), "out")
+    _check(case, "lse", torch.float32, got_lse, want_lse, "lse")
+
+    xv = A._heads(x, dh)
+    runs = {"probe_bshd_fwd": ((2 * b * h * s * s * dh, 4 * x.numel() * x.element_size()
+                                + b * h * s * 4),
+                               lambda: bp.bshd_forward(x, x, x, h),
+                               lambda: bp.bshd_forward_reference(x, x, x, h),
+                               lambda: F.scaled_dot_product_attention(xv, xv, xv, is_causal=True),
+                               None)}
+    k3_ms = cuda_ms(lambda: A.flash_forward_kernel(xh, xh, xh, True), 10)
+    notes = {"probe_bshd_fwd": dict(PROBE_NOTE, probe_shape="flagship_2k",
+                                    k3_same_inputs_ms=k3_ms)}
+    kernels = _time_kernels(runs, {"probe_bshd_fwd": 0}, {"probe_bshd_fwd": err}, peak, bw,
+                            dict(B=b, S=s, H=h, D=dh, dtype="bf16", causal=True,
+                                 layout="(B, S, H·dh)"), notes)
+    del x, xh, xv
+    torch.cuda.empty_cache()
     return kernels
 
 
@@ -888,14 +1055,14 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": errs[name],
-            "ms": time_ms(kernel, 10),
-            "plain_ms": time_ms(plain, 3, warmup=1),
+            "ms": cuda_ms(kernel, 10),
+            "plain_ms": cuda_ms(plain, 3, warmup=1),
             "bound_ms": max(t_flops, t_bytes),
             "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-            "library_ms": time_ms(library, 10),
+            "library_ms": cuda_ms(library, 10),
             **(notes or {}).get(name, {}),
         }
-        extra = {} if library_bwd is None else {"library_bwd_only_ms": time_ms(library_bwd, 10)}
+        extra = {} if library_bwd is None else {"library_bwd_only_ms": cuda_ms(library_bwd, 10)}
         emit(phase="timing", shape=shape, flops=flops, bytes=nbytes, **rec, **extra)
         kernels.append(rec)
     return kernels
@@ -996,6 +1163,7 @@ def main():
         notes[k]["library_call"] = "SDPA backward alone (all three gradients)"
     phase_parity()
     kernels = phase_timing(launches, errs, notes) + phase_timing_long(launches, errs, notes)
+    kernels += phase_probes()
     for path in MAIN_PATHS:
         phase_profile(path)
     print(smi, flush=True)

@@ -28,10 +28,12 @@ two-pass pair — a dq kernel and a dk/dv kernel. The packed path's long
 branch runs the BSHD fused kernel on head views of qkv.
 
 Kernels (``csrc/``): ``flash_fwd.cu`` — one forward on strided (B, H, S, D)
-operands behind every layout (K1, K3, K7); ``flash_bwd.cu`` — one fused
-backward behind every layout (K2, K4, K8) and, with dq compiled out, the
-two-pass dk/dv kernel (K6); ``flash_bwd_dq.cu`` — the two-pass dq kernel
-(K5). Each has a plain PyTorch version here (``*_reference``). A CPU tensor
+operands behind every layout (K1, K3, K7, and the BSHD probe's K10);
+``flash_bwd.cu`` — one fused backward behind every layout (K2, K4, K8) and,
+with dq compiled out, the two-pass dk/dv kernel (K6); ``flash_bwd_dq.cu`` —
+the two-pass dq kernel (K5); ``flash_fwd_pipe.cu`` — the software-pipelined
+forward of the pipelining probe (K9, ``tools/pipeline_probe.py``). Each has
+a plain PyTorch version (``*_reference``). A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises —
 there is no fallback between them.
 """
@@ -52,10 +54,12 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 # one exactly where it launches, so a run can show it went through them.
 # flash_*: the packed path (K1/K2); bhsd_*: BHSD (K3/K4); bshd_*: the BSHD
 # layout and the packed long branch (K7/K8); bwd_dq/bwd_dkv: the two-pass
-# pair (K5/K6).
+# pair (K5/K6); pipe_fwd: the pipelining probe's forward (K9);
+# probe_bshd_fwd: the BSHD probe's forward (K10).
 KERNEL_LAUNCHES = {
     "flash_fwd": 0, "flash_bwd": 0, "bhsd_fwd": 0, "bhsd_bwd": 0,
     "bshd_fwd": 0, "bshd_bwd": 0, "bwd_dq": 0, "bwd_dkv": 0,
+    "pipe_fwd": 0, "probe_bshd_fwd": 0,
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -391,6 +395,11 @@ _FWD_ARGTYPES = (
     + [ctypes.c_int] * 10  # B, H, KV, Sq, Skv, D, is_bf16, causal, window, q_pos_offset
     + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]  # table stride, scale, stream
 )
+_PIPE_FWD_ARGTYPES = (
+    [ctypes.c_void_p] * 6  # q, k, v, out, lse, strides
+    + [ctypes.c_int] * 8  # B, H, Sq, Skv, D, is_bf16, causal, q_pos_offset
+    + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+)
 _BWD_ARGTYPES = (
     # q, k, v, out, dout, lse, cos, sin, dq, dk, dv, dq_acc, delta, strides
     [ctypes.c_void_p] * 14
@@ -456,6 +465,25 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
         )
         KERNEL_LAUNCHES[counter] += 1
     _check_status(counter, status)
+
+
+def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None:
+    """Launch ``csrc/flash_fwd_pipe.cu`` (K9) on q's stream: q, out (B, H,
+    Sq, D) and k, v (B, H, Skv, D) views with a contiguous last dimension,
+    lse (B, H, Sq) f32. The launch counts under
+    ``KERNEL_LAUNCHES["pipe_fwd"]``."""
+    strides = _strides(q, k, v, out)
+    fn = _kernel_fn("flash_fwd_pipe", _PIPE_FWD_ARGTYPES)
+    b, h, sq, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), ctypes.addressof(strides), b, h,
+            sq, k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal), q_pos_offset,
+            _scale(d, scale), stream,
+        )
+        KERNEL_LAUNCHES["pipe_fwd"] += 1
+    _check_status("pipe_fwd", status)
 
 
 def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,

@@ -1,0 +1,116 @@
+"""Software-pipelining probe for the flash forward (K9): does overlapping
+the softmax of kv tile n with the tensor-core product of tile n + 1 make
+the forward faster on this card?
+
+Counterpart of the JAX package's ``tools/pipeline_probe.py``. Its
+``pipe_flash_forward`` becomes ``csrc/flash_fwd_pipe.cu`` for CUDA tensors
+(the kernel issues Q·K_{n+1}ᵀ before the softmax of tile n and keeps K one
+tile ahead of V; see the source) and :func:`pipe_flash_forward_reference`
+for CPU ones. The TPU's ``block_q``/``block_kv`` are left out, because the
+CUDA kernels fix their own 64-row tiles, and so is the unused ``out_dtype``:
+out is in q's dtype.
+
+    python -m distributed_tensorflow_tpu_torch.tools.pipeline_probe
+
+prints one JSON record per reading at the probe's two shapes (bf16,
+causal): the parity of K9 against the shipped forward K3 (``csrc/
+flash_fwd.cu``), then ms, TFLOP/s over ``2·b·h·s²·d`` and the share of the
+card's peak for "current" (K3) and "pipelined" (K9), timed in turns
+(current, pipelined, pipelined, current), and last the launch counts. It
+raises without a card.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from distributed_tensorflow_tpu_torch.ops import attention as A
+from distributed_tensorflow_tpu_torch.utils.device import resolve_device
+from distributed_tensorflow_tpu_torch.utils.flops import chip_peak_flops
+from distributed_tensorflow_tpu_torch.utils.timer import cuda_ms
+
+# The probe's shapes (B, H, S, D): the bench flagship's attention call and
+# the 8k bench shape.
+SHAPES = {"flagship_2k": (12, 16, 2048, 128), "8k_d128": (1, 8, 8192, 128)}
+PARITY_TOL = 1e-2  # max |K9 - K3|, the JAX probe's limit
+ITERS = 20
+
+
+def _check_heads(q, k, v) -> None:
+    A._bhsd_dims(q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"k and v must carry q's {q.shape[1]} heads, got {k.shape[1]}")
+
+
+def pipe_flash_forward_reference(q, k, v, causal: bool = True, scale: float | None = None):
+    """Plain version of K9: the plain flash forward (q scale-folded and
+    rounded, dense masked softmax in f32). Returns out (B, H, Sq, D)."""
+    _check_heads(q, k, v)
+    return A.flash_forward_reference(q, k, v, causal, None, scale)[0]
+
+
+def pipe_flash_forward_kernel(q, k, v, causal: bool = True, scale: float | None = None):
+    """Launch ``csrc/flash_fwd_pipe.cu`` on q's stream. Returns ``out`` (B,
+    H, Sq, D) in q's layout and ``lse`` (B, H, Sq) f32 — the kernel writes
+    lse, as the TPU kernel does, so the timed work matches."""
+    _check_heads(q, k, v)
+    b, h, sq, skv, _ = A._check_bhsd_kernel_operands(q, k, v, causal, None)
+    q, k, v = (A._kernel_layout(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    A._launch_pipe_forward(q, k, v, out, lse, causal, skv - sq, scale)
+    return out, lse
+
+
+def pipe_flash_forward(q, k, v, causal: bool = True, scale: float | None = None):
+    """Flash forward of q (B, H, Sq, D) against k, v (B, H, Skv, D), causal
+    masking end-aligned: K9 for CUDA tensors (counted under
+    ``KERNEL_LAUNCHES["pipe_fwd"]``), the plain version for CPU ones.
+    Returns out (B, H, Sq, D)."""
+    if A._on(q) == "cuda":
+        return pipe_flash_forward_kernel(q, k, v, causal, scale)[0]
+    return pipe_flash_forward_reference(q, k, v, causal, scale)
+
+
+def _emit(**record) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def main() -> None:
+    device = resolve_device("cuda")
+    peak = chip_peak_flops(device)
+    for tag, (b, h, s, d) in SHAPES.items():
+        rng = np.random.default_rng(0)
+        q, k, v = (
+            torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32))
+            .to(device=device, dtype=torch.bfloat16)
+            for _ in range(3)
+        )
+        ref = A.flash_forward_kernel(q, k, v, True)[0]
+        got = pipe_flash_forward(q, k, v, True)
+        err = (got.float() - ref.float()).abs().max().item()
+        _emit(probe="pipeline", shape=tag, max_abs_diff_vs_current=err,
+              bitwise_equal=bool(torch.equal(got, ref)), tol=PARITY_TOL)
+        if not err < PARITY_TOL:
+            raise RuntimeError(f"[{tag}] max |pipelined - current| = {err:.2e}")
+        del ref, got
+        flops = 2 * b * h * s * s * d  # the causal half of 4·b·h·s²·d
+        runs = {
+            "current": lambda: A.flash_forward_kernel(q, k, v, True),
+            "pipelined": lambda: pipe_flash_forward(q, k, v, True),
+        }
+        for name in ("current", "pipelined", "pipelined", "current"):
+            ms = cuda_ms(runs[name], ITERS)
+            tflops = flops / ms / 1e9
+            _emit(probe="pipeline", shape=tag, kernel=name, ms=ms, tflops=tflops,
+                  pct_peak=None if peak is None else 100 * tflops * 1e12 / peak)
+        del q, k, v
+    _emit(probe="pipeline", device=torch.cuda.get_device_name(device),
+          launches={key: A.KERNEL_LAUNCHES[key] for key in ("bhsd_fwd", "pipe_fwd")})
+
+
+if __name__ == "__main__":
+    main()

@@ -45,6 +45,26 @@ def test_importing_every_module_loads_no_jax():
     assert res.stdout.startswith("ok")
 
 
+def test_port_tools_import_no_root_tools_or_bench():
+    # The port's probes are counterparts of the repo root's tools/*_probe.py,
+    # which import bench and the JAX package; the port keeps its own copies.
+    mods = [m for m in _modules() if m.startswith("distributed_tensorflow_tpu_torch.tools")]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('tools', 'bench'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert len(mods) == 3, mods
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
 def test_sources_name_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b|distributed_tensorflow_tpu\.",
                          re.M)
@@ -86,4 +106,5 @@ def test_cpu_tensors_launch_no_kernel():
     assert TA.KERNEL_LAUNCHES == before == {
         "flash_fwd": 0, "flash_bwd": 0, "bhsd_fwd": 0, "bhsd_bwd": 0,
         "bshd_fwd": 0, "bshd_bwd": 0, "bwd_dq": 0, "bwd_dkv": 0,
+        "pipe_fwd": 0, "probe_bshd_fwd": 0,
     }
