@@ -26,7 +26,12 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  8192, 4 query heads on one kv head of 128, bf16, rope θ
                  500000, four segments), GQA + window + cross-length + rope
                  in bf16 and f32, non-causal, fully masked rows, and planted
-                 faults in K8's, K5's and K6's products;
+                 faults in K8's, K5's and K6's products. Every bf16 case at
+                 head_dim 64/128 with dq runs the warpgroup backward
+                 (flash_bwd_sm90.cu), with extra non-causal, cross-length and
+                 fully-masked cases for it; head_dim 32 (an instance) and 80
+                 (padded to 128) at the CLI's call shape, packed and BHSD,
+                 bf16 and f32;
   4. main      — the trainer (cli/train_lm.py) for 6 steps on each main path:
                  dp and tp (--model_parallel 1, a world of one) at the bench
                  flagship's full width and depth (d_model 2048, 16 heads, 8
@@ -35,7 +40,9 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  4 kv heads, seq 8192, batch 3, rope θ 500000): finite loss
                  at every boundary and exactly the path's launches per step
                  (8 + 8 of dp's or tp's pair; 8 K1 and 32 K8 on the long
-                 path) and none of any other kernel;
+                 path) and none of any other kernel, every backward launch
+                 on flash_bwd_sm90.cu; then the trainer at its own defaults
+                 (head_dim 32) and at head_dim 80, 4 steps each;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
@@ -47,7 +54,10 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  through plain dense attention, same weights and tokens: the
                  dp model, and the tp model against the dp model (its fused
                  qkv weight split into q/k/v) and against dense attention;
-  6. timing    — each kernel at its path's call shape beside its plain
+  6. turns     — the warpgroup backward against flash_bwd.cu's bf16
+                 instance, the kernel it replaced, in turns (new, old, old,
+                 new) at the K2, K4 and long K8 calls;
+     timing    — each kernel at its path's call shape beside its plain
                  version, its bound on this card and the library's nearest
                  call (scaled_dot_product_attention, forward for a forward
                  kernel and forward+backward for a fused backward kernel,
@@ -140,15 +150,21 @@ REPLACES = {
     "probe_bshd_fwd": "tools/bshd_probe.py:49 (_flash_kernel of distributed_tensorflow_tpu/ops/"
                       "attention.py via bshd_forward)",
 }
-# The wrappers' launch counters and the source each one launches: every
-# layout goes through one forward and one fused backward kernel, as the
-# TPU's do; the two-pass pair is flash_bwd_dq.cu (K5) and flash_bwd.cu with
-# dq compiled out (K6). The BSHD probe (K10) is the forward on head views;
-# the pipelining probe (K9) has a kernel of its own.
+# The wrappers' launch counters and the source each one launches at the
+# main paths' calls: every layout goes through one forward and one fused
+# backward kernel, as the TPU's do — the backward's bf16 calls at head_dim
+# 64/128 through the warpgroup kernel flash_bwd_sm90.cu, its f32 and head_dim
+# 32 calls through flash_bwd.cu (attention.backward_kernel); the two-pass pair
+# is flash_bwd_dq.cu (K5) and flash_bwd.cu with dq compiled out (K6). The
+# BSHD probe (K10) is the forward on head views; the pipelining probe (K9)
+# has a kernel of its own.
 SOURCES = {"flash_fwd": "flash_fwd", "bhsd_fwd": "flash_fwd", "bshd_fwd": "flash_fwd",
-           "flash_bwd": "flash_bwd", "bhsd_bwd": "flash_bwd", "bshd_bwd": "flash_bwd",
-           "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd", "pipe_fwd": "flash_fwd_pipe",
-           "probe_bshd_fwd": "flash_fwd"}
+           "flash_bwd": "flash_bwd_sm90", "bhsd_bwd": "flash_bwd_sm90",
+           "bshd_bwd": "flash_bwd_sm90", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd",
+           "pipe_fwd": "flash_fwd_pipe", "probe_bshd_fwd": "flash_fwd"}
+# The fused backward's counters: their launches on a main path must all run
+# flash_bwd_sm90.cu.
+FUSED_BWD = ("flash_bwd", "bhsd_bwd", "bshd_bwd")
 # Each main path: its trainer flags and its launches per layer per step
 # (every other counter must stay at 0). The long path's backward runs the
 # fused kernel on four q segments of 2048 rows (the JAX package's gate).
@@ -192,7 +208,7 @@ def phase_build():
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln or "entry function" in ln]
         emit(phase="build", kernel=name, library=str(_build.library_path(name).name),
-             ptxas=lines)
+             nvcc_seconds=_build.BUILD_SECONDS.get(name), ptxas=lines)
     emit(phase="build", seconds=round(seconds, 2))
 
 
@@ -411,7 +427,30 @@ def phase_kernels():
                  seed=8)
     check_segments("bhsd_segments_f32_d128", 2, 4, 384, 128, torch.float32, n_seg=2)
     check_segments("bhsd_segments_tp_path", b, h, s, dh, torch.bfloat16, n_seg=2, seed=9)
+    # The warpgroup backward (bf16 at head_dim 64 and 128) where the cases
+    # above leave it untried; GQA, window, rope and q segments placed by
+    # q_pos_offset at head_dim 64 are gqa_window_rope_d64 above and the long
+    # family's long_gqa_window_cross_rope_d64.
+    compare_bhsd("wgmma_noncausal_cross_d64", 2, 8, 136, 200, 64, torch.bfloat16, causal=False,
+                 seed=11)
+    compare_bhsd("wgmma_fully_masked_rows_d64", 2, 4, 200, 72, 64, torch.bfloat16, seed=12)
+    compare_bhsd("wgmma_cross_window_d128", 2, 4, 192, 320, 128, torch.bfloat16, window=100,
+                 seed=13)
+    compare_bhsd("wgmma_fully_masked_rows_d128", 1, 4, 200, 72, 128, torch.bfloat16, seed=14)
     return errs
+
+
+def phase_head_dims():
+    """Head dims off the main paths: 32 (an instance of its own; the CLI's
+    default d_model 128 over 4 heads) at the CLI's call shape (batch 8, seq
+    128), and 80 (zero-padded to 128, rope paired half by half), forward and
+    backward, packed qkv and BHSD, bf16 and f32, against the plain versions
+    at the real head_dim."""
+    for dtype in (torch.bfloat16, torch.float32):
+        compare("packed_d32_cli_shape", 8, 128, 4, 4, 32, dtype, seed=60)
+        compare("packed_d80_gqa_rope", 8, 128, 4, 2, 80, dtype, rope=True, seed=61)
+        compare_bhsd("bhsd_d32_cross_window", 2, 4, 136, 200, 32, dtype, window=50, seed=62)
+        compare_bhsd("bhsd_d80_cross", 2, 4, 136, 200, 80, dtype, seed=63)
 
 
 def _long_operands(b, h, kv, sq, skv, d, dtype, seed):
@@ -500,8 +539,9 @@ def phase_kernels_long():
 
 
 def _zero_counts():
-    for k in A.KERNEL_LAUNCHES:
-        A.KERNEL_LAUNCHES[k] = 0
+    for counts in (A.KERNEL_LAUNCHES, A.SOURCE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def phase_main(smi, path):
@@ -537,15 +577,56 @@ def phase_main(smi, path):
     if not all(r["loss"] == r["loss"] and abs(r["loss"]) < float("inf") for r in records):
         fail(f"{phase}: non-finite loss")
     want = {k: per_layer.get(k, 0) * shape["num_layers"] * STEPS for k in A.KERNEL_LAUNCHES}
-    emit(phase=phase, launches=launches, expected=want, wall_s=round(wall, 2))
+    # Every fused backward launch ran the warpgroup kernel.
+    bwd = sum(want[k] for k in FUSED_BWD)
+    sources = dict(A.SOURCE_LAUNCHES)
+    want_sources = {"flash_bwd_sm90": bwd, "flash_bwd": 0}
+    emit(phase=phase, launches=launches, expected=want, source_launches=sources,
+         expected_sources=want_sources, wall_s=round(wall, 2))
     if launches != want:
         fail(f"{phase}: kernel launches {launches}, expected {want}")
+    if any(sources[k] != n for k, n in want_sources.items()):
+        fail(f"{phase}: backward sources {sources}, expected {want_sources}")
     last = records[-1]
     if "steps_per_sec" not in last:
         fail(f"{phase}: no timed window")
     emit(phase=phase, steps_per_sec=last["steps_per_sec"],
          tokens_per_sec=last["tokens_per_sec"], mfu=last.get("mfu"), card=smi)
     return {k: v for k, v in launches.items() if k in per_layer}
+
+
+# The trainer at its own defaults (d_model 128 over 4 heads: head_dim 32, 4
+# layers, seq 128, batch 8) and at head_dim 80 (d_model 320, padded to 128):
+# extra flags, and the backward source each must run.
+CLI_RUNS = {"cli_defaults_d32": ([], "flash_bwd"),
+            "cli_d80_padded": (["--d_model", "320"], "flash_bwd_sm90")}
+CLI_STEPS, CLI_LAYERS = 4, 4
+
+
+def phase_cli_head_dims():
+    """``cli/train_lm.py --attention flash`` on the card at head_dim 32 and
+    80 for CLI_STEPS steps: finite losses, one K1 and one K2 launch a layer
+    a step and no other, the backward through its source."""
+    from distributed_tensorflow_tpu_torch.cli import train_lm
+
+    for name, (flags, source) in CLI_RUNS.items():
+        _zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_lm.main(["--attention", "flash", "--device", "cuda", "--training_steps",
+                           str(CLI_STEPS), "--eval_step_interval", "2", *flags])
+        records = [json.loads(line) for line in buf.getvalue().splitlines()]
+        n = CLI_STEPS * CLI_LAYERS
+        want = {k: n if k in ("flash_fwd", "flash_bwd") else 0 for k in A.KERNEL_LAUNCHES}
+        launches, sources = dict(A.KERNEL_LAUNCHES), dict(A.SOURCE_LAUNCHES)
+        emit(phase="cli_head_dims", run=name, losses=[r["loss"] for r in records],
+             launches=launches, expected=want, source_launches=sources)
+        if [r["step"] for r in records] != [2, 4]:
+            fail(f"{name}: unexpected boundaries {[r['step'] for r in records]}")
+        if not all(abs(r["loss"]) < float("inf") for r in records):
+            fail(f"{name}: non-finite loss")
+        if launches != want or sources[source] != n:
+            fail(f"{name}: launches {launches} by source {sources}, expected {want} on {source}")
 
 
 def _cfg(shape=FLAGSHIP, attention="flash", num_layers=None):
@@ -730,6 +811,65 @@ def _sdpa(q, k, v, g):
         torch.autograd.grad(ol, (ql, kl, vl), g, retain_graph=True)
 
     return fwd, fwd_bwd, bwd
+
+
+@contextlib.contextmanager
+def backward_source(name):
+    """Send every fused backward launch to ``csrc/<name>.cu``, whatever
+    :func:`attention.backward_kernel` would pick: the turns' old kernel."""
+    saved = A.backward_kernel
+    A.backward_kernel = lambda *args: name
+    try:
+        yield
+    finally:
+        A.backward_kernel = saved
+
+
+TURNS = ("flash_bwd_sm90", "flash_bwd", "flash_bwd", "flash_bwd_sm90")
+
+
+def phase_turns(notes):
+    """The warpgroup backward against flash_bwd.cu's bf16 instance, the
+    kernel it replaced, on the same inputs in turns (new, old, old, new) at
+    each path's call: K2 on the dp path's packed qkv, K4 on the tp path's
+    head views, K8 as one whole call at the long shape. Adds each kernel's
+    turns and the old kernel's mean time to its row's notes."""
+    fl = FLAGSHIP
+    b, s, h = fl["batch_size"], fl["seq_len"], fl["num_heads"]
+    d = fl["d_model"] // h
+
+    def k2():
+        qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=3)
+        out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None, None)
+        return lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g, h, h, True, None, None,
+                                                   None, None)
+
+    def k4():
+        q, k, v, g = _bhsd(b, h, s, s, d, torch.bfloat16, seed=10, bshd=True)
+        out, lse = A.flash_forward_kernel(q, k, v, True)
+        return lambda: A.flash_backward_kernel(q, k, v, out, lse, g, True)
+
+    def k8():
+        lb, ls, lh, lkv = LONG["batch_size"], LONG["seq_len"], LONG["num_heads"], \
+            LONG["num_kv_heads"]
+        q, k, v, g = _long_operands(lb, lh, lkv, ls, ls, d, torch.bfloat16, seed=30)
+        out, lse = A.flash_forward_bshd(q, k, v, True)
+        return lambda: A.flash_backward_bshd(q, k, v, out, lse, g, True)
+
+    for name, make in (("flash_bwd", k2), ("bhsd_bwd", k4), ("bshd_bwd", k8)):
+        run = make()
+        turns = []
+        for source in TURNS:
+            with backward_source(source):
+                turns.append(cuda_ms(run, 10))
+        old = (turns[1] + turns[2]) / 2
+        emit(phase="turns", kernel=name, order=list(TURNS), ms=turns, old_ms=old,
+             new_ms=(turns[0] + turns[3]) / 2)
+        notes[name].update(turns_ms=dict(order=list(TURNS), ms=turns),
+                           old_kernel="distributed_tensorflow_tpu_torch/csrc/flash_bwd.cu",
+                           old_kernel_ms=old)
+        del run
+        torch.cuda.empty_cache()
 
 
 def phase_timing(launches, errs, notes):
@@ -1072,7 +1212,8 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
 # are named nvjet_*, sm90_xmma_* or *gemm*). No kernel name of one class
 # contains another class's substring. Each profiled step runs one path, so
 # attn_fwd is K1 in the dp and long steps and K3 in the tp step, and
-# attn_bwd is K2, K4 and K8 (K8 on four q segments) in them.
+# attn_bwd is K2, K4 and K8 (K8 on four q segments) in them, all three on
+# dtt::flash_bwd_sm90_kernel.
 KERNEL_CLASSES = (
     ("attn_fwd", ("dtt::flash_fwd",)),
     ("attn_bwd", ("dtt::flash_bwd",)),  # delta pre-pass, main kernel, dq pass
@@ -1146,7 +1287,9 @@ def main():
     phase_build()
     errs = phase_kernels()
     errs.update(phase_kernels_long())
+    phase_head_dims()
     by_path = {path: phase_main(smi, path) for path in MAIN_PATHS}
+    phase_cli_head_dims()
     # A kernel's launches are those of the first main path it serves; the
     # record lists every path's, and the routes phase's for the kernels no
     # main path takes (K5/K6 run only where no q segmentation exists, K7
@@ -1162,6 +1305,7 @@ def main():
     for k in ("bwd_dq", "bwd_dkv"):
         notes[k]["library_call"] = "SDPA backward alone (all three gradients)"
     phase_parity()
+    phase_turns(notes)
     kernels = phase_timing(launches, errs, notes) + phase_timing_long(launches, errs, notes)
     kernels += phase_probes()
     for path in MAIN_PATHS:

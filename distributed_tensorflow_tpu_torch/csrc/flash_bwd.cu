@@ -48,42 +48,21 @@
 // memory; each step's q-side tiles are double-buffered with cp.async. Every
 // operand is read or written through its own (b, h, s) strides, so neither
 // the packed projection nor the tp block's head-transposed views need a
-// copy; rope is a template parameter. dq's atomics and the missing TMA and
-// wgmma are the levers of a later version.
-#include "flash_common.cuh"
+// copy; rope is a template parameter. Instances: bf16 and f32 at head_dim
+// 32, 64 and 128. The bf16 calls at 64 and 128 that compute dq run
+// flash_bwd_sm90.cu instead, the same design on wgmma; this kernel keeps
+// f32, head_dim 32 and K6.
+#include "flash_bwd_passes.cuh"
 
 namespace dtt {
 
 constexpr int BWD_BKV = 64, BWD_BQ = 32, BWD_THREADS = 128;
-
-struct BwdStrides {
-  Bhsd q, k, v, g, dk, dv;
-};
 
 template <typename T, int D>
 constexpr size_t bwd_smem_bytes() {
   return sizeof(float) * 4 * BWD_BQ +
          sizeof(T) * ((2 * BWD_BKV + 4 * BWD_BQ) * (D + kPad<T>) +
                       (4 * 16 + BWD_BKV) * (BWD_BQ + kPad<T>));
-}
-
-// delta[r] = sum_d dO[b, h, s, d] · O[b, h, s, d] for row r = (b·H + h)·Sq + s;
-// one warp per row.
-template <typename T>
-__global__ void flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                                       float* __restrict__ delta, Bhsd so, Bhsd sg, int H,
-                                       int Sq, int D, long long rows) {
-  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;
-  const long long b = r / ((long long)H * Sq), h = (r / Sq) % H, s = r % Sq;
-  const T* o = out + b * so.b + h * so.h + s * so.s;
-  const T* d = dout + b * sg.b + h * sg.h + s * sg.s;
-  float acc = 0.f;
-  for (int i = lane; i < D; i += 32) acc = fmaf(to_f32<T>(d[i]), to_f32<T>(o[i]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[r] = acc;
 }
 
 template <typename T, int D, bool ROPE, bool DQ>
@@ -284,32 +263,6 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// dq (B, H, Sq, D) f32 scratch -> rotated back (rope), cast, into the
-// caller's dq; a thread owns columns i and i + D/2 of a row.
-template <typename T, bool ROPE>
-__global__ void flash_bwd_dq_kernel(const float* __restrict__ dq_acc,
-                                    const float* __restrict__ cos, const float* __restrict__ sin,
-                                    T* __restrict__ dq, Bhsd sd, int H, int Sq, int D, int off,
-                                    long long tstride, long long pairs) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= pairs) return;
-  const int half = D / 2;
-  const long long row = idx / half;  // (b·H + h)·Sq + s
-  const int i = (int)(idx % half);
-  const long long b = row / ((long long)H * Sq), h = (row / Sq) % H, s = row % Sq;
-  float x1 = dq_acc[row * D + i], x2 = dq_acc[row * D + i + half];
-  if constexpr (ROPE) {
-    const long long at = b * tstride + (s + off) * half + i;  // the row's position: s + off
-    const float c = cos[at], sn = sin[at];
-    const float y1 = x1 * c + x2 * sn, y2 = x2 * c - x1 * sn;
-    x1 = y1;
-    x2 = y2;
-  }
-  T* dst = dq + b * sd.b + h * sd.h + s * sd.s;
-  dst[i] = from_f32<T>(x1);
-  dst[i + half] = from_f32<T>(x2);
-}
-
 template <typename T, int D, bool ROPE>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
                const void* lse, const void* cos, const void* sin, void* dq, void* dk, void* dv,
@@ -317,18 +270,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
                int Skv, int off, int causal, int window, long long tstride, float scale,
                cudaStream_t stream) {
   auto at = [&](int i) { return Bhsd{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; };
-  const Bhsd sq = at(0), sk = at(1), sv = at(2), so = at(3), sg = at(4), sdq = at(5),
-             sdk = at(6), sdv = at(7);
-  const long long rows = (long long)B * H * Sq;
-  cudaError_t err;
-  if (dq != nullptr && (err = cudaMemsetAsync(dq_acc, 0, rows * D * sizeof(float), stream)) !=
-                           cudaSuccess)
-    return (int)err;
-  flash_bwd_delta_kernel<T><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<float*>(delta), so,
-      sg, H, Sq, D, rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
+  const BwdStrides st{at(0), at(1), at(2), at(4), at(6), at(7)};
   const size_t smem = bwd_smem_bytes<T, D>();
   const dim3 grid((Skv + BWD_BKV - 1) / BWD_BKV, KV, B);
   auto main_kernel = [&](auto kernel) {
@@ -339,18 +281,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<const float*>(cos),
         static_cast<const float*>(sin), static_cast<T*>(dk), static_cast<T*>(dv),
-        static_cast<float*>(dq_acc), BwdStrides{sq, sk, sv, sg, sdk, sdv}, H, H / KV, Sq, Skv,
-        off, causal, window, tstride, scale);
+        static_cast<float*>(dq_acc), st, H, H / KV, Sq, Skv, off, causal, window, tstride,
+        scale);
     return cudaGetLastError();
   };
-  if (dq == nullptr) return (int)main_kernel(flash_bwd_kernel<T, D, ROPE, false>);
-  if ((err = main_kernel(flash_bwd_kernel<T, D, ROPE, true>)) != cudaSuccess) return (int)err;
-
-  const long long pairs = rows * (D / 2);
-  flash_bwd_dq_kernel<T, ROPE><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(dq_acc), static_cast<const float*>(cos),
-      static_cast<const float*>(sin), static_cast<T*>(dq), sdq, H, Sq, D, off, tstride, pairs);
-  return (int)cudaGetLastError();
+  auto launch_main = [&]() {
+    return dq == nullptr ? main_kernel(flash_bwd_kernel<T, D, ROPE, false>)
+                         : main_kernel(flash_bwd_kernel<T, D, ROPE, true>);
+  };
+  return run_bwd<T, ROPE>(launch_main, out, dout, cos, sin, dq, dq_acc, delta, s, B, H, Sq, D,
+                          off, tstride, stream);
 }
 
 }  // namespace dtt
@@ -383,8 +323,10 @@ extern "C" int dtt_flash_bwd(const void* q, const void* k, const void* v, const 
              : launch_bwd<T, DIM, false>(q, k, v, out, dout, lse, cos, sin, dq, dk, dv, dq_acc,  \
                                          delta, strides, B, H, KV, Sq, Skv, q_pos_offset,        \
                                          causal, window, tstride, scale, st)
+  if (is_bf16 && D == 32) DTT_BWD(bf16, 32);
   if (is_bf16 && D == 64) DTT_BWD(bf16, 64);
   if (is_bf16 && D == 128) DTT_BWD(bf16, 128);
+  if (!is_bf16 && D == 32) DTT_BWD(float, 32);
   if (!is_bf16 && D == 64) DTT_BWD(float, 64);
   if (!is_bf16 && D == 128) DTT_BWD(float, 128);
 #undef DTT_BWD

@@ -229,8 +229,10 @@ extern "C" int dtt_flash_bwd_dq(const void* q, const void* k, const void* v, con
              : launch_dq<T, DIM, false>(q, k, v, dout, lse, delta, cos, sin, dq, strides, B, H, \
                                         KV, Sq, Skv, q_pos_offset, causal, window, tstride,     \
                                         scale, st)
+  if (is_bf16 && D == 32) DTT_DQ(bf16, 32);
   if (is_bf16 && D == 64) DTT_DQ(bf16, 64);
   if (is_bf16 && D == 128) DTT_DQ(bf16, 128);
+  if (!is_bf16 && D == 32) DTT_DQ(float, 32);
   if (!is_bf16 && D == 64) DTT_DQ(float, 64);
   if (!is_bf16 && D == 128) DTT_DQ(float, 128);
 #undef DTT_DQ

@@ -234,8 +234,10 @@ extern "C" int dtt_flash_fwd(const void* q, const void* k, const void* v, void* 
                                         Skv, q_pos_offset, causal, window, tstride, scale, st) \
              : launch_fwd<T, DIM, false>(q, k, v, out, lse, cos, sin, strides, B, H, KV, Sq,   \
                                          Skv, q_pos_offset, causal, window, tstride, scale, st)
+  if (is_bf16 && D == 32) DTT_FWD(bf16, 32);
   if (is_bf16 && D == 64) DTT_FWD(bf16, 64);
   if (is_bf16 && D == 128) DTT_FWD(bf16, 128);
+  if (!is_bf16 && D == 32) DTT_FWD(float, 32);
   if (!is_bf16 && D == 64) DTT_FWD(float, 64);
   if (!is_bf16 && D == 128) DTT_FWD(float, 128);
 #undef DTT_FWD

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,6 +32,8 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# Seconds of each kernel's nvcc run in this process's builds.
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -64,28 +67,33 @@ def library_path(name: str) -> Path:
 
 def build(names: list[str] | None = None) -> float:
     """Compile every named kernel (default: all of ``csrc/``) whose library
-    is missing, all ``nvcc`` processes at once; returns the wall seconds.
-    Raises with the compiler's output when one fails."""
+    is missing, all ``nvcc`` processes at once; returns the wall seconds and
+    records each compile's own seconds in :data:`BUILD_SECONDS`. Raises with
+    the compiler's output when one fails."""
     names = sources() if names is None else names
     todo = [(n, library_path(n)) for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    t0 = time.perf_counter()
-    procs = []
-    for name, lib in todo:
+
+    def compile_one(item):
+        name, lib = item
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )))
+        t = time.perf_counter()
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return name, lib, tmp, res, time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(todo)) as pool:
+        results = list(pool.map(compile_one, todo))
     failed = []
-    for name, lib, tmp, proc in procs:
-        out, _ = proc.communicate()
-        lib.with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+    for name, lib, tmp, res, seconds in results:
+        BUILD_SECONDS[name] = seconds
+        lib.with_suffix(".log").write_text(res.stdout)
+        if res.returncode != 0:
+            failed.append(f"{name}: nvcc exited {res.returncode}\n{res.stdout}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, lib)

@@ -30,12 +30,16 @@ branch runs the BSHD fused kernel on head views of qkv.
 Kernels (``csrc/``): ``flash_fwd.cu`` — one forward on strided (B, H, S, D)
 operands behind every layout (K1, K3, K7, and the BSHD probe's K10);
 ``flash_bwd.cu`` — one fused backward behind every layout (K2, K4, K8) and,
-with dq compiled out, the two-pass dk/dv kernel (K6); ``flash_bwd_dq.cu`` —
-the two-pass dq kernel (K5); ``flash_fwd_pipe.cu`` — the software-pipelined
-forward of the pipelining probe (K9, ``tools/pipeline_probe.py``). Each has
-a plain PyTorch version (``*_reference``). A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises —
-there is no fallback between them.
+with dq compiled out, the two-pass dk/dv kernel (K6); ``flash_bwd_sm90.cu``
+— the same fused backward as a warpgroup (wgmma) kernel, which takes every
+bf16 call at head_dim 64 or 128 that computes dq (:func:`backward_kernel`);
+``flash_bwd_dq.cu`` — the two-pass dq kernel (K5); ``flash_fwd_pipe.cu`` —
+the software-pipelined forward of the pipelining probe (K9,
+``tools/pipeline_probe.py``). Each has a plain PyTorch version
+(``*_reference``). The kernels are compiled for head_dim 32, 64 and 128;
+any other head_dim up to 128 runs zero-padded to the next of those
+(:func:`pad_head_dim`). A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises — there is no fallback between them.
 """
 
 from __future__ import annotations
@@ -61,13 +65,68 @@ KERNEL_LAUNCHES = {
     "bshd_fwd": 0, "bshd_bwd": 0, "bwd_dq": 0, "bwd_dkv": 0,
     "pipe_fwd": 0, "probe_bshd_fwd": 0,
 }
+# The same launches by the kernel source (``csrc/<name>.cu``) they ran: a
+# fused backward wrapper's launch runs flash_bwd or flash_bwd_sm90
+# (:func:`backward_kernel`).
+SOURCE_LAUNCHES = {
+    "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_sm90": 0, "flash_bwd_dq": 0,
+    "flash_fwd_pipe": 0,
+}
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_KERNEL_HEAD_DIMS = (64, 128)
+# The head dims the kernels are compiled for; any other dh up to the last
+# is zero-padded to the next one (:func:`pad_head_dim`).
+_KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
 def _scale(head_dim: int, scale: float | None) -> float:
     return (1.0 / math.sqrt(head_dim)) if scale is None else float(scale)
+
+
+def _instance_dim(d: int) -> int:
+    """The kernel instance that runs head_dim ``d``: the smallest compiled
+    head dim that holds it."""
+    for n in _KERNEL_HEAD_DIMS:
+        if d <= n:
+            return n
+    raise ValueError(f"the flash kernels take head_dim up to {_KERNEL_HEAD_DIMS[-1]}, got {d}")
+
+
+def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t`` (..., d) zero-padded to (..., dp), contiguous. An even d is
+    padded half by half, ``[x1 | 0 | x2 | 0]``, so that column i still
+    pairs with column i + dp/2 under the kernels' split-half rope; an odd d
+    (no rope) at the tail. ``t`` itself when d == dp."""
+    d = t.shape[-1]
+    if d == dp:
+        return t
+    if d % 2:
+        return torch.nn.functional.pad(t, (0, dp - d))
+    z = dp // 2 - d // 2
+    return torch.cat([torch.nn.functional.pad(x, (0, z)) for x in t.split(d // 2, dim=-1)],
+                     dim=-1)
+
+
+def unpad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The real columns of a :func:`pad_head_dim` result: (..., dp) ->
+    (..., d)."""
+    dp = t.shape[-1]
+    if d == dp:
+        return t
+    if d % 2:
+        return t[..., :d]
+    return torch.cat([t[..., :d // 2], t[..., dp // 2:dp // 2 + d // 2]], dim=-1)
+
+
+def pad_rope_tables(cos, sin, dp: int):
+    """Rope tables (1|B, S, d/2) widened to (1|B, S, dp/2) for operands
+    padded by :func:`pad_head_dim`: the padded pairs rotate by angle 0 (cos
+    1, sin 0). ``(None, None)`` passes through."""
+    if cos is None:
+        return None, None
+    z = dp // 2 - cos.shape[-1]
+    return (torch.nn.functional.pad(cos, (0, z), value=1.0).contiguous(),
+            torch.nn.functional.pad(sin, (0, z)).contiguous())
 
 
 def _offset(sq: int, skv: int, q_pos_offset: int | None) -> int:
@@ -452,7 +511,17 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
     """Launch ``csrc/flash_fwd.cu`` on q's stream: q, out (B, H, Sq, D) and
     k, v (B, KV, Skv, D) views with a contiguous last dimension, lse (B, H,
     Sq) f32; rope tables (1|B, Skv, D/2) f32 read at each row's position.
-    The launch counts under ``KERNEL_LAUNCHES[counter]``."""
+    A head dim between the kernel's instances runs zero-padded to the next
+    one, at the scale of the real one. The launch counts under
+    ``KERNEL_LAUNCHES[counter]``."""
+    d, scale = q.shape[-1], _scale(q.shape[-1], scale)
+    dp = _instance_dim(d)
+    if dp != d:
+        out_p = torch.empty(*q.shape[:3], dp, dtype=q.dtype, device=q.device)
+        _launch_forward(counter, *(pad_head_dim(t, dp) for t in (q, k, v)), out_p, lse, causal,
+                        window, q_pos_offset, scale, *pad_rope_tables(cos, sin, dp))
+        out.copy_(unpad_head_dim(out_p, d))
+        return
     strides = _strides(q, k, v, out)
     fn = _kernel_fn("flash_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
@@ -460,10 +529,10 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(cos), _ptr(sin),
             ctypes.addressof(strides), *_dims(q, k), int(q.dtype == torch.bfloat16),
-            int(causal), window or 0, q_pos_offset, _table_stride(cos),
-            _scale(q.shape[-1], scale), stream,
+            int(causal), window or 0, q_pos_offset, _table_stride(cos), scale, stream,
         )
         KERNEL_LAUNCHES[counter] += 1
+        SOURCE_LAUNCHES["flash_fwd"] += 1
     _check_status(counter, status)
 
 
@@ -471,10 +540,13 @@ def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None
     """Launch ``csrc/flash_fwd_pipe.cu`` (K9) on q's stream: q, out (B, H,
     Sq, D) and k, v (B, H, Skv, D) views with a contiguous last dimension,
     lse (B, H, Sq) f32. The launch counts under
-    ``KERNEL_LAUNCHES["pipe_fwd"]``."""
+    ``KERNEL_LAUNCHES["pipe_fwd"]``. The probe's kernel is compiled for
+    head_dim 64 and 128 only."""
+    b, h, sq, d = q.shape
+    if d not in (64, 128):
+        raise ValueError(f"the pipelining probe's kernel takes head_dim 64 or 128, got {d}")
     strides = _strides(q, k, v, out)
     fn = _kernel_fn("flash_fwd_pipe", _PIPE_FWD_ARGTYPES)
-    b, h, sq, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
@@ -483,34 +555,63 @@ def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None
             _scale(d, scale), stream,
         )
         KERNEL_LAUNCHES["pipe_fwd"] += 1
+        SOURCE_LAUNCHES["flash_fwd_pipe"] += 1
     _check_status("pipe_fwd", status)
+
+
+def backward_kernel(dtype: torch.dtype, d: int, want_dq: bool) -> str:
+    """The source of the fused backward kernel that runs a call: bf16 at
+    head_dim 64 or 128 with dq goes to the warpgroup (wgmma) kernel
+    ``csrc/flash_bwd_sm90.cu``; f32, head_dim 32 and the two-pass pair's
+    dk/dv half (no dq) stay on ``csrc/flash_bwd.cu``. ``d`` is the instance
+    the call runs at (after padding)."""
+    if dtype == torch.bfloat16 and d in (64, 128) and want_dq:
+        return "flash_bwd_sm90"
+    return "flash_bwd"
 
 
 def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,
                      q_pos_offset, scale, cos=None, sin=None, delta=None) -> None:
-    """Launch ``csrc/flash_bwd.cu`` on q's stream — a delta pre-pass, the
+    """Launch the fused backward on q's stream — a delta pre-pass, the
     kv-tile kernel (dk/dv in registers, GQA group sums included, dq by f32
     atomics into a scratch allocated here) and the dq rotate-back/cast pass —
-    writing dq, dk, dv through their strides. With ``dq`` None only dk and
-    dv are computed (the two-pass pair's K6) and ``delta`` (B, H, Sq) f32 is
-    left for its dq kernel."""
+    writing dq, dk, dv through their strides; :func:`backward_kernel` picks
+    the source. With ``dq`` None only dk and dv are computed (the two-pass
+    pair's K6) and ``delta`` (B, H, Sq) f32 is left for its dq kernel. A
+    head dim between the instances runs zero-padded, as in
+    :func:`_launch_forward`."""
     b, h, sq, d = q.shape
+    scale = _scale(d, scale)
+    dp = _instance_dim(d)
+    if dp != d:
+        grads_p = [None if t is None else
+                   torch.empty(*t.shape[:3], dp, dtype=t.dtype, device=t.device)
+                   for t in (dq, dk, dv)]
+        _launch_backward(counter, *(pad_head_dim(t, dp) for t in (q, k, v, out, g)), lse,
+                         *grads_p, causal, window, q_pos_offset, scale,
+                         *pad_rope_tables(cos, sin, dp), delta=delta)
+        for t, t_p in zip((dq, dk, dv), grads_p):
+            if t is not None:
+                t.copy_(unpad_head_dim(t_p, d))
+        return
     dq_acc = None
     if dq is not None:
         dq_acc = torch.empty(b, h, sq, d, dtype=torch.float32, device=q.device)
     if delta is None:
         delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, out, g, dk if dq is None else dq, dk, dv)
-    fn = _kernel_fn("flash_bwd", _BWD_ARGTYPES)
+    source = backward_kernel(q.dtype, d, dq is not None)
+    fn = _kernel_fn(source, _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(g), _ptr(lse), _ptr(cos), _ptr(sin),
             _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_acc), _ptr(delta), ctypes.addressof(strides),
             *_dims(q, k), int(q.dtype == torch.bfloat16), int(causal), window or 0,
-            q_pos_offset, _table_stride(cos), _scale(d, scale), stream,
+            q_pos_offset, _table_stride(cos), scale, stream,
         )
         KERNEL_LAUNCHES[counter] += 1
+        SOURCE_LAUNCHES[source] += 1
     _check_status(counter, status)
 
 
@@ -518,7 +619,16 @@ def _launch_backward_dq(q, k, v, g, lse, delta, dq, causal, window, q_pos_offset
                         cos=None, sin=None) -> None:
     """Launch ``csrc/flash_bwd_dq.cu`` (K5) on q's stream: dq in registers
     over the kv loop, written once through dq's strides; ``delta`` as the
-    dk/dv launch wrote it. Counts under ``KERNEL_LAUNCHES["bwd_dq"]``."""
+    dk/dv launch wrote it; a head dim between the instances runs zero-padded.
+    Counts under ``KERNEL_LAUNCHES["bwd_dq"]``."""
+    d, scale = q.shape[-1], _scale(q.shape[-1], scale)
+    dp = _instance_dim(d)
+    if dp != d:
+        dq_p = torch.empty(*dq.shape[:3], dp, dtype=dq.dtype, device=dq.device)
+        _launch_backward_dq(*(pad_head_dim(t, dp) for t in (q, k, v, g)), lse, delta, dq_p,
+                            causal, window, q_pos_offset, scale, *pad_rope_tables(cos, sin, dp))
+        dq.copy_(unpad_head_dim(dq_p, d))
+        return
     strides = _strides(q, k, v, g, dq)
     fn = _kernel_fn("flash_bwd_dq", _BWD_DQ_ARGTYPES)
     with torch.cuda.device(q.device):
@@ -526,10 +636,10 @@ def _launch_backward_dq(q, k, v, g, lse, delta, dq, causal, window, q_pos_offset
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(cos), _ptr(sin),
             _ptr(dq), ctypes.addressof(strides), *_dims(q, k), int(q.dtype == torch.bfloat16),
-            int(causal), window or 0, q_pos_offset, _table_stride(cos),
-            _scale(q.shape[-1], scale), stream,
+            int(causal), window or 0, q_pos_offset, _table_stride(cos), scale, stream,
         )
         KERNEL_LAUNCHES["bwd_dq"] += 1
+        SOURCE_LAUNCHES["flash_bwd_dq"] += 1
     _check_status("bwd_dq", status)
 
 
@@ -609,12 +719,11 @@ def _backward_by_route(whole, segment, q, k, v, out, g, lse, dq, dk, dv, causal,
 def _check_kernel_operands(qkv, h, kv, causal, window, cos, sin, *others):
     b, sq, width, d = _qkv_dims(qkv, h, kv)
     _check_window(causal, window)
+    _instance_dim(d)
     if qkv.device.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {qkv.device}")
     if qkv.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the flash kernels take bf16 or f32, got {qkv.dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head_dim 64 or 128, got {d}")
     for t in (qkv, *others, *(() if cos is None else (cos, sin))):
         if t.device != qkv.device:
             raise ValueError(f"operand on {t.device}, qkv on {qkv.device}")
@@ -740,12 +849,11 @@ def _check_bhsd_kernel_operands(q, k, v, causal, window, *others, cos=None, sin=
                                 q_pos_offset=None):
     b, h, sq, skv, d = _bhsd_dims(q, k, v)
     _check_window(causal, window)
+    _instance_dim(d)
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {q.device}")
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the flash kernels take bf16 or f32, got {q.dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head_dim 64 or 128, got {d}")
     for t in (k, v, *others):
         if t.device != q.device:
             raise ValueError(f"operand on {t.device}, q on {q.device}")
