@@ -26,11 +26,19 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  8192, 4 query heads on one kv head of 128, bf16, rope θ
                  500000, four segments), GQA + window + cross-length + rope
                  in bf16 and f32, non-causal, fully masked rows, and planted
-                 faults in K8's, K5's and K6's products. Every bf16 case at
-                 head_dim 64/128 with dq runs the warpgroup backward
-                 (flash_bwd_sm90.cu), with extra non-causal, cross-length and
-                 fully-masked cases for it; head_dim 32 (an instance) and 80
-                 (padded to 128) at the CLI's call shape, packed and BHSD,
+                 faults in K8's, K5's and K6's products, and the delta K6
+                 leaves for K5. Every bf16 case at head_dim 64/128 runs the
+                 warpgroup kernels (flash_fwd_sm90.cu forward,
+                 flash_bwd_sm90.cu backward, K6 included), with extra
+                 cases for them: the backward non-causal, cross-length and
+                 fully masked; the forward non-causal with GQA, on a q
+                 segment placed by q_pos_offset, with window + GQA + rope,
+                 with fully masked rows, at a ragged length, its rotate pass
+                 bit for bit against its plain version (at the long call and
+                 with per-batch tables), and a dropped kv tile in its last
+                 step's P·V that the blockwise check must catch; K6 bf16
+                 non-causal and fully masked. Head_dim 32 (an instance) and
+                 80 (padded to 128) at the CLI's call shape, packed and BHSD,
                  bf16 and f32;
   4. main      — the trainer (cli/train_lm.py) for 6 steps on each main path:
                  dp and tp (--model_parallel 1, a world of one) at the bench
@@ -40,13 +48,16 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  4 kv heads, seq 8192, batch 3, rope θ 500000): finite loss
                  at every boundary and exactly the path's launches per step
                  (8 + 8 of dp's or tp's pair; 8 K1 and 32 K8 on the long
-                 path) and none of any other kernel, every backward launch
-                 on flash_bwd_sm90.cu; then the trainer at its own defaults
-                 (head_dim 32) and at head_dim 80, 4 steps each;
+                 path) and none of any other kernel, every launch on the
+                 warpgroup kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) and
+                 none on flash_fwd.cu or flash_bwd.cu; then the trainer at its
+                 own defaults (head_dim 32: flash_fwd.cu and flash_bwd.cu)
+                 and at head_dim 80 (the warpgroup kernels), 4 steps each;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
-                 route, losses and gradients agreeing; then the public
+                 route (K6 on flash_bwd_sm90.cu), losses and gradients
+                 agreeing; then the public
                  flash_attention_bshd forward and backward at one batch row
                  of the long call (one K7 launch, four K8 segments) against
                  the plain versions;
@@ -54,9 +65,10 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  through plain dense attention, same weights and tokens: the
                  dp model, and the tp model against the dp model (its fused
                  qkv weight split into q/k/v) and against dense attention;
-  6. turns     — the warpgroup backward against flash_bwd.cu's bf16
-                 instance, the kernel it replaced, in turns (new, old, old,
-                 new) at the K2, K4 and long K8 calls;
+  6. turns     — the warpgroup kernels against the bf16 instances of the
+                 kernels they replaced (flash_fwd.cu, flash_bwd.cu), in turns
+                 (new, old, old, new) at the K1, K2, K3, K4, long K7, K8 and
+                 K6 calls and K1 with rope at the long call;
      timing    — each kernel at its path's call shape beside its plain
                  version, its bound on this card and the library's nearest
                  call (scaled_dot_product_attention, forward for a forward
@@ -64,7 +76,8 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  with its backward alone beside it; its top-left causal
                  alignment agrees with ours because Sq == Skv); K5-K8 at the
                  long path's call (batch 3, seq 8192, 16 heads on 4 kv
-                 heads), and the three backward routes of one long layer;
+                 heads), K1 with rope at the long path's call (a row of its
+                 own), and the three backward routes of one long layer;
   7. probes    — the two kernel probes (tools/pipeline_probe.py and
                  tools/bshd_probe.py of the port): K9, the software-pipelined
                  forward, against its plain version at both probe shapes
@@ -150,21 +163,23 @@ REPLACES = {
     "probe_bshd_fwd": "tools/bshd_probe.py:49 (_flash_kernel of distributed_tensorflow_tpu/ops/"
                       "attention.py via bshd_forward)",
 }
+# K1 with rope at the long path's call has a timing row of its own.
+REPLACES["flash_fwd_rope"] = REPLACES["flash_fwd"]
 # The wrappers' launch counters and the source each one launches at the
-# main paths' calls: every layout goes through one forward and one fused
-# backward kernel, as the TPU's do — the backward's bf16 calls at head_dim
-# 64/128 through the warpgroup kernel flash_bwd_sm90.cu, its f32 and head_dim
-# 32 calls through flash_bwd.cu (attention.backward_kernel); the two-pass pair
-# is flash_bwd_dq.cu (K5) and flash_bwd.cu with dq compiled out (K6). The
-# BSHD probe (K10) is the forward on head views; the pipelining probe (K9)
-# has a kernel of its own.
-SOURCES = {"flash_fwd": "flash_fwd", "bhsd_fwd": "flash_fwd", "bshd_fwd": "flash_fwd",
-           "flash_bwd": "flash_bwd_sm90", "bhsd_bwd": "flash_bwd_sm90",
-           "bshd_bwd": "flash_bwd_sm90", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd",
-           "pipe_fwd": "flash_fwd_pipe", "probe_bshd_fwd": "flash_fwd"}
-# The fused backward's counters: their launches on a main path must all run
-# flash_bwd_sm90.cu.
-FUSED_BWD = ("flash_bwd", "bhsd_bwd", "bshd_bwd")
+# main paths' calls (bf16, head_dim 64/128): every layout goes through one
+# forward and one fused backward kernel, as the TPU's do — the warpgroup
+# kernels flash_fwd_sm90.cu and flash_bwd_sm90.cu (attention.forward_kernel,
+# attention.backward_kernel; f32 and head_dim 32 calls take flash_fwd.cu and
+# flash_bwd.cu); the two-pass pair is flash_bwd_dq.cu (K5) and
+# flash_bwd_sm90.cu with dq compiled out (K6). The BSHD probe (K10) is the
+# forward on head views; the pipelining probe (K9) has a kernel of its own.
+# A main path's launches by source must be exactly what this map makes of
+# its launches by wrapper.
+SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
+           "bshd_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90",
+           "bhsd_bwd": "flash_bwd_sm90", "bshd_bwd": "flash_bwd_sm90", "bwd_dq": "flash_bwd_dq",
+           "bwd_dkv": "flash_bwd_sm90", "pipe_fwd": "flash_fwd_pipe",
+           "probe_bshd_fwd": "flash_fwd_sm90", "flash_fwd_rope": "flash_fwd_sm90"}
 # Each main path: its trainer flags and its launches per layer per step
 # (every other counter must stay at 0). The long path's backward runs the
 # fused kernel on four q segments of 2048 rows (the JAX package's gate).
@@ -174,6 +189,15 @@ MAIN_PATHS = {
     "long": (["--num_kv_heads", "4", "--position", "rope", "--rope_theta", "500000"],
              {"flash_fwd": 1, "bshd_bwd": 4}),
 }
+
+
+def expected_sources(launches):
+    """The launches by source (``attention.SOURCE_LAUNCHES``) that wrapper
+    ``launches`` make on the main paths' calls, by :data:`SOURCES`."""
+    out = {src: 0 for src in A.SOURCE_LAUNCHES}
+    for name, n in launches.items():
+        out[SOURCES[name]] += n
+    return out
 
 
 def emit(**record):
@@ -206,7 +230,8 @@ def phase_build():
         # Each instance's "Compiling entry function" line (its mangled name
         # carries the dtype and head_dim) heads its register and spill lines.
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln or "entry function" in ln]
+                 if "registers" in ln or "spill" in ln or "entry function" in ln
+                 or "C75" in ln]  # ptxas's wgmma advisories (serialised products)
         emit(phase="build", kernel=name, library=str(_build.library_path(name).name),
              nvcc_seconds=_build.BUILD_SECONDS.get(name), ptxas=lines)
     emit(phase="build", seconds=round(seconds, 2))
@@ -384,6 +409,62 @@ def fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads,
             fail(f"{case}: the blockwise check misses the planted fault {name}")
 
 
+def compare_fwd(case, b, h, kv, sq, skv, d, causal=True, window=None, rope=False,
+                q_pos_offset=None, seed=0, controls=False):
+    """The warpgroup forward (bf16, one launch on flash_fwd_sm90.cu) against
+    its plain version on (B, H, Sq, D) q and (B, KV, Skv, D) k, v: out by the
+    max-based and blockwise limits, lse by its absolute limit, and rows that
+    attend nothing exactly 0 with lse at NEG_INF. Rope tables of Skv rows are
+    read at each row's position (q row i at i + q_pos_offset). With
+    ``controls`` the last 64-key tile of the last q tile, which the kernel's
+    last step multiplies with no next product in flight, is dropped from P·V
+    as a planted fault that must be caught. Returns out's max abs error."""
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    make = lambda n, s: torch.randn(b, n, s, d, device="cuda", generator=gen).to(dtype)
+    q, k, v = make(h, sq), make(kv, skv), make(kv, skv)
+    cos = sin = None
+    if rope:
+        cos, sin = rope_tables(d, skv, 10000.0, device="cuda")
+    args = (causal, window, None, q_pos_offset, cos, sin)
+    before = A.SOURCE_LAUNCHES["flash_fwd_sm90"]
+    out, lse = A.flash_forward_kernel(q, k, v, *args)
+    torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES["flash_fwd_sm90"] != before + 1:
+        fail(f"{case}: the call did not run flash_fwd_sm90.cu")
+    ref_out, ref_lse = A.flash_forward_reference(q, k, v, *args)
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        fail(f"{case}: non-finite out or lse")
+    dead = _masked_rows(case, lse, ref_lse, out)
+    err = _check(case, "out", dtype, out, ref_out, "out")
+    _check(case, "lse", dtype, lse[~dead], ref_lse[~dead], "lse")
+    if controls:
+        fault_controls(case, q, k, v, None, out, lse, None, ref_out, None,
+                       products=("out: P.V",), keys=slice(sq - BLOCK_ROWS, sq))
+    return err
+
+
+def check_rotate(case, qkv, h, kv, d, cos, sin):
+    """The warpgroup forward's rotate pass (flash_fwd_rotate_k) against its
+    plain version, bit for bit: K1 on packed ``qkv`` with rope tables, its k
+    scratch handed in and read back after the launch."""
+    q, k, v = A._packed_heads(qkv, h, kv, d)
+    b, s = qkv.shape[:2]
+    out = torch.empty(b, h, s, d, dtype=qkv.dtype, device="cuda")
+    lse = torch.empty(b, h, s, dtype=torch.float32, device="cuda")
+    k_rot = torch.full((b, kv, s, d), float("nan"), dtype=qkv.dtype, device="cuda")
+    A._launch_forward("flash_fwd", q, k, v, out, lse, True, None, 0, None, cos, sin, k_rot=k_rot)
+    torch.cuda.synchronize()
+    ref = A.rotate_k_reference(k, cos, sin)
+    same = bool(torch.equal(k_rot, ref))
+    emit(phase="kernels", case=case, tensor="k_rot", shape=list(k_rot.shape),
+         max_abs_err=(k_rot.float() - ref.float()).abs().max().item(), bitwise_equal=same)
+    if not same:
+        fail(f"{case}: the rotate pass differs from its plain version")
+
+
 def check_segments(case, b, h, s, d, dtype, n_seg, causal=True, window=None, seed=4):
     """K4 called on q segments, each placed by q_pos_offset: the dq rows
     concatenated and the dk/dv shares summed equal one whole call."""
@@ -437,6 +518,34 @@ def phase_kernels():
     compare_bhsd("wgmma_cross_window_d128", 2, 4, 192, 320, 128, torch.bfloat16, window=100,
                  seed=13)
     compare_bhsd("wgmma_fully_masked_rows_d128", 1, 4, 200, 72, 128, torch.bfloat16, seed=14)
+    # The warpgroup forward (bf16 at head_dim 64 and 128) where the cases above
+    # leave it untried: non-causal with GQA, a q segment placed by
+    # q_pos_offset, window with GQA and rope, rows that attend nothing inside
+    # a block that attends something and in one that attends nothing, a
+    # ragged length, its rotate pass, and a dropped tile in its last step.
+    compare_fwd("fwd_sm90_noncausal_gqa_d128", 2, 8, 2, 200, 136, 128, causal=False, seed=15)
+    compare_fwd("fwd_sm90_cross_offset_d64", 2, 4, 4, 136, 320, 64, q_pos_offset=100, seed=16)
+    compare_fwd("fwd_sm90_gqa_window_rope_d128", 2, 8, 2, 300, 300, 128, window=100, rope=True,
+                seed=17)
+    compare_fwd("fwd_sm90_window_rope_offset_d64", 1, 4, 1, 136, 400, 64, window=50, rope=True,
+                q_pos_offset=200, seed=18)
+    compare_fwd("fwd_sm90_fully_masked_rows_d64", 2, 4, 4, 200, 100, 64, seed=19)
+    compare_fwd("fwd_sm90_fully_masked_rows_d128", 2, 4, 2, 200, 72, 128, seed=27)
+    compare_fwd("fwd_sm90_ragged_d64", 2, 4, 2, 200, 200, 64, seed=28)
+    compare_fwd("fwd_sm90_controls_d128", 2, 4, 4, 1024, 1024, 128, seed=29, controls=True)
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    lb, ls, lh, lkv = LONG["batch_size"], LONG["seq_len"], LONG["num_heads"], LONG["num_kv_heads"]
+    qkv = torch.randn(lb, ls, (lh + 2 * lkv) * dh, device="cuda", generator=gen).to(torch.bfloat16)
+    check_rotate("rotate_k_long_call", qkv, lh, lkv, dh,
+                 *rope_tables(dh, ls, LONG["rope_theta"], device="cuda"))
+    qkv = torch.randn(2, 200, 12 * 64, device="cuda", generator=gen).to(torch.bfloat16)
+    positions = torch.arange(200, device="cuda") + 37 * torch.arange(2, device="cuda")[:, None]
+    check_rotate("rotate_k_per_batch_tables_d64", qkv, 8, 2, 64,
+                 *rope_tables(64, 200, 10000.0, positions=positions))
+    del qkv
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -509,6 +618,8 @@ def compare_long(case, b, h, kv, sq, skv, d, dtype, causal=True, window=None, ro
     errs["bwd_dq"] = _check(case, "k5_dq", dtype, dq5, ref[0], "dqkv")
     errs["bwd_dkv"] = max(_check(case, f"k6_{n}", dtype, t, r, "dqkv")
                           for n, t, r in zip(("dk", "dv"), (dk6, dv6), ref[1:]))
+    # The delta K6 leaves for K5, rowsum(dO∘O) in f32, by the lse limit.
+    _check(case, "k6_delta", dtype, delta, (V(g).float() * out.float()).sum(-1), "lse")
     if controls:
         qh, kh, vh, gh = V(q), V(k), V(v), V(g)
         fault_controls(f"{case} K8", qh, kh, vh, gh, out, lse, k8, ref_out, ref)
@@ -527,12 +638,20 @@ def phase_kernels_long():
     fully masked rows, and the planted faults on a causal call."""
     errs = compare_long("long_segment_call", 1, 4, 1, LONG["seq_len"], LONG["seq_len"], 128,
                         torch.bfloat16, rope=True, segments=4, seed=20)
+    # K1 with rope runs this forward (rotate pass included) at this length.
+    errs["flash_fwd_rope"] = errs["bshd_fwd"]
     for dtype in (torch.bfloat16, torch.float32):
         compare_long("long_gqa_window_cross_rope_d64", 2, 8, 2, 192, 320, 64, dtype, window=100,
                      rope=True, segments=2, seed=21)
     compare_long("long_noncausal_cross_d128", 1, 4, 2, 136, 200, 128, torch.float32,
                  causal=False, seed=22)
     compare_long("long_fully_masked_rows_d64", 2, 4, 4, 200, 72, 64, torch.float32, seed=23)
+    # K6 on the warpgroup backward (bf16) where the cases above leave it
+    # untried.
+    compare_long("long_noncausal_cross_d128_bf16", 1, 4, 2, 136, 200, 128, torch.bfloat16,
+                 causal=False, seed=25)
+    compare_long("long_fully_masked_rows_d64_bf16", 2, 4, 4, 200, 72, 64, torch.bfloat16,
+                 seed=26)
     compare_long("long_controls", 1, 4, 1, 4096, 4096, 128, torch.bfloat16, seed=24,
                  controls=True)
     return errs
@@ -577,16 +696,14 @@ def phase_main(smi, path):
     if not all(r["loss"] == r["loss"] and abs(r["loss"]) < float("inf") for r in records):
         fail(f"{phase}: non-finite loss")
     want = {k: per_layer.get(k, 0) * shape["num_layers"] * STEPS for k in A.KERNEL_LAUNCHES}
-    # Every fused backward launch ran the warpgroup kernel.
-    bwd = sum(want[k] for k in FUSED_BWD)
-    sources = dict(A.SOURCE_LAUNCHES)
-    want_sources = {"flash_bwd_sm90": bwd, "flash_bwd": 0}
+    # Every forward and backward launch ran a warpgroup kernel.
+    sources, want_sources = dict(A.SOURCE_LAUNCHES), expected_sources(want)
     emit(phase=phase, launches=launches, expected=want, source_launches=sources,
          expected_sources=want_sources, wall_s=round(wall, 2))
     if launches != want:
         fail(f"{phase}: kernel launches {launches}, expected {want}")
-    if any(sources[k] != n for k, n in want_sources.items()):
-        fail(f"{phase}: backward sources {sources}, expected {want_sources}")
+    if sources != want_sources:
+        fail(f"{phase}: launches by source {sources}, expected {want_sources}")
     last = records[-1]
     if "steps_per_sec" not in last:
         fail(f"{phase}: no timed window")
@@ -597,19 +714,19 @@ def phase_main(smi, path):
 
 # The trainer at its own defaults (d_model 128 over 4 heads: head_dim 32, 4
 # layers, seq 128, batch 8) and at head_dim 80 (d_model 320, padded to 128):
-# extra flags, and the backward source each must run.
-CLI_RUNS = {"cli_defaults_d32": ([], "flash_bwd"),
-            "cli_d80_padded": (["--d_model", "320"], "flash_bwd_sm90")}
+# extra flags, and the forward and backward sources each must run.
+CLI_RUNS = {"cli_defaults_d32": ([], "flash_fwd", "flash_bwd"),
+            "cli_d80_padded": (["--d_model", "320"], "flash_fwd_sm90", "flash_bwd_sm90")}
 CLI_STEPS, CLI_LAYERS = 4, 4
 
 
 def phase_cli_head_dims():
     """``cli/train_lm.py --attention flash`` on the card at head_dim 32 and
     80 for CLI_STEPS steps: finite losses, one K1 and one K2 launch a layer
-    a step and no other, the backward through its source."""
+    a step and no other, each through its source."""
     from distributed_tensorflow_tpu_torch.cli import train_lm
 
-    for name, (flags, source) in CLI_RUNS.items():
+    for name, (flags, fwd_source, bwd_source) in CLI_RUNS.items():
         _zero_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -625,8 +742,10 @@ def phase_cli_head_dims():
             fail(f"{name}: unexpected boundaries {[r['step'] for r in records]}")
         if not all(abs(r["loss"]) < float("inf") for r in records):
             fail(f"{name}: non-finite loss")
-        if launches != want or sources[source] != n:
-            fail(f"{name}: launches {launches} by source {sources}, expected {want} on {source}")
+        want_sources = {src: n if src in (fwd_source, bwd_source) else 0 for src in sources}
+        if launches != want or sources != want_sources:
+            fail(f"{name}: launches {launches} by source {sources}, expected {want} on "
+                 f"{fwd_source} and {bwd_source}")
 
 
 def _cfg(shape=FLAGSHIP, attention="flash", num_layers=None):
@@ -696,9 +815,12 @@ def phase_routes():
             loss = _loss_and_backward(model, tokens)
         launches = {k: v for k, v in A.KERNEL_LAUNCHES.items() if v}
         want = {k: n * ROUTE_LAYERS for k, n in per_layer.items()}
-        emit(phase="routes", route=name, loss=loss, launches=launches, expected=want)
-        if launches != want:
-            fail(f"routes: {name} launched {launches}, expected {want}")
+        sources, want_sources = dict(A.SOURCE_LAUNCHES), expected_sources(want)
+        emit(phase="routes", route=name, loss=loss, launches=launches, expected=want,
+             source_launches=sources, expected_sources=want_sources)
+        if launches != want or sources != want_sources:
+            fail(f"routes: {name} launched {launches} by source {sources}, expected {want} "
+                 f"by source {want_sources}")
         results[name] = (loss, model.block_0.qkv.weight.grad.float().clone())
         route_launches[name] = launches
     del model
@@ -793,14 +915,16 @@ def phase_parity():
 
 def _sdpa(q, k, v, g):
     """The library's calls on (B, H, S, D) tensors: forward, forward +
-    backward, and backward alone."""
+    backward, and backward alone (None without ``g``)."""
     import torch.nn.functional as F
-
-    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
 
     def fwd():
         with torch.no_grad():
             F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    if g is None:
+        return fwd, None, None
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
 
     def fwd_bwd():
         F.scaled_dot_product_attention(ql, kl, vl, is_causal=True).backward(g)
@@ -814,61 +938,86 @@ def _sdpa(q, k, v, g):
 
 
 @contextlib.contextmanager
-def backward_source(name):
-    """Send every fused backward launch to ``csrc/<name>.cu``, whatever
-    :func:`attention.backward_kernel` would pick: the turns' old kernel."""
-    saved = A.backward_kernel
-    A.backward_kernel = lambda *args: name
+def kernel_source(direction, name):
+    """Send every forward (``direction`` "forward") or fused backward
+    ("backward") launch to ``csrc/<name>.cu``, whatever
+    :func:`attention.forward_kernel` / :func:`attention.backward_kernel`
+    would pick: the turns' old kernel."""
+    attr = f"{direction}_kernel"
+    saved = getattr(A, attr)
+    setattr(A, attr, lambda *args: name)
     try:
         yield
     finally:
-        A.backward_kernel = saved
+        setattr(A, attr, saved)
 
 
-TURNS = ("flash_bwd_sm90", "flash_bwd", "flash_bwd", "flash_bwd_sm90")
+# Each direction's new and old source, timed in turns (new, old, old, new).
+TURNS = {"forward": ("flash_fwd_sm90", "flash_fwd"), "backward": ("flash_bwd_sm90", "flash_bwd")}
 
 
 def phase_turns(notes):
-    """The warpgroup backward against flash_bwd.cu's bf16 instance, the
-    kernel it replaced, on the same inputs in turns (new, old, old, new) at
-    each path's call: K2 on the dp path's packed qkv, K4 on the tp path's
-    head views, K8 as one whole call at the long shape. Adds each kernel's
-    turns and the old kernel's mean time to its row's notes."""
+    """The warpgroup kernels against the bf16 instances of the kernels they
+    replaced, flash_fwd.cu and flash_bwd.cu, on the same inputs in turns
+    (new, old, old, new) at each path's call: K1 and K2 on the dp path's
+    packed qkv, K3 and K4 on the tp path's head views, K7 and K8 (one whole
+    call) at the long shape, K1 with rope on the long path's packed qkv, and
+    K6 at the long shape. Adds each kernel's turns and the old kernel's mean
+    time to its row's notes."""
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+
     fl = FLAGSHIP
     b, s, h = fl["batch_size"], fl["seq_len"], fl["num_heads"]
     d = fl["d_model"] // h
+    lb, ls, lh, lkv = LONG["batch_size"], LONG["seq_len"], LONG["num_heads"], \
+        LONG["num_kv_heads"]
 
-    def k2():
+    def packed():
         qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=3)
         out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None, None)
-        return lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g, h, h, True, None, None,
-                                                   None, None)
+        return {"flash_fwd": lambda: A.flash_forward_qkv_kernel(qkv, h, h, True, None, None,
+                                                                None, None),
+                "flash_bwd": lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g, h, h, True,
+                                                                 None, None, None, None)}
 
-    def k4():
+    def views():
         q, k, v, g = _bhsd(b, h, s, s, d, torch.bfloat16, seed=10, bshd=True)
         out, lse = A.flash_forward_kernel(q, k, v, True)
-        return lambda: A.flash_backward_kernel(q, k, v, out, lse, g, True)
+        return {"bhsd_fwd": lambda: A.flash_forward_kernel(q, k, v, True),
+                "bhsd_bwd": lambda: A.flash_backward_kernel(q, k, v, out, lse, g, True)}
 
-    def k8():
-        lb, ls, lh, lkv = LONG["batch_size"], LONG["seq_len"], LONG["num_heads"], \
-            LONG["num_kv_heads"]
+    def long_bshd():
         q, k, v, g = _long_operands(lb, lh, lkv, ls, ls, d, torch.bfloat16, seed=30)
         out, lse = A.flash_forward_bshd(q, k, v, True)
-        return lambda: A.flash_backward_bshd(q, k, v, out, lse, g, True)
+        V = lambda t: t.transpose(1, 2)
+        return {"bshd_fwd": lambda: A.flash_forward_bshd(q, k, v, True),
+                "bshd_bwd": lambda: A.flash_backward_bshd(q, k, v, out, lse, g, True),
+                "bwd_dkv": lambda: A.flash_backward_dkv_kernel(V(q), V(k), V(v), V(out), lse,
+                                                               V(g), True)}
 
-    for name, make in (("flash_bwd", k2), ("bhsd_bwd", k4), ("bshd_bwd", k8)):
-        run = make()
-        turns = []
-        for source in TURNS:
-            with backward_source(source):
-                turns.append(cuda_ms(run, 10))
-        old = (turns[1] + turns[2]) / 2
-        emit(phase="turns", kernel=name, order=list(TURNS), ms=turns, old_ms=old,
-             new_ms=(turns[0] + turns[3]) / 2)
-        notes[name].update(turns_ms=dict(order=list(TURNS), ms=turns),
-                           old_kernel="distributed_tensorflow_tpu_torch/csrc/flash_bwd.cu",
-                           old_kernel_ms=old)
-        del run
+    def long_rope():
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        qkv = torch.randn(lb, ls, (lh + 2 * lkv) * d, device="cuda", generator=gen)
+        qkv = qkv.to(torch.bfloat16)
+        cos, sin = rope_tables(d, ls, LONG["rope_theta"], device="cuda")
+        return {"flash_fwd_rope": lambda: A.flash_forward_qkv_kernel(qkv, lh, lkv, True, None,
+                                                                     cos, sin, None)}
+
+    for make in (packed, views, long_bshd, long_rope):
+        for name, run in make().items():
+            direction = "forward" if SOURCES[name].startswith("flash_fwd") else "backward"
+            new, old = TURNS[direction]
+            order = (new, old, old, new)
+            turns = []
+            for source in order:
+                with kernel_source(direction, source):
+                    turns.append(cuda_ms(run, 10))
+            old_ms = (turns[1] + turns[2]) / 2
+            emit(phase="turns", kernel=name, order=list(order), ms=turns, old_ms=old_ms,
+                 new_ms=(turns[0] + turns[3]) / 2)
+            notes.setdefault(name, {}).update(
+                turns_ms=dict(order=list(order), ms=turns),
+                old_kernel=f"distributed_tensorflow_tpu_torch/csrc/{old}.cu", old_kernel_ms=old_ms)
         torch.cuda.empty_cache()
 
 
@@ -1020,12 +1169,30 @@ def phase_timing_long(launches, errs, notes):
     for name in ROUTES:
         emit(phase="timing_routes", route=name, ms=cuda_ms(route(name), 5),
              bound_ms=fwd_flops * 5 // 2 / peak * 1e3, shape=dict(shape, rope=True))
-    # What the in-kernel rope costs K1 on this path: the same call without it.
+    # What rope costs K1 on this path: the same call without it.
     for tables in ((cos, sin), (None, None)):
         ms = cuda_ms(lambda t=tables: A.flash_forward_qkv_kernel(qkv, h, kv, True, None, *t,
                                                                  None), 10)
         emit(phase="timing_rope", kernel="flash_fwd", rope=tables[0] is not None, ms=ms,
              bound_ms=fwd_flops / peak * 1e3, shape=shape)
+    # K1 with rope, the long path's forward, as a row of its own: reads qkv
+    # and the tables, writes out and lse. The library's call is SDPA's
+    # forward on q and k rotated beforehand (kv heads repeated).
+    del go, out, lse
+    q_rot = A._rotate(heads[0], cos, sin, 0)
+    kx, vx = (t.repeat_interleave(h // kv, dim=1)
+              for t in (A.rotate_k_reference(heads[1], cos, sin), heads[2]))
+    lib = _sdpa(q_rot, kx, vx, None)
+    nbytes = (qkv.numel() + b * s * h * d) * qkv.element_size() + b * h * s * 4 \
+        + 2 * cos.numel() * 4
+    runs = {"flash_fwd_rope": (
+        (fwd_flops, nbytes),
+        lambda: A.flash_forward_qkv_kernel(qkv, h, kv, True, None, cos, sin, None),
+        lambda: [A.flash_forward_qkv_reference(qkv[i:i + 1], h, kv, True, None, cos, sin)
+                 for i in range(b)],
+        lib[0], None)}
+    kernels += _time_kernels(runs, launches, errs, peak, bw,
+                             dict(shape, causal=True, rope=True, layout="packed qkv"), notes)
     return kernels
 
 
@@ -1211,9 +1378,10 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
 # Kernel-name substrings → class, checked in order (cuBLAS's Hopper GEMMs
 # are named nvjet_*, sm90_xmma_* or *gemm*). No kernel name of one class
 # contains another class's substring. Each profiled step runs one path, so
-# attn_fwd is K1 in the dp and long steps and K3 in the tp step, and
-# attn_bwd is K2, K4 and K8 (K8 on four q segments) in them, all three on
-# dtt::flash_bwd_sm90_kernel.
+# attn_fwd is K1 in the dp and long steps (with its rotate pass,
+# dtt::flash_fwd_rotate_k, on the long path) and K3 in the tp step, all on
+# dtt::flash_fwd_sm90_kernel, and attn_bwd is K2, K4 and K8 (K8 on four q
+# segments) in them, all three on dtt::flash_bwd_sm90_kernel.
 KERNEL_CLASSES = (
     ("attn_fwd", ("dtt::flash_fwd",)),
     ("attn_bwd", ("dtt::flash_bwd",)),  # delta pre-pass, main kernel, dq pass
@@ -1250,24 +1418,34 @@ def phase_profile(path):
     for _ in range(2):
         step(tokens)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(tokens)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
-    by_class["other"] = 0.0
-    spans = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.name.lower()
-        cls = next((c for c, subs in KERNEL_CLASSES if any(x.lower() in name for x in subs)),
-                   "other")
-        by_class[cls] += (e.time_range.end - e.time_range.start) / 1e3
-        spans.append((e.time_range.start, e.time_range.end))
-    if not spans:
-        fail("profile: the trace holds no device time")
+    # A step ends with the optimizer's kernels, and its device work lies
+    # inside its wall time: a trace that breaks either lost or mixed in
+    # events (seen once in the third profile of one process), and is taken
+    # again.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(tokens)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
+        by_class["other"] = 0.0
+        spans = []
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.name.lower()
+            cls = next((c for c, subs in KERNEL_CLASSES if any(x.lower() in name for x in subs)),
+                       "other")
+            by_class[cls] += (e.time_range.end - e.time_range.start) / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+        span_ms = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3 if spans else 0.0
+        if spans and by_class["optimizer"] > 0 and span_ms <= wall_ms:
+            break
+        emit(phase=f"profile_{path}", incomplete_trace=True, attempt=attempt, kernels=len(spans),
+             device_span_ms=span_ms, step_wall_ms=wall_ms)
+    else:
+        fail(f"profile_{path}: every trace lacks the step's optimizer kernels")
     # Busy time is the union of the kernels' intervals (they may overlap).
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted(spans):
@@ -1298,6 +1476,9 @@ def main():
                 for k in A.KERNEL_LAUNCHES}
     notes = {k: {"launches_by_path": {p: c[k] for p, c in by_path.items() if k in c}}
              for k in A.KERNEL_LAUNCHES}
+    launches["flash_fwd_rope"] = by_path["long"]["flash_fwd"]
+    notes["flash_fwd_rope"] = {"launches_by_path": {"long": launches["flash_fwd_rope"]},
+                               "library_call": "SDPA forward on q and k rotated beforehand"}
     for name, route_launches in phase_routes().items():
         for k in ("bshd_fwd", "bwd_dq", "bwd_dkv"):
             if k in route_launches:

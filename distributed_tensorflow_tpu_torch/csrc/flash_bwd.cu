@@ -49,9 +49,9 @@
 // operand is read or written through its own (b, h, s) strides, so neither
 // the packed projection nor the tp block's head-transposed views need a
 // copy; rope is a template parameter. Instances: bf16 and f32 at head_dim
-// 32, 64 and 128. The bf16 calls at 64 and 128 that compute dq run
+// 32, 64 and 128. The bf16 calls at 64 and 128, K6 included, run
 // flash_bwd_sm90.cu instead, the same design on wgmma; this kernel keeps
-// f32, head_dim 32 and K6.
+// f32 and head_dim 32.
 #include "flash_bwd_passes.cuh"
 
 namespace dtt {

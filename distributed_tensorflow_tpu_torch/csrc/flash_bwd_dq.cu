@@ -3,8 +3,9 @@
 //
 // Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_bwd_dq_kernel
 // (K5), launched by _flash_backward when no q segmentation of the fused
-// backward exists; its dk/dv half (K6, _flash_bwd_dkv_kernel) is
-// flash_bwd.cu with dq null, which also writes the delta this kernel reads.
+// backward exists; its dk/dv half (K6, _flash_bwd_dkv_kernel) is the fused
+// backward with dq null (flash_bwd_sm90.cu in bf16 at head_dim 64/128,
+// flash_bwd.cu otherwise), which also writes the delta this kernel reads.
 // p is recomputed from the saved logsumexp (zeroed where the row attended
 // nothing), dS = p∘(dO·vᵀ − delta) rounded to the operand dtype, and
 // dq = s·Σ dS·k over the kv tiles the row can see; dq is rotated back by the

@@ -2,14 +2,17 @@
 // warpgroup kernel: every tile product is a wgmma.
 //
 // Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_bwd_fused_kernel
-// wherever the call is bf16 at head_dim 64 or 128 and computes dq — through
+// wherever the call is bf16 at head_dim 64 or 128 — through
 // _flash_backward_qkv (:1796, K2, packed qkv), _flash_backward_fused (:1004,
 // K4, BHSD) and _flash_backward_fused_bshd (:1347, K8, BSHD views, one call
-// per q segment). f32, head_dim 32 and the two-pass pair's dk/dv half (K6,
-// no dq) stay on flash_bwd.cu, whose contract this file shares: the same C
-// arguments, strides, GQA head-group sums, q_pos_offset, causal/window/
-// non-causal masking, Sq != Skv, rope tables read at each row's position,
-// and exact zeros for rows that attend nothing.
+// per q segment) — and _flash_backward's _flash_bwd_dkv_kernel (:1140, K6),
+// the two-pass pair's dk/dv half: the same kernel with the dQ product, its
+// named-barrier hand-off and the f32 atomics compiled out (dq null), which
+// leaves delta for the pair's dq kernel (K5, flash_bwd_dq.cu). f32 and
+// head_dim 32 stay on flash_bwd.cu, whose contract this file shares: the
+// same C arguments, strides, GQA head-group sums, q_pos_offset, causal/
+// window/non-causal masking, Sq != Skv, rope tables read at each row's
+// position, and exact zeros for rows that attend nothing.
 //
 // Bound on this card: five tile products, ~5.2e11 FLOPs at the flagship call
 // (B 12, S 2048, 16 heads of 128, causal) against ~0.6 GB moved, so the
@@ -45,192 +48,15 @@
 // layout, each thread on the chunks it loaded. The softmax takes exp2 on
 // the special-function unit and skips the mask on tiles wholly inside the
 // band. Two block barriers a step. The delta pre-pass and the dq
-// rotate/cast pass are flash_bwd_passes.cuh's. TMA, warp specialisation
+// rotate/cast pass are flash_bwd_passes.cuh's; the swizzle, the loaders,
+// descriptors and products are sm90_common.cuh's. TMA, warp specialisation
 // and a bulk-reduce dq are the next levers.
 #include "flash_bwd_passes.cuh"
+#include "sm90_common.cuh"
 
 namespace dtt {
 
-constexpr int SM90_BKV = 128, SM90_BQ = 64, SM90_THREADS = 256;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Element offset of (r, c) in a tile of R rows stored in wgmma's 128-byte
-// swizzle: 64-column blocks of R rows x 128 bytes, 16-byte chunk c of row r
-// at chunk c ^ (r % 8) of that row. A tile starts 1024-byte aligned.
-template <int R>
-__device__ __forceinline__ int sw(int r, int c) {
-  return (c >> 6) * (R * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
-}
-
-// tile_issue/tile_finish (flash_common.cuh) on the swizzled layout: rows
-// [row0, row0 + R) of one head's (S, D) bf16 rows, `ld` elements apart, zero
-// past S. A thread owns the 16-byte chunks at columns i0 and i0 + D/2 of a
-// row in both, so it transforms only what it copied itself and needs no
-// barrier between its cp.async wait and the rotation.
-template <int D, int R>
-__device__ __forceinline__ void sw_issue(bf16* dst, const bf16* src, long long ld, int row0,
-                                         int S) {
-  constexpr int half = D / 2, CPH = half / 8, N = R * CPH;
-  static_assert(N % SM90_THREADS == 0, "whole rounds of copies");
-#pragma unroll
-  for (int it = 0; it < N / SM90_THREADS; ++it) {
-    const int idx = it * SM90_THREADS + (int)threadIdx.x, r = idx / CPH, i0 = (idx % CPH) * 8;
-    bf16* d1 = dst + sw<R>(r, i0);
-    bf16* d2 = dst + sw<R>(r, i0 + half);
-    if (row0 + r < S) {
-      const bf16* p = src + (long long)(row0 + r) * ld + i0;
-      cp_async16(d1, p);
-      cp_async16(d2, p + half);
-    } else {
-      *reinterpret_cast<uint4*>(d1) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(d2) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
-template <int D, int R>
-__device__ __forceinline__ void sw_finish(bf16* dst, int row0, int S, const float* cos,
-                                          const float* sin, bool fold, float scale, int tpos) {
-  constexpr int half = D / 2, CPH = half / 8, N = R * CPH;
-  if (cos == nullptr && !fold) return;
-  // One round at a time: unrolled, the rounds' table loads would all be in
-  // flight beside the dK/dV accumulators.
-#pragma unroll 1
-  for (int it = 0; it < N / SM90_THREADS; ++it) {
-    const int idx = it * SM90_THREADS + (int)threadIdx.x, r = idx / CPH, i0 = (idx % CPH) * 8;
-    const int grow = row0 + r;
-    if (grow >= S) continue;
-    bf16* d1 = dst + sw<R>(r, i0);
-    bf16* d2 = dst + sw<R>(r, i0 + half);
-    const size_t trow = (size_t)(grow + tpos) * half;
-    alignas(16) bf16 x1[8], x2[8];
-    alignas(16) float c[8], s[8];
-    *reinterpret_cast<uint4*>(x1) = *reinterpret_cast<const uint4*>(d1);
-    *reinterpret_cast<uint4*>(x2) = *reinterpret_cast<const uint4*>(d2);
-    if (cos != nullptr) {
-#pragma unroll
-      for (int v = 0; v < 8; v += 4) {
-        *reinterpret_cast<float4*>(c + v) = *reinterpret_cast<const float4*>(cos + trow + i0 + v);
-        *reinterpret_cast<float4*>(s + v) = *reinterpret_cast<const float4*>(sin + trow + i0 + v);
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      float y1 = to_f32<bf16>(x1[v]), y2 = to_f32<bf16>(x2[v]);
-      if (cos != nullptr) {
-        const float a = y1, b = y2;
-        y1 = round_to<bf16>(a * c[v] - b * s[v]);
-        y2 = round_to<bf16>(b * c[v] + a * s[v]);
-      }
-      if (fold) {
-        y1 *= scale;
-        y2 *= scale;
-      }
-      x1[v] = from_f32<bf16>(y1);
-      x2[v] = from_f32<bf16>(y2);
-    }
-    *reinterpret_cast<uint4*>(d1) = *reinterpret_cast<uint4*>(x1);
-    *reinterpret_cast<uint4*>(d2) = *reinterpret_cast<uint4*>(x2);
-  }
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 in bits
-// 62-63. K-major operands (16 k-elements contiguous within a 128-byte row):
-// stride 1024 bytes between 8-row groups, leading offset unused. MN-major
-// operands (rows are k, N or M <= 64 contiguous within a row): 1024 bytes
-// between the two 8-row k groups; the leading offset (between 64-wide MN
-// blocks) is never crossed and set alike.
-__device__ __forceinline__ uint64_t desc(uint32_t a, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ uint64_t desc_k(uint32_t a) { return desc(a, 16, 1024); }
-__device__ __forceinline__ uint64_t desc_mn(uint32_t a) { return desc(a, 1024, 1024); }
-
-__device__ __forceinline__ uint32_t smem_at(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N of the warpgroup's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Shared-memory writes by threads (st.shared, cp.async) made visible to the
-// async proxy that wgmma reads through; a barrier follows.
-__device__ __forceinline__ void proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-// Keep the compiler from moving accesses of wgmma's registers across the
-// fences and waits (CUTLASS's warpgroup_fence_operand).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
-}
-
-// 2^x on the special-function unit (flush-to-zero): P rounds to bf16.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-#define DTT_ACC32(d)                                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define DTT_REGS32                                                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64 x 64 f32, the warpgroup's accumulator fragment: thread (warp w, lane
-// g·4 + t) holds d[4j + e] at row 16w + g + 8(e/2), column 8j + 2t + e%2)
-// = [d +] A (64 x 16) · B (16 x 64), both from shared memory; TA/TB = 1 for
-// an MN-major operand.
-template <int TA, int TB>
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DTT_REGS32
-      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : DTT_ACC32(d)
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-// d += A (64 x 16, from registers: a[0..3] are mma.sync's A fragment of the
-// thread's warp rows, which is the accumulator layout above, two columns a
-// register) · B (16 x 64, MN-major in shared memory).
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DTT_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : DTT_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+constexpr int SM90_BKV = 128, SM90_BQ = 64;
 
 template <int D>
 constexpr size_t sm90_smem_bytes() {
@@ -240,7 +66,9 @@ constexpr size_t sm90_smem_bytes() {
          sizeof(float) * 4 * SM90_BQ + 1024;
 }
 
-template <int D, bool ROPE>
+// DQ false (K6): no dQ product, no atomics, and each warpgroup waits only
+// for its own dSᵀ rows.
+template <int D, bool ROPE, bool DQ>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -312,7 +140,7 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // dQ: at D 128 warpgroup wg adds columns [64·wg, +64) over all 128 kv
     // rows; at D 64 all columns over its own 64 kv rows.
     constexpr int DQ_KSTEPS = D == 128 ? BKV / 16 : 64 / 16;
-    const int dq_r0 = D == 128 ? 0 : 64 * wg, dq_c0 = D == 128 ? 64 * wg : 0;
+    [[maybe_unused]] const int dq_r0 = D == 128 ? 0 : 64 * wg, dq_c0 = D == 128 ? 64 * wg : 0;
 
     for (int n = 0; n < n_steps; ++n) {
       const int h = kvh * group + n / n_q, q0 = q_begin + (n % n_q) * BQ;
@@ -414,7 +242,7 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       proxy_fence();
       // dK needs this warpgroup's dSᵀ rows; dQ at D 128 the other's too.
-      if constexpr (D == 128) {
+      if constexpr (DQ && D == 128) {
         named_sync(1, SM90_THREADS);
       } else {
         named_sync(2 + wg, 128);
@@ -422,7 +250,7 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // dK += dSᵀ·(q·s), then dQ = s·dS·K: dS (q x kv) is the MN-major read
       // of dSᵀ, K the MN-major B.
-      float dq[32];
+      [[maybe_unused]] float dq[32];
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
@@ -430,28 +258,32 @@ flash_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int blk = 0; blk < DB; ++blk)
           mma_ss<0, 1>(dk[blk], desc_k(adS + 2 * sw<BKV>(64 * wg, 16 * kk)),
                        desc_mn(aQ + 2 * sw<BQ>(16 * kk, 64 * blk)), 1);
+      if constexpr (DQ) {
 #pragma unroll
-      for (int kk = 0; kk < DQ_KSTEPS; ++kk)
-        mma_ss<1, 1>(dq, desc_mn(adS + 2 * sw<BKV>(dq_r0 + 16 * kk, 0)),
-                     desc_mn(aK + 2 * sw<BKV>(dq_r0 + 16 * kk, dq_c0)), kk > 0);
+        for (int kk = 0; kk < DQ_KSTEPS; ++kk)
+          mma_ss<1, 1>(dq, desc_mn(adS + 2 * sw<BKV>(dq_r0 + 16 * kk, 0)),
+                       desc_mn(aK + 2 * sw<BKV>(dq_r0 + 16 * kk, dq_c0)), kk > 0);
+      }
       wg_commit();
       wg_wait<0>();
-      reg_fence(dq);
+      if constexpr (DQ) reg_fence(dq);
       reg_fence(pf);  // the dV product reads these until the wait
 #pragma unroll
       for (int blk = 0; blk < DB; ++blk) {
         reg_fence(dk[blk]);
         reg_fence(dv[blk]);
       }
+      if constexpr (DQ) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int qr = q0 + 16 * wi + g + 8 * i;
-        if (qr >= Sq) continue;
-        float* dst = dq_acc + (head_row(h) + qr) * D + dq_c0 + 2 * t;
+        for (int i = 0; i < 2; ++i) {
+          const int qr = q0 + 16 * wi + g + 8 * i;
+          if (qr >= Sq) continue;
+          float* dst = dq_acc + (head_row(h) + qr) * D + dq_c0 + 2 * t;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
-                    make_float2(scale * dq[4 * j + 2 * i], scale * dq[4 * j + 2 * i + 1]));
+          for (int j = 0; j < 8; ++j)
+            atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
+                      make_float2(scale * dq[4 * j + 2 * i], scale * dq[4 * j + 2 * i + 1]));
+        }
       }
     }
   }
@@ -505,10 +337,10 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* out, co
   const BwdStrides st{at(0), at(1), at(2), at(4), at(6), at(7)};
   const size_t smem = sm90_smem_bytes<D>();
   const dim3 grid((Skv + SM90_BKV - 1) / SM90_BKV, KV, B);
-  auto launch_main = [&]() {
-    cudaError_t e = set_smem(flash_bwd_sm90_kernel<D, ROPE>, smem);
+  auto main_kernel = [&](auto kernel) {
+    cudaError_t e = set_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    flash_bwd_sm90_kernel<D, ROPE><<<grid, SM90_THREADS, smem, stream>>>(
+    kernel<<<grid, SM90_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<const float*>(cos),
@@ -517,6 +349,10 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* out, co
         scale);
     return cudaGetLastError();
   };
+  auto launch_main = [&]() {
+    return dq == nullptr ? main_kernel(flash_bwd_sm90_kernel<D, ROPE, false>)
+                         : main_kernel(flash_bwd_sm90_kernel<D, ROPE, true>);
+  };
   return run_bwd<bf16, ROPE>(launch_main, out, dout, cos, sin, dq, dq_acc, delta, s, B, H, Sq,
                              D, off, tstride, stream);
 }
@@ -524,7 +360,8 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* out, co
 }  // namespace dtt
 
 // dtt_flash_bwd's contract (flash_bwd.cu) for bf16 operands at head_dim 64
-// or 128 with dq computed; any other call returns cudaErrorInvalidValue.
+// or 128: with dq null only dk and dv are computed (K6) and delta is left
+// for flash_bwd_dq.cu (K5). Any other call returns cudaErrorInvalidValue.
 // Returns a cudaError_t.
 extern "C" int dtt_flash_bwd_sm90(const void* q, const void* k, const void* v, const void* out,
                                   const void* dout, const void* lse, const void* cos,
@@ -536,7 +373,7 @@ extern "C" int dtt_flash_bwd_sm90(const void* q, const void* k, const void* v, c
   using namespace dtt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
-  if (!is_bf16 || dq == nullptr) return (int)cudaErrorInvalidValue;
+  if (!is_bf16) return (int)cudaErrorInvalidValue;
   if (cos != nullptr && (q_pos_offset < 0 || q_pos_offset + Sq > Skv))
     return (int)cudaErrorInvalidValue;
 #define DTT_BWD_SM90(DIM)                                                                      \

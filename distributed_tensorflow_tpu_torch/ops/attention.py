@@ -29,11 +29,14 @@ branch runs the BSHD fused kernel on head views of qkv.
 
 Kernels (``csrc/``): ``flash_fwd.cu`` — one forward on strided (B, H, S, D)
 operands behind every layout (K1, K3, K7, and the BSHD probe's K10);
-``flash_bwd.cu`` — one fused backward behind every layout (K2, K4, K8) and,
-with dq compiled out, the two-pass dk/dv kernel (K6); ``flash_bwd_sm90.cu``
-— the same fused backward as a warpgroup (wgmma) kernel, which takes every
-bf16 call at head_dim 64 or 128 that computes dq (:func:`backward_kernel`);
-``flash_bwd_dq.cu`` — the two-pass dq kernel (K5); ``flash_fwd_pipe.cu`` —
+``flash_fwd_sm90.cu`` — the same forward as a warpgroup (wgmma) kernel, with
+k rotated once per call under rope, which takes every bf16 call at head_dim
+64 or 128 (:func:`forward_kernel`); ``flash_bwd.cu`` — one fused backward
+behind every layout (K2, K4, K8) and, with dq compiled out, the two-pass
+dk/dv kernel (K6); ``flash_bwd_sm90.cu`` — the same fused backward, K6
+included, as a warpgroup kernel, which takes every bf16 call at head_dim 64
+or 128 (:func:`backward_kernel`); ``flash_bwd_dq.cu`` — the two-pass dq
+kernel (K5); ``flash_fwd_pipe.cu`` —
 the software-pipelined forward of the pipelining probe (K9,
 ``tools/pipeline_probe.py``). Each has a plain PyTorch version
 (``*_reference``). The kernels are compiled for head_dim 32, 64 and 128;
@@ -66,11 +69,12 @@ KERNEL_LAUNCHES = {
     "pipe_fwd": 0, "probe_bshd_fwd": 0,
 }
 # The same launches by the kernel source (``csrc/<name>.cu``) they ran: a
-# fused backward wrapper's launch runs flash_bwd or flash_bwd_sm90
+# forward wrapper's launch runs flash_fwd or flash_fwd_sm90
+# (:func:`forward_kernel`), a backward's flash_bwd or flash_bwd_sm90
 # (:func:`backward_kernel`).
 SOURCE_LAUNCHES = {
-    "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_sm90": 0, "flash_bwd_dq": 0,
-    "flash_fwd_pipe": 0,
+    "flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd": 0, "flash_bwd_sm90": 0,
+    "flash_bwd_dq": 0, "flash_fwd_pipe": 0,
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -287,6 +291,15 @@ def _probs(logits, lse):
     return torch.where(lse[..., None] <= NEG_INF / 2, 0.0, torch.exp(logits - lse[..., None]))
 
 
+def rotate_k_reference(k, cos, sin):
+    """Plain version of the forward's rotate pass (``flash_fwd_rotate_k``):
+    ``k`` (B, KV, Skv, D) with row r rotated by the tables' row r (f32,
+    rounded to k's dtype), contiguous. The warpgroup forward rotates k once a
+    call this way and q in its blocks: :func:`flash_forward_reference` on the
+    rotated q and k without tables equals it with them, bit for bit."""
+    return _rotate(k, cos, sin, 0).contiguous()
+
+
 def flash_forward_reference(q, k, v, causal=False, window=None, scale=None,
                             q_pos_offset=None, cos=None, sin=None):
     """Plain version of the forward kernel: q rotated (rope tables, f32) and
@@ -454,6 +467,7 @@ _FWD_ARGTYPES = (
     + [ctypes.c_int] * 10  # B, H, KV, Sq, Skv, D, is_bf16, causal, window, q_pos_offset
     + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]  # table stride, scale, stream
 )
+_FWD90_ARGTYPES = _FWD_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]  # + k_rot scratch
 _PIPE_FWD_ARGTYPES = (
     [ctypes.c_void_p] * 6  # q, k, v, out, lse, strides
     + [ctypes.c_int] * 8  # B, H, Sq, Skv, D, is_bf16, causal, q_pos_offset
@@ -506,14 +520,26 @@ def _dims(q, k):
     return b, h, k.shape[1], sq, k.shape[2], d
 
 
+def forward_kernel(dtype: torch.dtype, d: int) -> str:
+    """The source of the forward kernel that runs a call: bf16 at head_dim
+    64 or 128 goes to the warpgroup (wgmma) kernel ``csrc/flash_fwd_sm90.cu``;
+    f32 and head_dim 32 stay on ``csrc/flash_fwd.cu``. ``d`` is the instance
+    the call runs at (after padding)."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "flash_fwd_sm90"
+    return "flash_fwd"
+
+
 def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, scale,
-                    cos=None, sin=None) -> None:
-    """Launch ``csrc/flash_fwd.cu`` on q's stream: q, out (B, H, Sq, D) and
-    k, v (B, KV, Skv, D) views with a contiguous last dimension, lse (B, H,
-    Sq) f32; rope tables (1|B, Skv, D/2) f32 read at each row's position.
-    A head dim between the kernel's instances runs zero-padded to the next
-    one, at the scale of the real one. The launch counts under
-    ``KERNEL_LAUNCHES[counter]``."""
+                    cos=None, sin=None, k_rot=None) -> None:
+    """Launch the forward on q's stream (:func:`forward_kernel` picks the
+    source): q, out (B, H, Sq, D) and k, v (B, KV, Skv, D) views with a
+    contiguous last dimension, lse (B, H, Sq) f32; rope tables (1|B, Skv,
+    D/2) f32 read at each row's position. Under rope the warpgroup kernel
+    first rotates k once into ``k_rot``, a contiguous (B, KV, Skv, D) scratch
+    (allocated here unless given), and reads k from there. A head dim between
+    the kernel's instances runs zero-padded to the next one, at the scale of
+    the real one. The launch counts under ``KERNEL_LAUNCHES[counter]``."""
     d, scale = q.shape[-1], _scale(q.shape[-1], scale)
     dp = _instance_dim(d)
     if dp != d:
@@ -523,16 +549,22 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
         out.copy_(unpad_head_dim(out_p, d))
         return
     strides = _strides(q, k, v, out)
-    fn = _kernel_fn("flash_fwd", _FWD_ARGTYPES)
+    source = forward_kernel(q.dtype, d)
+    extra = ()
+    if source == "flash_fwd_sm90":
+        if cos is not None and k_rot is None:
+            k_rot = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        extra = (_ptr(k_rot),)
+    fn = _kernel_fn(source, _FWD90_ARGTYPES if extra else _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(cos), _ptr(sin),
             ctypes.addressof(strides), *_dims(q, k), int(q.dtype == torch.bfloat16),
-            int(causal), window or 0, q_pos_offset, _table_stride(cos), scale, stream,
+            int(causal), window or 0, q_pos_offset, _table_stride(cos), scale, *extra, stream,
         )
         KERNEL_LAUNCHES[counter] += 1
-        SOURCE_LAUNCHES["flash_fwd"] += 1
+        SOURCE_LAUNCHES[source] += 1
     _check_status(counter, status)
 
 
@@ -561,11 +593,12 @@ def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None
 
 def backward_kernel(dtype: torch.dtype, d: int, want_dq: bool) -> str:
     """The source of the fused backward kernel that runs a call: bf16 at
-    head_dim 64 or 128 with dq goes to the warpgroup (wgmma) kernel
-    ``csrc/flash_bwd_sm90.cu``; f32, head_dim 32 and the two-pass pair's
-    dk/dv half (no dq) stay on ``csrc/flash_bwd.cu``. ``d`` is the instance
-    the call runs at (after padding)."""
-    if dtype == torch.bfloat16 and d in (64, 128) and want_dq:
+    head_dim 64 or 128 goes to the warpgroup (wgmma) kernel
+    ``csrc/flash_bwd_sm90.cu``, with dq (K2/K4/K8) or without (the two-pass
+    pair's dk/dv half, K6, which compiles the dQ product out); f32 and
+    head_dim 32 stay on ``csrc/flash_bwd.cu``. ``d`` is the instance the
+    call runs at (after padding)."""
+    if dtype == torch.bfloat16 and d in (64, 128):
         return "flash_bwd_sm90"
     return "flash_bwd"
 
@@ -736,10 +769,10 @@ def _check_kernel_operands(qkv, h, kv, causal, window, cos, sin, *others):
 
 def flash_forward_qkv_kernel(qkv, num_heads, num_kv_heads, causal, window,
                              cos, sin, scale):
-    """Launch ``csrc/flash_fwd.cu`` on qkv's stream, reading q, k and v in
-    place through head views of qkv. ``cos``/``sin`` are the f32 tables
-    from :func:`rope_operands` or None. Returns ``out`` (B, S, H·dh) and
-    ``lse`` (B, H, S) f32, like the plain version."""
+    """Launch the forward (:func:`forward_kernel`) on qkv's stream, reading
+    q, k and v in place through head views of qkv. ``cos``/``sin`` are the
+    f32 tables from :func:`rope_operands` or None. Returns ``out`` (B, S,
+    H·dh) and ``lse`` (B, H, S) f32, like the plain version."""
     h, kv = num_heads, num_kv_heads
     b, sq, _, d = _check_kernel_operands(qkv, h, kv, causal, window, cos, sin)
     out = torch.empty(b, sq, h * d, dtype=qkv.dtype, device=qkv.device)
@@ -751,7 +784,7 @@ def flash_forward_qkv_kernel(qkv, num_heads, num_kv_heads, causal, window,
 
 def flash_backward_qkv_kernel(qkv, out, lse, g, num_heads, num_kv_heads, causal,
                               window, cos, sin, scale):
-    """Launch ``csrc/flash_bwd.cu`` once on qkv's stream (K2, whatever the
+    """Launch the fused backward once on qkv's stream (K2, whatever the
     length), writing dq, dk and dv through head views of one dqkv. Returns
     dqkv."""
     h, kv = num_heads, num_kv_heads
@@ -777,7 +810,7 @@ def _on(t: torch.Tensor) -> str:
 
 class FlashAttentionQKV(torch.autograd.Function):
     """Flash self-attention on packed qkv with a kernel in each direction:
-    CUDA tensors go through ``csrc/flash_fwd.cu`` forward and, backward, the
+    CUDA tensors go through the forward kernel and, backward, the
     route the JAX package's ``_flash_backward_qkv`` takes — K2 in one call,
     else K8 per q segment on head views of qkv (GQA through the kernel's
     head-group divisor, rope at each segment's positions), else the two-pass
@@ -884,10 +917,11 @@ def _check_backward_operands(q, k, v, out, lse, g, causal, window, **rope):
 
 def flash_forward_kernel(q, k, v, causal=False, window=None, scale=None, q_pos_offset=None,
                          cos=None, sin=None, counter="bhsd_fwd"):
-    """Launch ``csrc/flash_fwd.cu`` on q's stream. Operands are read through
-    their strides (a head-transposed view of a (B, S, H·D) projection needs
-    no copy); ``out`` is allocated in q's layout. Returns ``out`` (B, H, Sq,
-    D) and ``lse`` (B, H, Sq) f32, like the plain version."""
+    """Launch the forward (:func:`forward_kernel`) on q's stream. Operands
+    are read through their strides (a head-transposed view of a (B, S, H·D)
+    projection needs no copy); ``out`` is allocated in q's layout. Returns
+    ``out`` (B, H, Sq, D) and ``lse`` (B, H, Sq) f32, like the plain
+    version."""
     b, h, sq, skv, d = _check_bhsd_kernel_operands(q, k, v, causal, window, cos=cos, sin=sin,
                                                    q_pos_offset=q_pos_offset)
     q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
@@ -900,7 +934,7 @@ def flash_forward_kernel(q, k, v, causal=False, window=None, scale=None, q_pos_o
 
 def flash_backward_kernel(q, k, v, out, lse, g, causal=False, window=None, scale=None,
                           q_pos_offset=None, cos=None, sin=None, counter="bhsd_bwd"):
-    """Launch ``csrc/flash_bwd.cu`` once on q's stream. ``q_pos_offset``
+    """Launch the fused backward once on q's stream. ``q_pos_offset``
     places q row 0 in the key sequence, so a call on a q segment gives that
     segment's dq and its share of dk/dv. Returns ``dq, dk, dv`` in the
     layouts of q, k, v."""
@@ -915,7 +949,7 @@ def flash_backward_kernel(q, k, v, out, lse, g, causal=False, window=None, scale
 
 def flash_backward_dkv_kernel(q, k, v, out, lse, g, causal=False, window=None, scale=None,
                               q_pos_offset=None, cos=None, sin=None):
-    """K6: launch ``csrc/flash_bwd.cu`` with dq compiled out. Returns ``dk,
+    """K6: launch the fused backward with dq compiled out. Returns ``dk,
     dv`` in the layouts of k, v and ``delta`` (B, H, Sq) f32, the input of
     :func:`flash_backward_dq_kernel`."""
     _check_backward_operands(q, k, v, out, lse, g, causal, window, cos=cos, sin=sin,
@@ -944,7 +978,7 @@ def flash_backward_dq_kernel(q, k, v, lse, g, delta, causal=False, window=None, 
 
 class FlashAttention(torch.autograd.Function):
     """BHSD flash attention with a kernel in each direction: CUDA tensors go
-    through ``csrc/flash_fwd.cu`` forward and, backward, the route the JAX
+    through the forward kernel and, backward, the route the JAX
     package's ``_flash_backward`` takes — K4 in one call or per q segment,
     else the two-pass K5/K6 — CPU tensors through the plain versions of the
     same route."""

@@ -3,8 +3,9 @@
 
 Counterpart of the JAX package's ``tools/bshd_probe.py``, whose
 ``bshd_forward`` indexes the activation (B, S, H·dh) directly with the
-shipped forward body. Here the kernel is the shipped forward,
-``csrc/flash_fwd.cu``, handed (B, S, H, dh) head views of the flat operands
+shipped forward body. Here the kernel is the shipped forward (at bf16
+``csrc/flash_fwd_sm90.cu``, by ``ops.attention.forward_kernel``), handed
+(B, S, H, dh) head views of the flat operands
 with no copy (K7's route), counted under ``KERNEL_LAUNCHES
 ["probe_bshd_fwd"]``; CPU tensors take the plain version. The head count is
 an argument instead of a module global.

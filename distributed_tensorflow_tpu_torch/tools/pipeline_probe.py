@@ -13,9 +13,10 @@ out is in q's dtype.
     python -m distributed_tensorflow_tpu_torch.tools.pipeline_probe
 
 prints one JSON record per reading at the probe's two shapes (bf16,
-causal): the parity of K9 against the shipped forward K3 (``csrc/
-flash_fwd.cu``), then ms, TFLOP/s over ``2·b·h·s²·d`` and the share of the
-card's peak for "current" (K3) and "pipelined" (K9), timed in turns
+causal): the parity of K9 against the shipped forward K3 (at bf16
+``csrc/flash_fwd_sm90.cu``, by ``ops.attention.forward_kernel``), then
+ms, TFLOP/s over ``2·b·h·s²·d`` and the share of the card's peak for
+"current" (K3) and "pipelined" (K9), timed in turns
 (current, pipelined, pipelined, current), and last the launch counts. It
 raises without a card.
 """

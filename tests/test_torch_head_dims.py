@@ -123,7 +123,8 @@ def test_kernel_wrappers_reject_head_dims_above_128():
     ((torch.bfloat16, 64, True), "flash_bwd_sm90"),
     ((torch.float32, 128, True), "flash_bwd"),
     ((torch.bfloat16, 32, True), "flash_bwd"),
-    ((torch.bfloat16, 128, False), "flash_bwd"),
+    ((torch.bfloat16, 128, False), "flash_bwd_sm90"),
+    ((torch.bfloat16, 64, False), "flash_bwd_sm90"),
     ((torch.float32, 64, False), "flash_bwd"),
 ])
 def test_backward_kernel_dispatch(case):
