@@ -29,7 +29,9 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  faults in K8's, K5's and K6's products, and the delta K6
                  leaves for K5. Every bf16 case at head_dim 64/128 runs the
                  warpgroup kernels (flash_fwd_sm90.cu forward,
-                 flash_bwd_sm90.cu backward, K6 included), with extra
+                 flash_bwd_sm90.cu backward, K6 included, and
+                 flash_bwd_dq_sm90.cu for K5, each case checking K5's
+                 source), with extra
                  cases for them: the backward non-causal, cross-length and
                  fully masked; the forward non-causal with GQA, on a q
                  segment placed by q_pos_offset, with window + GQA + rope,
@@ -39,7 +41,14 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  step's P·V that the blockwise check must catch; K6 bf16
                  non-causal and fully masked. Head_dim 32 (an instance) and
                  80 (padded to 128) at the CLI's call shape, packed and BHSD,
-                 bf16 and f32;
+                 bf16 and f32; head_dim 256 (the plain-design kernels'
+                 instance, its accumulator columns split over two blocks)
+                 and 160/192 (padded to 256), bf16 and f32: K1/K2 at Gemma
+                 7B's attention width (16 heads of 256, seq 2048), with GQA
+                 and rope at a ragged length, K3/K4 with fully masked rows,
+                 K5-K8 with GQA, window, rope and cross-length and with
+                 fully masked rows, every launch on flash_fwd.cu,
+                 flash_bwd.cu or flash_bwd_dq.cu;
   4. main      — the trainer (cli/train_lm.py) for 6 steps on each main path:
                  dp and tp (--model_parallel 1, a world of one) at the bench
                  flagship's full width and depth (d_model 2048, 16 heads, 8
@@ -51,8 +60,10 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  path) and none of any other kernel, every launch on the
                  warpgroup kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) and
                  none on flash_fwd.cu or flash_bwd.cu; then the trainer at its
-                 own defaults (head_dim 32: flash_fwd.cu and flash_bwd.cu)
-                 and at head_dim 80 (the warpgroup kernels), 4 steps each;
+                 own defaults (head_dim 32: flash_fwd.cu and flash_bwd.cu),
+                 at head_dim 80 (the warpgroup kernels) and at head_dim 256
+                 (d_model 1024 over 4 heads: flash_fwd.cu and flash_bwd.cu,
+                 its loss falling), 4 steps each;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
@@ -66,9 +77,10 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  dp model, and the tp model against the dp model (its fused
                  qkv weight split into q/k/v) and against dense attention;
   6. turns     — the warpgroup kernels against the bf16 instances of the
-                 kernels they replaced (flash_fwd.cu, flash_bwd.cu), in turns
-                 (new, old, old, new) at the K1, K2, K3, K4, long K7, K8 and
-                 K6 calls and K1 with rope at the long call;
+                 kernels they replaced (flash_fwd.cu, flash_bwd.cu,
+                 flash_bwd_dq.cu), in turns (new, old, old, new) at the K1,
+                 K2, K3, K4, long K7, K8, K6 and K5 calls and K1 with rope at
+                 the long call;
      timing    — each kernel at its path's call shape beside its plain
                  version, its bound on this card and the library's nearest
                  call (scaled_dot_product_attention, forward for a forward
@@ -77,13 +89,19 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  alignment agrees with ours because Sq == Skv); K5-K8 at the
                  long path's call (batch 3, seq 8192, 16 heads on 4 kv
                  heads), K1 with rope at the long path's call (a row of its
-                 own), and the three backward routes of one long layer;
+                 own), K1/K2 at head_dim 256 (Gemma 7B's width, rows of
+                 their own), and the three backward routes of one long
+                 layer;
   7. probes    — the two kernel probes (tools/pipeline_probe.py and
-                 tools/bshd_probe.py of the port): K9, the software-pipelined
-                 forward, against its plain version at both probe shapes
-                 (bf16) and at ragged, cross-length, fully masked and
-                 non-causal cases, with a planted fault in the last kv tile
-                 of its P.V (the tile its flush step handles); K10, the
+                 tools/bshd_probe.py of the port): K9, the forward in the
+                 probe's issue order (flash_fwd_pipe_sm90.cu in bf16),
+                 against its plain version at both probe shapes (bf16) and
+                 at ragged, cross-length, fully masked and non-causal cases
+                 in bf16 and f32, with a planted fault in the last kv tile
+                 of its P.V (the tile its last step handles), within
+                 PARITY_TOL of K3 (and whether bit for bit), against
+                 flash_fwd_pipe.cu in turns, and against K3 in turns — the
+                 probe's verdict on which issue order wins; K10, the
                  forward on (B, S, H·dh) views, equal bit for bit to K3 on a
                  contiguous copy and held against its plain version; both
                  timed like phase 6; then each probe's main() as a
@@ -163,23 +181,30 @@ REPLACES = {
     "probe_bshd_fwd": "tools/bshd_probe.py:49 (_flash_kernel of distributed_tensorflow_tpu/ops/"
                       "attention.py via bshd_forward)",
 }
-# K1 with rope at the long path's call has a timing row of its own.
-REPLACES["flash_fwd_rope"] = REPLACES["flash_fwd"]
+# K1 with rope at the long path's call, and K1/K2 at head_dim 256, have
+# timing rows of their own.
+REPLACES["flash_fwd_rope"] = REPLACES["flash_fwd_d256"] = REPLACES["flash_fwd"]
+REPLACES["flash_bwd_d256"] = REPLACES["flash_bwd"]
 # The wrappers' launch counters and the source each one launches at the
 # main paths' calls (bf16, head_dim 64/128): every layout goes through one
 # forward and one fused backward kernel, as the TPU's do — the warpgroup
 # kernels flash_fwd_sm90.cu and flash_bwd_sm90.cu (attention.forward_kernel,
 # attention.backward_kernel; f32 and head_dim 32 calls take flash_fwd.cu and
-# flash_bwd.cu); the two-pass pair is flash_bwd_dq.cu (K5) and
+# flash_bwd.cu); the two-pass pair is flash_bwd_dq_sm90.cu (K5;
+# attention.backward_dq_kernel, f32, D 32 and D 256 on flash_bwd_dq.cu) and
 # flash_bwd_sm90.cu with dq compiled out (K6). The BSHD probe (K10) is the
-# forward on head views; the pipelining probe (K9) has a kernel of its own.
-# A main path's launches by source must be exactly what this map makes of
-# its launches by wrapper.
+# forward on head views; the pipelining probe (K9) has a kernel of its own,
+# flash_fwd_pipe_sm90.cu in bf16 (attention.pipe_forward_kernel; f32 on
+# flash_fwd_pipe.cu). At head_dim 256 K1 and K2 run the plain-design
+# flash_fwd.cu and flash_bwd.cu. A main path's launches by source must be
+# exactly what this map makes of its launches by wrapper.
 SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
            "bshd_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90",
-           "bhsd_bwd": "flash_bwd_sm90", "bshd_bwd": "flash_bwd_sm90", "bwd_dq": "flash_bwd_dq",
-           "bwd_dkv": "flash_bwd_sm90", "pipe_fwd": "flash_fwd_pipe",
-           "probe_bshd_fwd": "flash_fwd_sm90", "flash_fwd_rope": "flash_fwd_sm90"}
+           "bhsd_bwd": "flash_bwd_sm90", "bshd_bwd": "flash_bwd_sm90",
+           "bwd_dq": "flash_bwd_dq_sm90", "bwd_dkv": "flash_bwd_sm90",
+           "pipe_fwd": "flash_fwd_pipe_sm90", "probe_bshd_fwd": "flash_fwd_sm90",
+           "flash_fwd_rope": "flash_fwd_sm90", "flash_fwd_d256": "flash_fwd",
+           "flash_bwd_d256": "flash_bwd"}
 # Each main path: its trainer flags and its launches per layer per step
 # (every other counter must stay at 0). The long path's backward runs the
 # fused kernel on four q segments of 2048 rows (the JAX package's gate).
@@ -549,17 +574,47 @@ def phase_kernels():
     return errs
 
 
+# Gemma 7B's attention width (16 heads of 256; its config.json on the Hugging
+# Face hub) at seq 2048: the D 256 instance's call for phase 3 and its
+# timing rows.
+GEMMA = dict(batch_size=2, seq_len=2048, num_heads=16, head_dim=256)
+
+
 def phase_head_dims():
     """Head dims off the main paths: 32 (an instance of its own; the CLI's
     default d_model 128 over 4 heads) at the CLI's call shape (batch 8, seq
     128), and 80 (zero-padded to 128, rope paired half by half), forward and
     backward, packed qkv and BHSD, bf16 and f32, against the plain versions
-    at the real head_dim."""
+    at the real head_dim. Then head_dim 256 (an instance of the plain-design
+    kernels flash_fwd.cu, flash_bwd.cu and flash_bwd_dq.cu, which split its
+    accumulator columns over two blocks) and 160/192 (padded to 256), bf16
+    and f32: K1/K2 at Gemma 7B's width, with GQA and rope at a ragged
+    length, K3/K4 with fully masked rows and cross-length, and K5-K8 with
+    GQA, window, rope and cross-length and with fully masked rows. Every
+    launch at 160-256 must run a plain-design source."""
     for dtype in (torch.bfloat16, torch.float32):
         compare("packed_d32_cli_shape", 8, 128, 4, 4, 32, dtype, seed=60)
         compare("packed_d80_gqa_rope", 8, 128, 4, 2, 80, dtype, rope=True, seed=61)
         compare_bhsd("bhsd_d32_cross_window", 2, 4, 136, 200, 32, dtype, window=50, seed=62)
         compare_bhsd("bhsd_d80_cross", 2, 4, 136, 200, 80, dtype, seed=63)
+    _zero_counts()
+    gm = GEMMA
+    gemma = compare("packed_d256_gemma_width", gm["batch_size"], gm["seq_len"], gm["num_heads"],
+                    gm["num_heads"], gm["head_dim"], torch.bfloat16, seed=64)
+    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        compare("packed_d256_gqa_rope_ragged", 2, 200, 4, 2, 256, dtype, rope=True, seed=65)
+        compare("packed_d192_gqa_rope", 2, 136, 4, 2, 192, dtype, rope=True, seed=66)
+        compare_bhsd("bhsd_d256_fully_masked_rows", 2, 4, 200, 72, 256, dtype, seed=67)
+        compare_bhsd("bhsd_d160_cross_window", 2, 4, 136, 200, 160, dtype, window=50, seed=68)
+        compare_long("long_d256_gqa_window_cross_rope", 2, 8, 2, 192, 320, 256, dtype,
+                     window=100, rope=True, segments=2, seed=69)
+        compare_long("long_d256_fully_masked_rows", 2, 4, 4, 200, 72, 256, dtype, seed=70)
+    sources = {k: n for k, n in A.SOURCE_LAUNCHES.items() if n}
+    emit(phase="head_dims", d256_source_launches=sources)
+    if set(sources) != {"flash_fwd", "flash_bwd", "flash_bwd_dq"}:
+        fail(f"head_dims: the D 256 calls ran {sources}, expected the plain-design sources")
+    return {"flash_fwd_d256": gemma["out"], "flash_bwd_d256": gemma["dqkv"]}
 
 
 def _long_operands(b, h, kv, sq, skv, d, dtype, seed):
@@ -601,8 +656,13 @@ def compare_long(case, b, h, kv, sq, skv, d, dtype, causal=True, window=None, ro
     del parts
     args = (causal, window, None, off, cos, sin)
     dk6, dv6, delta = A.flash_backward_dkv_kernel(V(q), V(k), V(v), out, lse, V(g), *args)
+    k5_source = A.backward_dq_kernel(dtype, A._instance_dim(d))
+    before = A.SOURCE_LAUNCHES[k5_source]
     dq5 = A.flash_backward_dq_kernel(V(q), V(k), V(v), lse, V(g), delta, *args)
     torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES[k5_source] != before + 1:
+        fail(f"{case}: K5 did not run {k5_source}.cu")
+    emit(phase="kernels", case=case, k5_source=k5_source)
     ref_out, ref_lse = A.flash_forward_reference(V(q), V(k), V(v), *args)
     ref = A.flash_backward_reference(V(q), V(k), V(v), out, lse, V(g), *args)
     outputs = (("out", out), ("lse", lse), *zip(("k8_dq", "k8_dk", "k8_dv"), k8),
@@ -713,19 +773,23 @@ def phase_main(smi, path):
 
 
 # The trainer at its own defaults (d_model 128 over 4 heads: head_dim 32, 4
-# layers, seq 128, batch 8) and at head_dim 80 (d_model 320, padded to 128):
+# layers, seq 128, batch 8), at head_dim 80 (d_model 320, padded to 128) and
+# at head_dim 256 (d_model 1024, an instance of the plain-design kernels):
 # extra flags, and the forward and backward sources each must run.
 CLI_RUNS = {"cli_defaults_d32": ([], "flash_fwd", "flash_bwd"),
-            "cli_d80_padded": (["--d_model", "320"], "flash_fwd_sm90", "flash_bwd_sm90")}
+            "cli_d80_padded": (["--d_model", "320"], "flash_fwd_sm90", "flash_bwd_sm90"),
+            "cli_d256": (["--d_model", "1024"], "flash_fwd", "flash_bwd")}
 CLI_STEPS, CLI_LAYERS = 4, 4
 
 
 def phase_cli_head_dims():
-    """``cli/train_lm.py --attention flash`` on the card at head_dim 32 and
-    80 for CLI_STEPS steps: finite losses, one K1 and one K2 launch a layer
-    a step and no other, each through its source."""
+    """``cli/train_lm.py --attention flash`` on the card at head_dim 32, 80
+    and 256 for CLI_STEPS steps: finite losses, falling at head_dim 256, one
+    K1 and one K2 launch a layer a step and no other, each through its
+    source. Returns each run's launches."""
     from distributed_tensorflow_tpu_torch.cli import train_lm
 
+    runs = {}
     for name, (flags, fwd_source, bwd_source) in CLI_RUNS.items():
         _zero_counts()
         buf = io.StringIO()
@@ -742,10 +806,14 @@ def phase_cli_head_dims():
             fail(f"{name}: unexpected boundaries {[r['step'] for r in records]}")
         if not all(abs(r["loss"]) < float("inf") for r in records):
             fail(f"{name}: non-finite loss")
+        if name == "cli_d256" and not records[-1]["loss"] < records[0]["loss"]:
+            fail(f"{name}: the loss did not fall ({[r['loss'] for r in records]})")
         want_sources = {src: n if src in (fwd_source, bwd_source) else 0 for src in sources}
         if launches != want or sources != want_sources:
             fail(f"{name}: launches {launches} by source {sources}, expected {want} on "
                  f"{fwd_source} and {bwd_source}")
+        runs[name] = launches
+    return runs
 
 
 def _cfg(shape=FLAGSHIP, attention="flash", num_layers=None):
@@ -939,10 +1007,12 @@ def _sdpa(q, k, v, g):
 
 @contextlib.contextmanager
 def kernel_source(direction, name):
-    """Send every forward (``direction`` "forward") or fused backward
-    ("backward") launch to ``csrc/<name>.cu``, whatever
-    :func:`attention.forward_kernel` / :func:`attention.backward_kernel`
-    would pick: the turns' old kernel."""
+    """Send every launch of ``direction`` — "forward", "backward" (the fused
+    backward), "backward_dq" (K5) or "pipe_forward" (K9) — to
+    ``csrc/<name>.cu``, whatever :func:`attention.forward_kernel`,
+    :func:`attention.backward_kernel`, :func:`attention.backward_dq_kernel`
+    or :func:`attention.pipe_forward_kernel` would pick: the turns' old
+    kernel."""
     attr = f"{direction}_kernel"
     saved = getattr(A, attr)
     setattr(A, attr, lambda *args: name)
@@ -953,17 +1023,41 @@ def kernel_source(direction, name):
 
 
 # Each direction's new and old source, timed in turns (new, old, old, new).
-TURNS = {"forward": ("flash_fwd_sm90", "flash_fwd"), "backward": ("flash_bwd_sm90", "flash_bwd")}
+TURNS = {"forward": ("flash_fwd_sm90", "flash_fwd"), "backward": ("flash_bwd_sm90", "flash_bwd"),
+         "backward_dq": ("flash_bwd_dq_sm90", "flash_bwd_dq"),
+         "pipe_forward": ("flash_fwd_pipe_sm90", "flash_fwd_pipe")}
+
+
+def _direction(name):
+    """The kernel_source direction of timing row ``name``."""
+    return next(d for d, (new, _) in TURNS.items() if SOURCES[name] == new)
+
+
+def _turns(name, run, notes, phase="turns"):
+    """``run`` on the new and the old source of ``name``'s direction in
+    turns (new, old, old, new); the readings go into ``name``'s notes."""
+    direction = _direction(name)
+    new, old = TURNS[direction]
+    order = (new, old, old, new)
+    turns = []
+    for source in order:
+        with kernel_source(direction, source):
+            turns.append(cuda_ms(run, 10))
+    old_ms, new_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    emit(phase=phase, kernel=name, order=list(order), ms=turns, old_ms=old_ms, new_ms=new_ms)
+    notes.setdefault(name, {}).update(
+        turns_ms=dict(order=list(order), ms=turns),
+        old_kernel=f"distributed_tensorflow_tpu_torch/csrc/{old}.cu", old_kernel_ms=old_ms)
 
 
 def phase_turns(notes):
     """The warpgroup kernels against the bf16 instances of the kernels they
-    replaced, flash_fwd.cu and flash_bwd.cu, on the same inputs in turns
-    (new, old, old, new) at each path's call: K1 and K2 on the dp path's
-    packed qkv, K3 and K4 on the tp path's head views, K7 and K8 (one whole
-    call) at the long shape, K1 with rope on the long path's packed qkv, and
-    K6 at the long shape. Adds each kernel's turns and the old kernel's mean
-    time to its row's notes."""
+    replaced, flash_fwd.cu, flash_bwd.cu and flash_bwd_dq.cu, on the same
+    inputs in turns (new, old, old, new) at each path's call: K1 and K2 on
+    the dp path's packed qkv, K3 and K4 on the tp path's head views, K7 and
+    K8 (one whole call) at the long shape, K1 with rope on the long path's
+    packed qkv, and K6 and K5 at the long shape. Adds each kernel's turns
+    and the old kernel's mean time to its row's notes."""
     from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
 
     fl = FLAGSHIP
@@ -990,10 +1084,13 @@ def phase_turns(notes):
         q, k, v, g = _long_operands(lb, lh, lkv, ls, ls, d, torch.bfloat16, seed=30)
         out, lse = A.flash_forward_bshd(q, k, v, True)
         V = lambda t: t.transpose(1, 2)
+        _, _, delta = A.flash_backward_dkv_kernel(V(q), V(k), V(v), V(out), lse, V(g), True)
         return {"bshd_fwd": lambda: A.flash_forward_bshd(q, k, v, True),
                 "bshd_bwd": lambda: A.flash_backward_bshd(q, k, v, out, lse, g, True),
                 "bwd_dkv": lambda: A.flash_backward_dkv_kernel(V(q), V(k), V(v), V(out), lse,
-                                                               V(g), True)}
+                                                               V(g), True),
+                "bwd_dq": lambda: A.flash_backward_dq_kernel(V(q), V(k), V(v), lse, V(g), delta,
+                                                             True)}
 
     def long_rope():
         gen = torch.Generator(device="cuda").manual_seed(31)
@@ -1005,19 +1102,7 @@ def phase_turns(notes):
 
     for make in (packed, views, long_bshd, long_rope):
         for name, run in make().items():
-            direction = "forward" if SOURCES[name].startswith("flash_fwd") else "backward"
-            new, old = TURNS[direction]
-            order = (new, old, old, new)
-            turns = []
-            for source in order:
-                with kernel_source(direction, source):
-                    turns.append(cuda_ms(run, 10))
-            old_ms = (turns[1] + turns[2]) / 2
-            emit(phase="turns", kernel=name, order=list(order), ms=turns, old_ms=old_ms,
-                 new_ms=(turns[0] + turns[3]) / 2)
-            notes.setdefault(name, {}).update(
-                turns_ms=dict(order=list(order), ms=turns),
-                old_kernel=f"distributed_tensorflow_tpu_torch/csrc/{old}.cu", old_kernel_ms=old_ms)
+            _turns(name, run, notes)
         torch.cuda.empty_cache()
 
 
@@ -1085,6 +1170,36 @@ def phase_timing(launches, errs, notes):
     kernels += _time_kernels(runs, launches, errs, peak, bw,
                              dict(B=b, S=s, H=h, D=d, dtype="bf16", causal=True,
                                   layout="BSHD views"), notes)
+    del q, k, v, g, out, lse, lib
+    torch.cuda.empty_cache()
+
+    # K1/K2 at head_dim 256 (flash_fwd.cu, flash_bwd.cu), Gemma 7B's width.
+    b, s, h, d = (GEMMA[key] for key in ("batch_size", "seq_len", "num_heads", "head_dim"))
+    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)
+    qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=64)
+    args = (h, h, True, None, None, None)
+    out, lse = A.flash_forward_qkv_kernel(qkv, *args, None)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1))
+    lib = _sdpa(q, k, v, g.reshape(b, s, h, d).transpose(1, 2))
+    qkv_bytes, o_bytes, lse_bytes = qkv.numel() * elt, out.numel() * elt, lse.numel() * 4
+    runs = {
+        "flash_fwd_d256": (
+            (fwd_flops, qkv_bytes + o_bytes + lse_bytes),
+            lambda: A.flash_forward_qkv_kernel(qkv, *args, None),
+            lambda: A.flash_forward_qkv_reference(qkv, *args),
+            lib[0], None,
+        ),
+        "flash_bwd_d256": (
+            (fwd_flops * 5 // 2, 2 * qkv_bytes + 2 * o_bytes + lse_bytes),
+            lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g, *args, None),
+            lambda: A.flash_backward_qkv_reference(qkv, out, lse, g, *args),
+            lib[1], lib[2],
+        ),
+    }
+    kernels += _time_kernels(runs, launches, errs, peak, bw,
+                             dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True), notes)
+    del qkv, g, out, lse, q, k, v, lib
+    torch.cuda.empty_cache()
     return kernels
 
 
@@ -1278,21 +1393,50 @@ def _probe_pipe(peak, bw):
     compare_pipe("k9_fully_masked_rows_200_72_d64", 2, 4, 200, 72, 64, torch.float32, seed=53)
     compare_pipe("k9_noncausal_f32_d128", 1, 4, 136, 200, 128, torch.float32, causal=False,
                  seed=54)
+    # The warpgroup K9 (bf16) at a ragged length, with fully masked rows and
+    # non-causal.
+    compare_pipe("k9_ragged_bf16_d64", 2, 4, 200, 200, 64, torch.bfloat16, seed=58)
+    compare_pipe("k9_fully_masked_rows_200_72_bf16_d128", 2, 4, 200, 72, 128, torch.bfloat16,
+                 seed=59)
+    compare_pipe("k9_noncausal_bf16_d64", 1, 4, 136, 200, 64, torch.bfloat16, causal=False,
+                 seed=56)
     kernels = []
     for tag, (b, h, s, d) in pp.SHAPES.items():
         q, k, v, _ = _bhsd(b, h, s, s, d, torch.bfloat16, seed=57)
         out3 = A.flash_forward_kernel(q, k, v, True)[0]
-        bitwise = bool(torch.equal(pp.pipe_flash_forward_kernel(q, k, v, True)[0], out3))
-        del out3
+        before = A.SOURCE_LAUNCHES["flash_fwd_pipe_sm90"]
+        out9 = pp.pipe_flash_forward_kernel(q, k, v, True)[0]
+        torch.cuda.synchronize()
+        if A.SOURCE_LAUNCHES["flash_fwd_pipe_sm90"] != before + 1:
+            fail(f"probes: K9 at {tag} did not run flash_fwd_pipe_sm90.cu")
+        bitwise = bool(torch.equal(out9, out3))
+        diff = (out9.float() - out3.float()).abs().max().item()
+        emit(phase="probes", case=f"k9_vs_k3_{tag}", bitwise_equal=bitwise, max_abs_diff=diff,
+             tol=pp.PARITY_TOL)
+        if not diff < pp.PARITY_TOL:
+            fail(f"probes: K9 and K3 differ by {diff} at {tag}")
+        del out3, out9
         nbytes = 4 * q.numel() * q.element_size() + b * h * s * 4
-        runs = {"pipe_fwd": ((2 * b * h * s * s * d, nbytes),
-                             lambda: pp.pipe_flash_forward_kernel(q, k, v, True),
+        run9 = lambda: pp.pipe_flash_forward_kernel(q, k, v, True)
+        run3 = lambda: A.flash_forward_kernel(q, k, v, True)
+        runs = {"pipe_fwd": ((2 * b * h * s * s * d, nbytes), run9,
                              lambda: pp.pipe_flash_forward_reference(q, k, v, True),
                              lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
                              None)}
-        k3_ms = cuda_ms(lambda: A.flash_forward_kernel(q, k, v, True), 10)
-        notes = {"pipe_fwd": dict(PROBE_NOTE, probe_shape=tag, k3_same_inputs_ms=k3_ms,
-                                  bitwise_equal_k3=bitwise)}
+        notes = {"pipe_fwd": dict(PROBE_NOTE, probe_shape=tag, bitwise_equal_k3=bitwise)}
+        # The new K9 against the kernel it replaced, then the probe's question:
+        # K9 (S_{n+1} issued before the softmax of S_n) against K3 (the
+        # softmax of S_n under P_{n-1}·V_{n-1}) on the same inputs, in turns.
+        _turns("pipe_fwd", run9, notes, phase="probes")
+        t = [cuda_ms(f, 10) for f in (run9, run3, run3, run9)]
+        k9_ms, k3_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        ratio = k9_ms / k3_ms
+        verdict = (f"the probe's order is {'faster' if ratio < 1 else 'slower'} than K3's by "
+                   f"{abs(1 - ratio):.1%} at {tag}")
+        emit(phase="probes", case=f"k9_vs_k3_turns_{tag}", order=["K9", "K3", "K3", "K9"], ms=t,
+             k9_over_k3=ratio, verdict=verdict)
+        notes["pipe_fwd"].update(k3_same_inputs_ms=k3_ms, k9_vs_k3_turns_ms=t, k9_over_k3=ratio,
+                                 verdict=verdict)
         kernels += _time_kernels(runs, {"pipe_fwd": 0}, {"pipe_fwd": errs[tag]}, peak, bw,
                                  dict(B=b, H=h, S=s, D=d, dtype="bf16", causal=True), notes)
         del q, k, v
@@ -1376,16 +1520,18 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
 
 
 # Kernel-name substrings → class, checked in order (cuBLAS's Hopper GEMMs
-# are named nvjet_*, sm90_xmma_* or *gemm*). No kernel name of one class
-# contains another class's substring. Each profiled step runs one path, so
+# are named nvjet_*, sm90_xmma_* or *gemm*): K5's classes come before the
+# fused backward's, whose substring its warpgroup kernel's name contains;
+# no other kernel name of one class contains another class's substring.
+# Each profiled step runs one path, so
 # attn_fwd is K1 in the dp and long steps (with its rotate pass,
 # dtt::flash_fwd_rotate_k, on the long path) and K3 in the tp step, all on
 # dtt::flash_fwd_sm90_kernel, and attn_bwd is K2, K4 and K8 (K8 on four q
 # segments) in them, all three on dtt::flash_bwd_sm90_kernel.
 KERNEL_CLASSES = (
     ("attn_fwd", ("dtt::flash_fwd",)),
+    ("attn_bwd_dq", ("dtt::two_pass_dq", "dtt::flash_bwd_dq_sm90")),  # K5
     ("attn_bwd", ("dtt::flash_bwd",)),  # delta pre-pass, main kernel, dq pass
-    ("attn_bwd_dq", ("dtt::two_pass_dq",)),  # K5
     ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
     ("layer_norm", ("layer_norm",)),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
@@ -1465,9 +1611,9 @@ def main():
     phase_build()
     errs = phase_kernels()
     errs.update(phase_kernels_long())
-    phase_head_dims()
+    errs.update(phase_head_dims())
     by_path = {path: phase_main(smi, path) for path in MAIN_PATHS}
-    phase_cli_head_dims()
+    cli_runs = phase_cli_head_dims()
     # A kernel's launches are those of the first main path it serves; the
     # record lists every path's, and the routes phase's for the kernels no
     # main path takes (K5/K6 run only where no q segmentation exists, K7
@@ -1479,6 +1625,11 @@ def main():
     launches["flash_fwd_rope"] = by_path["long"]["flash_fwd"]
     notes["flash_fwd_rope"] = {"launches_by_path": {"long": launches["flash_fwd_rope"]},
                                "library_call": "SDPA forward on q and k rotated beforehand"}
+    # The head_dim 256 rows: launches of the trainer's run at head_dim 256
+    # (phase 4, CLI_LAYERS layers x CLI_STEPS steps).
+    for name, counter in (("flash_fwd_d256", "flash_fwd"), ("flash_bwd_d256", "flash_bwd")):
+        launches[name] = cli_runs["cli_d256"][counter]
+        notes[name] = {"launches_by_path": {"cli_d256": launches[name]}}
     for name, route_launches in phase_routes().items():
         for k in ("bshd_fwd", "bwd_dq", "bwd_dkv"):
             if k in route_launches:

@@ -49,19 +49,29 @@
 // operand is read or written through its own (b, h, s) strides, so neither
 // the packed projection nor the tp block's head-transposed views need a
 // copy; rope is a template parameter. Instances: bf16 and f32 at head_dim
-// 32, 64 and 128. The bf16 calls at 64 and 128, K6 included, run
+// 32, 64, 128 and 256. The bf16 calls at 64 and 128, K6 included, run
 // flash_bwd_sm90.cu instead, the same design on wgmma; this kernel keeps
-// f32 and head_dim 32.
+// f32, head_dim 32 and head_dim 256. At 256 a warp's dK and dV rows would
+// take 256 f32 registers a thread, so each (kv tile, kv head, batch) takes
+// two blocks: each multiplies all of Sᵀ and dPᵀ and accumulates half of the
+// dK, dV and dQ columns (kCols, flash_common.cuh), the rope pairs of dK in
+// one block; f32 at 256 keeps one q-side buffer, as two pass the 227 KB a
+// block may have.
 #include "flash_bwd_passes.cuh"
 
 namespace dtt {
 
 constexpr int BWD_BKV = 64, BWD_BQ = 32, BWD_THREADS = 128;
 
+// q-side (q, dO, lse, delta) buffers: two, so that step n + 1 loads while
+// step n multiplies.
+template <typename T, int D>
+constexpr int kBwdBufs = sizeof(T) == 4 && D > 128 ? 1 : 2;
+
 template <typename T, int D>
 constexpr size_t bwd_smem_bytes() {
   return sizeof(float) * 4 * BWD_BQ +
-         sizeof(T) * ((2 * BWD_BKV + 4 * BWD_BQ) * (D + kPad<T>) +
+         sizeof(T) * ((2 * BWD_BKV + 2 * kBwdBufs<T, D> * BWD_BQ) * (D + kPad<T>) +
                       (4 * 16 + BWD_BKV) * (BWD_BQ + kPad<T>));
 }
 
@@ -73,16 +83,19 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const float* __restrict__ sin, T* __restrict__ dk_out, T* __restrict__ dv_out,
                  float* __restrict__ dq_acc, BwdStrides st, int H, int group, int Sq, int Skv,
                  int off, int causal, int window, long long tstride, float scale) {
-  constexpr int LD = D + kPad<T>, LDQ = BWD_BQ + kPad<T>, NT = D / 8, NQ = BWD_BQ / 8;
+  constexpr int LD = D + kPad<T>, LDQ = BWD_BQ + kPad<T>, NQ = BWD_BQ / 8;
+  constexpr int DV = kCols<D>, NT = DV / 8, SPLIT = D / DV, NBUF = kBwdBufs<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sStats = reinterpret_cast<float*>(smem);  // two buffers of [lse | delta] rows
+  float* sStats = reinterpret_cast<float*>(smem);  // NBUF buffers of [lse | delta] rows
   T* sK = reinterpret_cast<T*>(sStats + 4 * BWD_BQ);
   T* sV = sK + BWD_BKV * LD;
-  T* sQdO = sV + BWD_BKV * LD;  // two buffers of [q tile | dO tile]
-  T* sP = sQdO + 4 * BWD_BQ * LD;
+  T* sQdO = sV + BWD_BKV * LD;  // NBUF buffers of [q tile | dO tile]
+  T* sP = sQdO + 2 * NBUF * BWD_BQ * LD;
   T* sdS = sP + 4 * 16 * LDQ;
 
-  const int k0 = blockIdx.x * BWD_BKV;  // low tiles first: under causal masking they see most q
+  // Low tiles first: under causal masking they see most q.
+  const int k0 = (int)(blockIdx.x / SPLIT) * BWD_BKV;
+  const int c0 = (int)(blockIdx.x % SPLIT) * (DV / 2);  // this block's columns (block_col)
   const int kvh = blockIdx.y, b = blockIdx.z;
   const T* kb = k + b * st.k.b + kvh * st.k.h;
   const T* vb = v + b * st.v.b + kvh * st.v.h;
@@ -115,8 +128,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   if (n_steps > 0) {
     // The copy of step n + 1's q, dO, lse and delta runs while step n is
     // multiplied.
-    auto q_buf = [&](int n) { return sQdO + (n & 1) * 2 * BWD_BQ * LD; };
-    auto stats_buf = [&](int n) { return sStats + (n & 1) * 2 * BWD_BQ; };
+    auto q_buf = [&](int n) { return sQdO + (n % NBUF) * 2 * BWD_BQ * LD; };
+    auto stats_buf = [&](int n) { return sStats + (n % NBUF) * 2 * BWD_BQ; };
     auto issue_q = [&](int n) {
       const int h = kvh * group + n / n_q, q0 = q_begin + (n % n_q) * BWD_BQ;
       tile_issue<T, D, BWD_BQ, BWD_THREADS>(q_buf(n), LD, q + b * st.q.b + h * st.q.h,
@@ -140,8 +153,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     T* myP = sP + warp * 16 * LDQ;
     T* mydS = sdS + warp * 16 * LDQ;
-    // dQ split: warp w adds q rows [16·(w%2), +16) x head columns [(w/2)·D/2, +D/2).
-    const int dq_r0 = (warp & 1) * 16, dq_c0 = (warp >> 1) * (D / 2);
+    // dQ split: warp w adds q rows [16·(w%2), +16) x the block's columns at
+    // (w/2)·D/2 + c0, DV/2 of them.
+    const int dq_r0 = (warp & 1) * 16, dq_c0 = (warp >> 1) * (D / 2) + c0;
 
     for (int n = 0; n < n_steps; ++n) {
       const int h = kvh * group + n / n_q, q0 = q_begin + (n % n_q) * BWD_BQ;
@@ -149,7 +163,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const T* sdO = sQ + BWD_BQ * LD;
       const float* sLse = stats_buf(n);
       const float* sDelta = sLse + BWD_BQ;
-      if (n + 1 < n_steps) {
+      if (NBUF == 2 && n + 1 < n_steps) {
         issue_q(n + 1);  // its buffers were last read before the previous barrier
         cp_async_wait<1>();
       } else {
@@ -188,7 +202,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int i = 0; i < 2; ++i)
           store_pair<T>(myP + (g + 8 * i) * LDQ + 8 * j + 2 * t, pt[j][2 * i], pt[j][2 * i + 1]);
       __syncwarp();
-      warp_mma<T, NT, BWD_BQ, true, false>(dv, myP, LDQ, sdO, LD);  // dV += Pᵀ·dO
+      warp_mma_cols<T, NT, BWD_BQ, true, D>(dv, myP, LDQ, sdO, LD, c0);  // dV += Pᵀ·dO
 
       // dPᵀ = V·dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta), rounded to T like the TPU kernel's ds.
       float dpt[NQ][4];
@@ -210,7 +224,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         __syncwarp();  // dK reads this warp's own dSᵀ rows only
       }
 
-      warp_mma<T, NT, BWD_BQ, true, false>(dk, mydS, LDQ, sQ, LD);  // dK += dSᵀ·(q·s)
+      warp_mma_cols<T, NT, BWD_BQ, true, D>(dk, mydS, LDQ, sQ, LD, c0);  // dK += dSᵀ·(q·s)
 
       if constexpr (DQ) {
         // dQ += s · dS·K over this block's 64 kv rows; dS(q, kv) = sdS[kv][q].
@@ -230,11 +244,12 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         }
       }
       __syncthreads();  // every warp is done with this step's buffers
+      if (NBUF == 1 && n + 1 < n_steps) issue_q(n + 1);
     }
   }
 
   // dk rotates back by the inverse rope at its kv rows; columns i and i + D/2
-  // are fragments j and j + NT/2 of the same lane.
+  // are fragments j and j + NT/2 of the same lane (block_col).
   if constexpr (ROPE) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -242,7 +257,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       if (r >= Skv) continue;
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
-        const int i = 8 * j + 2 * t + (e & 1);
+        const int i = c0 + 8 * j + 2 * t + (e & 1);
         const float c = cb[(size_t)r * (D / 2) + i], s = sb[(size_t)r * (D / 2) + i];
         const float x1 = dk[j][e], x2 = dk[j + NT / 2][e];
         dk[j][e] = x1 * c + x2 * s;
@@ -257,8 +272,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (r >= Skv) continue;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      store_pair<T>(dkb + r * st.dk.s + 8 * j + 2 * t, dk[j][2 * i], dk[j][2 * i + 1]);
-      store_pair<T>(dvb + r * st.dv.s + 8 * j + 2 * t, dv[j][2 * i], dv[j][2 * i + 1]);
+      const int col = block_col<D>(j, c0, t);
+      store_pair<T>(dkb + r * st.dk.s + col, dk[j][2 * i], dk[j][2 * i + 1]);
+      store_pair<T>(dvb + r * st.dv.s + col, dv[j][2 * i], dv[j][2 * i + 1]);
     }
   }
 }
@@ -272,7 +288,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   auto at = [&](int i) { return Bhsd{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; };
   const BwdStrides st{at(0), at(1), at(2), at(4), at(6), at(7)};
   const size_t smem = bwd_smem_bytes<T, D>();
-  const dim3 grid((Skv + BWD_BKV - 1) / BWD_BKV, KV, B);
+  const dim3 grid((Skv + BWD_BKV - 1) / BWD_BKV * (D / kCols<D>), KV, B);
   auto main_kernel = [&](auto kernel) {
     cudaError_t e = set_smem(kernel, smem);
     if (e != cudaSuccess) return e;
@@ -326,9 +342,11 @@ extern "C" int dtt_flash_bwd(const void* q, const void* k, const void* v, const 
   if (is_bf16 && D == 32) DTT_BWD(bf16, 32);
   if (is_bf16 && D == 64) DTT_BWD(bf16, 64);
   if (is_bf16 && D == 128) DTT_BWD(bf16, 128);
+  if (is_bf16 && D == 256) DTT_BWD(bf16, 256);
   if (!is_bf16 && D == 32) DTT_BWD(float, 32);
   if (!is_bf16 && D == 64) DTT_BWD(float, 64);
   if (!is_bf16 && D == 128) DTT_BWD(float, 128);
+  if (!is_bf16 && D == 256) DTT_BWD(float, 256);
 #undef DTT_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -27,16 +27,30 @@
 // with ldmatrix fragments, the layout of flash_fwd.cu. kv tiles wholly
 // outside the causal/window band are never visited, and the q tiles with the
 // most work are scheduled first. GQA divides the head index by the group
-// size for k/v. TMA and wgmma are later work.
+// size for k/v. Instances: bf16 and f32 at head_dim 32, 64, 128 and 256; the
+// bf16 calls at 64 and 128 run flash_bwd_dq_sm90.cu instead. At 256 each (q
+// tile, head, batch) takes two blocks, each multiplying all of S and dP and
+// accumulating half of dq's columns (kCols, flash_common.cuh; the rope pairs
+// in one block), and f32 there takes 32-key tiles in one buffer, as q, dO
+// and two buffers of 64-key tiles pass the 227 KB a block may have.
 #include "flash_common.cuh"
 
 namespace dtt {
 
-constexpr int DQ_BQ = 64, DQ_BKV = 64, DQ_THREADS = 128;
+constexpr int DQ_BQ = 64, DQ_THREADS = 128;
+
+// The kv tile's keys, and its buffers (two: tile n + 1 loads while tile n
+// multiplies).
+template <typename T, int D>
+constexpr int kDqBkv = sizeof(T) == 4 && D > 128 ? 32 : 64;
+template <typename T, int D>
+constexpr int kDqBufs = sizeof(T) == 4 && D > 128 ? 1 : 2;
 
 template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(T) * ((2 * DQ_BQ + 4 * DQ_BKV) * (D + kPad<T>) + 4 * 16 * (DQ_BKV + kPad<T>));
+  constexpr int BKV = kDqBkv<T, D>;
+  return sizeof(T) * ((2 * DQ_BQ + 2 * kDqBufs<T, D> * BKV) * (D + kPad<T>) +
+                      4 * 16 * (BKV + kPad<T>));
 }
 
 template <typename T, int D, bool ROPE>
@@ -47,16 +61,19 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    const float* __restrict__ sin, T* __restrict__ dq, Bhsd sq, Bhsd sk, Bhsd sv,
                    Bhsd sg, Bhsd sdq, int H, int group, int Sq, int Skv, int off, int causal,
                    int window, long long tstride, float scale) {
-  constexpr int LD = D + kPad<T>, LDS = DQ_BKV + kPad<T>, NT = D / 8, NS = DQ_BKV / 8;
+  constexpr int BKV = kDqBkv<T, D>, NBUF = kDqBufs<T, D>;
+  constexpr int LD = D + kPad<T>, LDS = BKV + kPad<T>, NS = BKV / 8;
+  constexpr int DV = kCols<D>, NT = DV / 8, SPLIT = D / DV;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sdO = sQ + DQ_BQ * LD;
-  T* sKV = sdO + DQ_BQ * LD;  // two buffers of [K tile | V tile]
-  T* sdS = sKV + 4 * DQ_BKV * LD;
-  auto kv_buf = [&](int n) { return sKV + (n & 1) * 2 * DQ_BKV * LD; };
+  T* sKV = sdO + DQ_BQ * LD;  // NBUF buffers of [K tile | V tile]
+  T* sdS = sKV + 2 * NBUF * BKV * LD;
+  auto kv_buf = [&](int n) { return sKV + (n % NBUF) * 2 * BKV * LD; };
 
   const int num_q = (Sq + DQ_BQ - 1) / DQ_BQ;
-  const int q0 = (num_q - 1 - (int)blockIdx.x) * DQ_BQ;
+  const int q0 = (num_q - 1 - (int)blockIdx.x / SPLIT) * DQ_BQ;
+  const int c0 = (int)(blockIdx.x % SPLIT) * (DV / 2);  // this block's columns (block_col)
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
@@ -78,20 +95,21 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   int kv_begin = 0, kv_end = Skv;
   if (causal) {
     kv_end = min(Skv, min(q0 + DQ_BQ, Sq) + off);  // keys up to the last row's position
-    if (window > 0) kv_begin = max(0, q0 + off - (window - 1)) / DQ_BKV * DQ_BKV;
+    if (window > 0) kv_begin = max(0, q0 + off - (window - 1)) / BKV * BKV;
   }
-  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + DQ_BKV - 1) / DQ_BKV : 0;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
 
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   if (n_tiles > 0) {
-    // The copy of kv tile n + 1 runs while tile n is multiplied.
+    // With two buffers the copy of kv tile n + 1 runs while tile n is
+    // multiplied; with one it starts once every warp is done with tile n.
     auto issue_kv = [&](int n) {
-      const int k0 = kv_begin + n * DQ_BKV;
-      tile_issue<T, D, DQ_BKV, DQ_THREADS>(kv_buf(n), LD, kb, (int)sk.s, k0, Skv);
-      tile_issue<T, D, DQ_BKV, DQ_THREADS>(kv_buf(n) + DQ_BKV * LD, LD, vb, (int)sv.s, k0, Skv);
+      const int k0 = kv_begin + n * BKV;
+      tile_issue<T, D, BKV, DQ_THREADS>(kv_buf(n), LD, kb, (int)sk.s, k0, Skv);
+      tile_issue<T, D, BKV, DQ_THREADS>(kv_buf(n) + BKV * LD, LD, vb, (int)sv.s, k0, Skv);
       cp_async_commit();
     };
     tile_issue<T, D, DQ_BQ, DQ_THREADS>(sQ, LD, q + b * sq.b + h * sq.h, (int)sq.s, q0, Sq);
@@ -101,10 +119,10 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     T* mydS = sdS + warp * 16 * LDS;
 
     for (int n = 0; n < n_tiles; ++n) {
-      const int k0 = kv_begin + n * DQ_BKV;
+      const int k0 = kv_begin + n * BKV;
       T* cK = kv_buf(n);
-      const T* cV = cK + DQ_BKV * LD;
-      if (n + 1 < n_tiles) {
+      const T* cV = cK + BKV * LD;
+      if (NBUF == 2 && n + 1 < n_tiles) {
         issue_kv(n + 1);  // its buffers were last read before the previous barrier
         cp_async_wait<1>();
       } else {
@@ -112,7 +130,7 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       }
       if (n == 0) tile_finish<T, D, DQ_BQ, DQ_THREADS>(sQ, LD, q0, Sq, cb, sb, true, scale, off);
       if constexpr (ROPE)
-        tile_finish<T, D, DQ_BKV, DQ_THREADS>(cK, LD, k0, Skv, cb, sb, false, 1.f, 0);
+        tile_finish<T, D, BKV, DQ_THREADS>(cK, LD, k0, Skv, cb, sb, false, 1.f, 0);
       __syncthreads();
 
       // S = (q·s)·Kᵀ and dP = dO·Vᵀ for this warp's 16 rows.
@@ -126,8 +144,8 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
       // Tiles wholly inside the causal/window band skip the per-element mask.
       const int p_lo = q0 + warp * 16 + off;  // position of the warp's first row
-      const bool full = k0 + DQ_BKV <= Skv &&
-                        (!causal || (k0 + DQ_BKV - 1 <= p_lo &&
+      const bool full = k0 + BKV <= Skv &&
+                        (!causal || (k0 + BKV - 1 <= p_lo &&
                                      (window <= 0 || k0 > p_lo + 15 - window)));
       // dS = P∘(dP − delta), rounded to T like the TPU kernel's ds.
 #pragma unroll
@@ -147,8 +165,9 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
           store_pair<T>(mydS + (g + 8 * i) * LDS + 8 * j + 2 * t, ds[0], ds[1]);
         }
       __syncwarp();
-      warp_mma<T, NT, DQ_BKV, true, false>(acc, mydS, LDS, cK, LD);  // dQ += dS·K
+      warp_mma_cols<T, NT, BKV, true, D>(acc, mydS, LDS, cK, LD, c0);  // dQ += dS·K
       __syncthreads();  // every warp is done with this tile's buffers
+      if (NBUF == 1 && n + 1 < n_tiles) issue_kv(n + 1);
     }
   }
 
@@ -157,7 +176,7 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] *= scale;
   // dq rotates back by the inverse rope at its rows' positions; columns i and
-  // i + D/2 are fragments j and j + NT/2 of the same lane.
+  // i + D/2 are fragments j and j + NT/2 of the same lane (block_col).
   if constexpr (ROPE) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -166,7 +185,7 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       const size_t at = (size_t)(r + off) * (D / 2);
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
-        const int i = 8 * j + 2 * t + (e & 1);
+        const int i = c0 + 8 * j + 2 * t + (e & 1);
         const float c = cb[at + i], s = sb[at + i];
         const float x1 = acc[j][e], x2 = acc[j + NT / 2][e];
         acc[j][e] = x1 * c + x2 * s;
@@ -180,7 +199,8 @@ two_pass_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     if (row[i] >= Sq) continue;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
-      store_pair<T>(dqb + row[i] * sdq.s + 8 * j + 2 * t, acc[j][2 * i], acc[j][2 * i + 1]);
+      store_pair<T>(dqb + row[i] * sdq.s + block_col<D>(j, c0, t), acc[j][2 * i],
+                    acc[j][2 * i + 1]);
   }
 }
 
@@ -193,7 +213,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   cudaError_t err = set_smem(two_pass_dq_kernel<T, D, ROPE>, smem);
   if (err != cudaSuccess) return (int)err;
   auto at = [&](int i) { return Bhsd{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; };
-  const dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ, H, B);
+  const dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ * (D / kCols<D>), H, B);
   two_pass_dq_kernel<T, D, ROPE><<<grid, DQ_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -233,9 +253,11 @@ extern "C" int dtt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   if (is_bf16 && D == 32) DTT_DQ(bf16, 32);
   if (is_bf16 && D == 64) DTT_DQ(bf16, 64);
   if (is_bf16 && D == 128) DTT_DQ(bf16, 128);
+  if (is_bf16 && D == 256) DTT_DQ(bf16, 256);
   if (!is_bf16 && D == 32) DTT_DQ(float, 32);
   if (!is_bf16 && D == 64) DTT_DQ(float, 64);
   if (!is_bf16 && D == 128) DTT_DQ(float, 128);
+  if (!is_bf16 && D == 256) DTT_DQ(float, 256);
 #undef DTT_DQ
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // on strided (B, H, S, D) operands): dtype conversions, the asynchronous
-// row-tile loader with the split-half rope rotation, and a one-warp tile
-// product on mma.sync.
+// row-tile loader with the split-half rope rotation, a one-warp tile
+// product on mma.sync, and the column split of head dims above 128.
 //
 // Tile products: every operand is read from shared memory through a strided
 // view (ldmatrix for bf16) and the sum lives in registers in the C-fragment
@@ -229,6 +229,37 @@ __device__ __forceinline__ void warp_mma(float (*acc)[4], const T* a, int lda, c
         acc[j][3] = fmaf(a1, b1, acc[j][3]);
       }
     }
+  }
+}
+
+// Head dims above 128 split the columns of a kernel's f32 accumulators (out,
+// dq, dk and dv) over blocks, kCols<D> a block: at D 256 the whole row would
+// not fit in a thread's 255 registers beside the score tile. A block still
+// multiplies every column of q·kᵀ and dO·vᵀ, and owns columns [c0, c0 +
+// kCols/2) and [D/2 + c0, +kCols/2), so that the split-half rope's pairs
+// (i, i + D/2) stay in one block. kCols<D> == D (one block, c0 0) up to 128.
+template <int D>
+constexpr int kCols = D > 128 ? 128 : D;
+
+// Global column of accumulator fragment j (of NT = kCols/8) and lane t in a
+// block that owns the columns at c0.
+template <int D>
+__device__ __forceinline__ int block_col(int j, int c0, int t) {
+  constexpr int NT = kCols<D> / 8;
+  return (j < NT / 2 ? c0 + 8 * j : D / 2 + c0 + 8 * (j - NT / 2)) + 2 * t;
+}
+
+// warp_mma with a row-major B (B(k, n) = b[k * ldb + n]) restricted to the
+// columns a block owns (block_col): acc[0, NT/2) from B's columns c0..., acc
+// [NT/2, NT) from D/2 + c0... One product when the block owns all D.
+template <typename T, int NT, int K, bool A_KCONTIG, int D>
+__device__ __forceinline__ void warp_mma_cols(float (*acc)[4], const T* a, int lda, const T* b,
+                                              int ldb, int c0) {
+  if constexpr (8 * NT == D) {
+    warp_mma<T, NT, K, A_KCONTIG, false>(acc, a, lda, b, ldb);
+  } else {
+    warp_mma<T, NT / 2, K, A_KCONTIG, false>(acc, a, lda, b + c0, ldb);
+    warp_mma<T, NT / 2, K, A_KCONTIG, false>(acc + NT / 2, a, lda, b + D / 2 + c0, ldb);
   }
 }
 

@@ -34,16 +34,26 @@
 // parameter, so a rope-free call carries none of its registers. kv tiles
 // wholly outside the causal/window band are never visited, and the q tiles
 // with the most work are scheduled first. TMA, wgmma and warp specialisation
-// are later work.
+// are later work. Instances: bf16 and f32 at head_dim 32, 64, 128 and 256;
+// the bf16 calls at 64 and 128 run flash_fwd_sm90.cu instead. At 256 a
+// thread's 128 f32 accumulators would not fit beside the score tile, so
+// each (q tile, head, batch) takes two blocks, each multiplying all of q·kᵀ
+// and accumulating half of out's columns (kCols, flash_common.cuh); f32 at
+// 256 keeps one kv buffer, as two pass the 227 KB a block may have.
 #include "flash_common.cuh"
 
 namespace dtt {
 
 constexpr int FWD_BQ = 64, FWD_BKV = 64, FWD_THREADS = 128;
 
+// kv tile buffers: two, so that tile n + 1 loads while tile n multiplies.
+template <typename T, int D>
+constexpr int kFwdBufs = sizeof(T) == 4 && D > 128 ? 1 : 2;
+
 template <typename T, int D>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(T) * ((FWD_BQ + 4 * FWD_BKV) * (D + kPad<T>) + 4 * 16 * (FWD_BKV + kPad<T>));
+  return sizeof(T) * ((FWD_BQ + 2 * kFwdBufs<T, D> * FWD_BKV) * (D + kPad<T>) +
+                      4 * 16 * (FWD_BKV + kPad<T>));
 }
 
 // Shared memory already holds a bf16 dh-128 block to two per SM, so asking
@@ -57,15 +67,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const float* __restrict__ sin, Bhsd sq, Bhsd sk, Bhsd sv, Bhsd so, int H,
                  int group, int Sq, int Skv, int off, int causal, int window, long long tstride,
                  float scale) {
-  constexpr int LD = D + kPad<T>, LDP = FWD_BKV + kPad<T>, NT = D / 8, NS = FWD_BKV / 8;
+  constexpr int LD = D + kPad<T>, LDP = FWD_BKV + kPad<T>, NS = FWD_BKV / 8;
+  constexpr int DV = kCols<D>, NT = DV / 8, SPLIT = D / DV, NBUF = kFwdBufs<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
-  T* sKV = sQ + FWD_BQ * LD;  // two buffers of [K tile | V tile]
-  T* sP = sQ + (FWD_BQ + 4 * FWD_BKV) * LD;
-  auto k_buf = [&](int n) { return sKV + (n & 1) * 2 * FWD_BKV * LD; };
+  T* sKV = sQ + FWD_BQ * LD;  // NBUF buffers of [K tile | V tile]
+  T* sP = sQ + (FWD_BQ + 2 * NBUF * FWD_BKV) * LD;
+  auto k_buf = [&](int n) { return sKV + (n % NBUF) * 2 * FWD_BKV * LD; };
 
   const int num_q = (Sq + FWD_BQ - 1) / FWD_BQ;
-  const int q0 = (num_q - 1 - (int)blockIdx.x) * FWD_BQ;
+  const int q0 = (num_q - 1 - (int)blockIdx.x / SPLIT) * FWD_BQ;
+  // This block's columns of out (block_col); part 0 writes lse.
+  const int part = (int)blockIdx.x % SPLIT, c0 = part * (DV / 2);
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + kvh * sk.h;
@@ -89,13 +102,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= Sq) continue;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) store_pair<T>(ob + row[i] * so.s + 8 * j + 2 * t, 0.f, 0.f);
-      if (t == 0) lb[row[i]] = NEG_INF + logf(1e-30f);
+      for (int j = 0; j < NT; ++j)
+        store_pair<T>(ob + row[i] * so.s + block_col<D>(j, c0, t), 0.f, 0.f);
+      if (t == 0 && part == 0) lb[row[i]] = NEG_INF + logf(1e-30f);
     }
     return;
   }
 
-  // The copy of kv tile n + 1 runs while tile n is multiplied.
+  // With two buffers the copy of kv tile n + 1 runs while tile n is
+  // multiplied; with one it starts once every warp is done with tile n.
   auto issue_kv = [&](int n) {
     const int k0 = kv_begin + n * FWD_BKV;
     tile_issue<T, D, FWD_BKV, FWD_THREADS>(k_buf(n), LD, kb, (int)sk.s, k0, Skv);
@@ -117,7 +132,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int k0 = kv_begin + n * FWD_BKV;
     T* cK = k_buf(n);
     const T* cV = cK + FWD_BKV * LD;
-    if (n + 1 < n_tiles) {
+    if (NBUF == 2 && n + 1 < n_tiles) {
       issue_kv(n + 1);  // its buffers were last read before the previous barrier
       cp_async_wait<1>();
     } else {
@@ -173,8 +188,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
     __syncwarp();
-    warp_mma<T, NT, FWD_BKV, true, false>(acc, myP, LDP, cV, LD);
+    warp_mma_cols<T, NT, FWD_BKV, true, D>(acc, myP, LDP, cV, LD, c0);
     __syncthreads();  // every warp is done with this tile's buffers
+    if (NBUF == 1 && n + 1 < n_tiles) issue_kv(n + 1);
   }
 
 #pragma unroll
@@ -183,9 +199,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
-      store_pair<T>(ob + row[i] * so.s + 8 * j + 2 * t, acc[j][2 * i] / denom,
+      store_pair<T>(ob + row[i] * so.s + block_col<D>(j, c0, t), acc[j][2 * i] / denom,
                     acc[j][2 * i + 1] / denom);
-    if (t == 0) lb[row[i]] = m[i] + logf(denom);
+    if (t == 0 && part == 0) lb[row[i]] = m[i] + logf(denom);
   }
 }
 
@@ -199,7 +215,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   if (err != cudaSuccess) return (int)err;
   const Bhsd sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       so{st[9], st[10], st[11]};
-  const dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ, H, B);
+  const dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ * (D / kCols<D>), H, B);
   flash_fwd_kernel<T, D, ROPE><<<grid, FWD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), static_cast<const float*>(cos),
@@ -237,9 +253,11 @@ extern "C" int dtt_flash_fwd(const void* q, const void* k, const void* v, void* 
   if (is_bf16 && D == 32) DTT_FWD(bf16, 32);
   if (is_bf16 && D == 64) DTT_FWD(bf16, 64);
   if (is_bf16 && D == 128) DTT_FWD(bf16, 128);
+  if (is_bf16 && D == 256) DTT_FWD(bf16, 256);
   if (!is_bf16 && D == 32) DTT_FWD(float, 32);
   if (!is_bf16 && D == 64) DTT_FWD(float, 64);
   if (!is_bf16 && D == 128) DTT_FWD(float, 128);
+  if (!is_bf16 && D == 256) DTT_FWD(float, 256);
 #undef DTT_FWD
   return (int)cudaErrorInvalidValue;
 }

@@ -43,10 +43,11 @@
 // rather than two warpgroups of one block, let one block's softmax, loads
 // and barrier overlap the other's products without a shared barrier. q is
 // rotated (rope) and scale-folded in place once per block, on the swizzled
-// tile. Under rope, k is rotated once per call by flash_fwd_rotate_k into a
-// (B, KV, Skv, D) scratch the caller allocates, rounded as the plain
-// version rounds it, so the main kernel reads k with no rope (flash_fwd.cu
-// rotates every K tile again in each of a head's q-tile blocks). TMA,
+// tile. Under rope, k is rotated once per call by flash_fwd_rotate_k
+// (sm90_common.cuh) into a (B, KV, Skv, D) scratch the caller allocates,
+// rounded as the plain version rounds it, so the main kernel reads k with no
+// rope (flash_fwd.cu rotates every K tile again in each of a head's q-tile
+// blocks). TMA,
 // mbarrier rings, producer/consumer warp specialisation with setmaxnreg and
 // persistent blocks are the next levers.
 #include "sm90_common.cuh"
@@ -60,44 +61,6 @@ constexpr size_t fwd90_smem_bytes() {
   // The q tile, two K and two V tiles, and room to align the base to 1024
   // bytes.
   return sizeof(bf16) * (FWD90_BQ + 4 * FWD90_BKV) * D + 1024;
-}
-
-// k (B, KV, Skv, D), strided, into k_rot (B, KV, Skv, D) contiguous, each row
-// r rotated split-half by the tables' row r in f32 and rounded to bf16: the
-// plain version's arithmetic (ops/rope.py apply_rope), with no fused
-// multiply-add, so the two agree bit for bit. A thread owns the 16-byte
-// chunks at columns i0 and i0 + D/2 of a row.
-template <int D>
-__global__ void flash_fwd_rotate_k(const bf16* __restrict__ k, const float* __restrict__ cos,
-                                   const float* __restrict__ sin, bf16* __restrict__ k_rot,
-                                   Bhsd sk, int KV, int Skv, long long tstride, long long n) {
-  constexpr int half = D / 2, CPH = half / 8;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const long long row = idx / CPH;  // (b·KV + h)·Skv + s
-  const int i0 = (int)(idx % CPH) * 8;
-  const long long s = row % Skv, h = (row / Skv) % KV, b = row / ((long long)KV * Skv);
-  const bf16* src = k + b * sk.b + h * sk.h + s * sk.s + i0;
-  const float* cr = cos + b * tstride + s * half + i0;
-  const float* sr = sin + b * tstride + s * half + i0;
-  alignas(16) bf16 x1[8], x2[8];
-  alignas(16) float c[8], sn[8];
-  *reinterpret_cast<uint4*>(x1) = *reinterpret_cast<const uint4*>(src);
-  *reinterpret_cast<uint4*>(x2) = *reinterpret_cast<const uint4*>(src + half);
-#pragma unroll
-  for (int v = 0; v < 8; v += 4) {
-    *reinterpret_cast<float4*>(c + v) = *reinterpret_cast<const float4*>(cr + v);
-    *reinterpret_cast<float4*>(sn + v) = *reinterpret_cast<const float4*>(sr + v);
-  }
-#pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    const float a = to_f32<bf16>(x1[v]), bb = to_f32<bf16>(x2[v]);
-    x1[v] = from_f32<bf16>(__fsub_rn(__fmul_rn(a, c[v]), __fmul_rn(bb, sn[v])));
-    x2[v] = from_f32<bf16>(__fadd_rn(__fmul_rn(bb, c[v]), __fmul_rn(a, sn[v])));
-  }
-  bf16* dst = k_rot + row * D + i0;
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(x1);
-  *reinterpret_cast<uint4*>(dst + half) = *reinterpret_cast<uint4*>(x2);
 }
 
 template <int D>

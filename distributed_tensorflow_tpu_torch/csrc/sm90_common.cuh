@@ -3,9 +3,11 @@
 // tile layout, its row-tile loader with the split-half rope rotation and
 // q-scale fold, wgmma's shared-memory descriptors, fences and waits, the
 // m64n64k16 bf16 products with both operands in shared memory (mma_ss) or A
-// from registers (mma_rs), exp2 on the special-function unit and bf16
-// packing. The loaders take the block's thread count: SM90_THREADS, two
-// warpgroups, for the backward; one warpgroup for the forward.
+// from registers (mma_rs), exp2 on the special-function unit, bf16 packing,
+// and the pass that rotates k once a call under rope (flash_fwd_rotate_k,
+// for the forward and the two-pass dq kernel). The loaders take the block's
+// thread count: SM90_THREADS, two warpgroups, for the backward; one
+// warpgroup for the forward, the pipelining probe and the two-pass dq.
 #pragma once
 
 #include "flash_common.cuh"
@@ -155,6 +157,44 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// k (B, KV, Skv, D), strided, into k_rot (B, KV, Skv, D) contiguous, each row
+// r rotated split-half by the tables' row r in f32 and rounded to bf16: the
+// plain version's arithmetic (ops/rope.py apply_rope), with no fused
+// multiply-add, so the two agree bit for bit. A thread owns the 16-byte
+// chunks at columns i0 and i0 + D/2 of a row.
+template <int D>
+__global__ void flash_fwd_rotate_k(const bf16* __restrict__ k, const float* __restrict__ cos,
+                                   const float* __restrict__ sin, bf16* __restrict__ k_rot,
+                                   Bhsd sk, int KV, int Skv, long long tstride, long long n) {
+  constexpr int half = D / 2, CPH = half / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const long long row = idx / CPH;  // (b·KV + h)·Skv + s
+  const int i0 = (int)(idx % CPH) * 8;
+  const long long s = row % Skv, h = (row / Skv) % KV, b = row / ((long long)KV * Skv);
+  const bf16* src = k + b * sk.b + h * sk.h + s * sk.s + i0;
+  const float* cr = cos + b * tstride + s * half + i0;
+  const float* sr = sin + b * tstride + s * half + i0;
+  alignas(16) bf16 x1[8], x2[8];
+  alignas(16) float c[8], sn[8];
+  *reinterpret_cast<uint4*>(x1) = *reinterpret_cast<const uint4*>(src);
+  *reinterpret_cast<uint4*>(x2) = *reinterpret_cast<const uint4*>(src + half);
+#pragma unroll
+  for (int v = 0; v < 8; v += 4) {
+    *reinterpret_cast<float4*>(c + v) = *reinterpret_cast<const float4*>(cr + v);
+    *reinterpret_cast<float4*>(sn + v) = *reinterpret_cast<const float4*>(sr + v);
+  }
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const float a = to_f32<bf16>(x1[v]), bb = to_f32<bf16>(x2[v]);
+    x1[v] = from_f32<bf16>(__fsub_rn(__fmul_rn(a, c[v]), __fmul_rn(bb, sn[v])));
+    x2[v] = from_f32<bf16>(__fadd_rn(__fmul_rn(bb, c[v]), __fmul_rn(a, sn[v])));
+  }
+  bf16* dst = k_rot + row * D + i0;
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(x1);
+  *reinterpret_cast<uint4*>(dst + half) = *reinterpret_cast<uint4*>(x2);
 }
 
 #define DTT_ACC32(d)                                                                          \

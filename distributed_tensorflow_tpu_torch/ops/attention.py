@@ -36,13 +36,17 @@ behind every layout (K2, K4, K8) and, with dq compiled out, the two-pass
 dk/dv kernel (K6); ``flash_bwd_sm90.cu`` — the same fused backward, K6
 included, as a warpgroup kernel, which takes every bf16 call at head_dim 64
 or 128 (:func:`backward_kernel`); ``flash_bwd_dq.cu`` — the two-pass dq
-kernel (K5); ``flash_fwd_pipe.cu`` —
-the software-pipelined forward of the pipelining probe (K9,
-``tools/pipeline_probe.py``). Each has a plain PyTorch version
-(``*_reference``). The kernels are compiled for head_dim 32, 64 and 128;
-any other head_dim up to 128 runs zero-padded to the next of those
-(:func:`pad_head_dim`). A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises — there is no fallback between them.
+kernel (K5), and ``flash_bwd_dq_sm90.cu`` the same as a warpgroup kernel
+for bf16 at head_dim 64 or 128 (:func:`backward_dq_kernel`);
+``flash_fwd_pipe.cu`` — the forward of the pipelining probe (K9,
+``tools/pipeline_probe.py``), and ``flash_fwd_pipe_sm90.cu`` the same on
+the warpgroup forward's skeleton for bf16 (:func:`pipe_forward_kernel`).
+Each has a plain PyTorch version
+(``*_reference``). The kernels are compiled for head_dim 32, 64, 128 and 256
+(the warpgroup kernels for 64 and 128 only); any other head_dim up to 256
+runs zero-padded to the next of those (:func:`pad_head_dim`). A CPU tensor
+takes the plain version; a CUDA tensor launches the kernel or raises —
+there is no fallback between them.
 """
 
 from __future__ import annotations
@@ -71,16 +75,18 @@ KERNEL_LAUNCHES = {
 # The same launches by the kernel source (``csrc/<name>.cu``) they ran: a
 # forward wrapper's launch runs flash_fwd or flash_fwd_sm90
 # (:func:`forward_kernel`), a backward's flash_bwd or flash_bwd_sm90
-# (:func:`backward_kernel`).
+# (:func:`backward_kernel`), K5's flash_bwd_dq or flash_bwd_dq_sm90
+# (:func:`backward_dq_kernel`), K9's flash_fwd_pipe or flash_fwd_pipe_sm90
+# (:func:`pipe_forward_kernel`).
 SOURCE_LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd": 0, "flash_bwd_sm90": 0,
-    "flash_bwd_dq": 0, "flash_fwd_pipe": 0,
+    "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_fwd_pipe": 0, "flash_fwd_pipe_sm90": 0,
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # The head dims the kernels are compiled for; any other dh up to the last
 # is zero-padded to the next one (:func:`pad_head_dim`).
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _scale(head_dim: int, scale: float | None) -> float:
@@ -485,6 +491,7 @@ _BWD_DQ_ARGTYPES = (
     + [ctypes.c_int] * 10
     + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 )
+_BWD_DQ90_ARGTYPES = _BWD_DQ_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]  # + k_rot
 
 
 def _kernel_fn(name: str, argtypes):
@@ -568,17 +575,27 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
     _check_status(counter, status)
 
 
+def pipe_forward_kernel(dtype: torch.dtype, d: int) -> str:
+    """The source of the pipelining probe's kernel (K9) that runs a call:
+    bf16 goes to the warpgroup (wgmma) kernel ``csrc/flash_fwd_pipe_sm90.cu``,
+    f32 stays on ``csrc/flash_fwd_pipe.cu`` (both at head_dim 64 or 128)."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "flash_fwd_pipe_sm90"
+    return "flash_fwd_pipe"
+
+
 def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None:
-    """Launch ``csrc/flash_fwd_pipe.cu`` (K9) on q's stream: q, out (B, H,
-    Sq, D) and k, v (B, H, Skv, D) views with a contiguous last dimension,
-    lse (B, H, Sq) f32. The launch counts under
-    ``KERNEL_LAUNCHES["pipe_fwd"]``. The probe's kernel is compiled for
+    """Launch K9 on q's stream (:func:`pipe_forward_kernel` picks the
+    source): q, out (B, H, Sq, D) and k, v (B, H, Skv, D) views with a
+    contiguous last dimension, lse (B, H, Sq) f32. The launch counts under
+    ``KERNEL_LAUNCHES["pipe_fwd"]``. The probe's kernels are compiled for
     head_dim 64 and 128 only."""
     b, h, sq, d = q.shape
     if d not in (64, 128):
         raise ValueError(f"the pipelining probe's kernel takes head_dim 64 or 128, got {d}")
     strides = _strides(q, k, v, out)
-    fn = _kernel_fn("flash_fwd_pipe", _PIPE_FWD_ARGTYPES)
+    source = pipe_forward_kernel(q.dtype, d)
+    fn = _kernel_fn(source, _PIPE_FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
@@ -587,7 +604,7 @@ def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None
             _scale(d, scale), stream,
         )
         KERNEL_LAUNCHES["pipe_fwd"] += 1
-        SOURCE_LAUNCHES["flash_fwd_pipe"] += 1
+        SOURCE_LAUNCHES[source] += 1
     _check_status("pipe_fwd", status)
 
 
@@ -648,11 +665,24 @@ def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,
     _check_status(counter, status)
 
 
+def backward_dq_kernel(dtype: torch.dtype, d: int) -> str:
+    """The source of the two-pass dq kernel (K5) that runs a call: bf16 at
+    head_dim 64 or 128 goes to the warpgroup (wgmma) kernel
+    ``csrc/flash_bwd_dq_sm90.cu``; f32, head_dim 32 and head_dim 256 stay
+    on ``csrc/flash_bwd_dq.cu``. ``d`` is the instance the call runs at
+    (after padding)."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "flash_bwd_dq_sm90"
+    return "flash_bwd_dq"
+
+
 def _launch_backward_dq(q, k, v, g, lse, delta, dq, causal, window, q_pos_offset, scale,
                         cos=None, sin=None) -> None:
-    """Launch ``csrc/flash_bwd_dq.cu`` (K5) on q's stream: dq in registers
-    over the kv loop, written once through dq's strides; ``delta`` as the
-    dk/dv launch wrote it; a head dim between the instances runs zero-padded.
+    """Launch K5 on q's stream (:func:`backward_dq_kernel` picks the
+    source): dq in registers over the kv loop, written once through dq's
+    strides; ``delta`` as the dk/dv launch wrote it; a head dim between the
+    instances runs zero-padded. Under rope the warpgroup kernel first
+    rotates k once into a contiguous (B, KV, Skv, D) scratch allocated here.
     Counts under ``KERNEL_LAUNCHES["bwd_dq"]``."""
     d, scale = q.shape[-1], _scale(q.shape[-1], scale)
     dp = _instance_dim(d)
@@ -663,16 +693,21 @@ def _launch_backward_dq(q, k, v, g, lse, delta, dq, causal, window, q_pos_offset
         dq.copy_(unpad_head_dim(dq_p, d))
         return
     strides = _strides(q, k, v, g, dq)
-    fn = _kernel_fn("flash_bwd_dq", _BWD_DQ_ARGTYPES)
+    source = backward_dq_kernel(q.dtype, d)
+    extra = ()
+    if source == "flash_bwd_dq_sm90":
+        k_rot = None if cos is None else torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        extra = (_ptr(k_rot),)
+    fn = _kernel_fn(source, _BWD_DQ90_ARGTYPES if extra else _BWD_DQ_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(cos), _ptr(sin),
             _ptr(dq), ctypes.addressof(strides), *_dims(q, k), int(q.dtype == torch.bfloat16),
-            int(causal), window or 0, q_pos_offset, _table_stride(cos), scale, stream,
+            int(causal), window or 0, q_pos_offset, _table_stride(cos), scale, *extra, stream,
         )
         KERNEL_LAUNCHES["bwd_dq"] += 1
-        SOURCE_LAUNCHES["flash_bwd_dq"] += 1
+        SOURCE_LAUNCHES[source] += 1
     _check_status("bwd_dq", status)
 
 
@@ -964,9 +999,9 @@ def flash_backward_dkv_kernel(q, k, v, out, lse, g, causal=False, window=None, s
 
 def flash_backward_dq_kernel(q, k, v, lse, g, delta, causal=False, window=None, scale=None,
                              q_pos_offset=None, cos=None, sin=None):
-    """K5: launch ``csrc/flash_bwd_dq.cu``. ``delta`` is the one
-    :func:`flash_backward_dkv_kernel` returned. Returns ``dq`` in q's
-    layout."""
+    """K5: launch the two-pass dq kernel (:func:`backward_dq_kernel`).
+    ``delta`` is the one :func:`flash_backward_dkv_kernel` returned. Returns
+    ``dq`` in q's layout."""
     _check_bhsd_kernel_operands(q, k, v, causal, window, lse, g, delta, cos=cos, sin=sin,
                                 q_pos_offset=q_pos_offset)
     q, k, v, g = (_kernel_layout(t) for t in (q, k, v, g))

@@ -3,10 +3,12 @@ the softmax of kv tile n with the tensor-core product of tile n + 1 make
 the forward faster on this card?
 
 Counterpart of the JAX package's ``tools/pipeline_probe.py``. Its
-``pipe_flash_forward`` becomes ``csrc/flash_fwd_pipe.cu`` for CUDA tensors
-(the kernel issues Q·K_{n+1}ᵀ before the softmax of tile n and keeps K one
-tile ahead of V; see the source) and :func:`pipe_flash_forward_reference`
-for CPU ones. The TPU's ``block_q``/``block_kv`` are left out, because the
+``pipe_flash_forward`` becomes, for CUDA tensors, a kernel that issues
+Q·K_{n+1}ᵀ before the softmax of tile n and keeps K one tile ahead of V —
+``csrc/flash_fwd_pipe_sm90.cu`` in bf16, the shipped warpgroup forward's
+skeleton with only that issue order changed, and ``csrc/flash_fwd_pipe.cu``
+in f32 (``ops.attention.pipe_forward_kernel``) — and
+:func:`pipe_flash_forward_reference` for CPU ones. The TPU's ``block_q``/``block_kv`` are left out, because the
 CUDA kernels fix their own 64-row tiles, and so is the unused ``out_dtype``:
 out is in q's dtype.
 
@@ -14,11 +16,13 @@ out is in q's dtype.
 
 prints one JSON record per reading at the probe's two shapes (bf16,
 causal): the parity of K9 against the shipped forward K3 (at bf16
-``csrc/flash_fwd_sm90.cu``, by ``ops.attention.forward_kernel``), then
-ms, TFLOP/s over ``2·b·h·s²·d`` and the share of the card's peak for
-"current" (K3) and "pipelined" (K9), timed in turns
-(current, pipelined, pipelined, current), and last the launch counts. It
-raises without a card.
+``csrc/flash_fwd_sm90.cu``, by ``ops.attention.forward_kernel``, which
+issues S_n with P_{n-1}·V_{n-1} and runs the softmax of S_n under the
+latter), then ms, TFLOP/s over ``2·b·h·s²·d`` and the share of the card's
+peak for "current" (K3) and "pipelined" (K9), timed in turns (current,
+pipelined, pipelined, current), then the verdict — the mean pipelined over
+the mean current time, so which issue order wins on this card and by how
+much — and last the launch counts. It raises without a card.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ def pipe_flash_forward_reference(q, k, v, causal: bool = True, scale: float | No
 
 
 def pipe_flash_forward_kernel(q, k, v, causal: bool = True, scale: float | None = None):
-    """Launch ``csrc/flash_fwd_pipe.cu`` on q's stream. Returns ``out`` (B,
+    """Launch K9 on q's stream (``flash_fwd_pipe_sm90.cu`` in bf16,
+    ``flash_fwd_pipe.cu`` in f32). Returns ``out`` (B,
     H, Sq, D) in q's layout and ``lse`` (B, H, Sq) f32 — the kernel writes
     lse, as the TPU kernel does, so the timed work matches."""
     _check_heads(q, k, v)
@@ -103,11 +108,18 @@ def main() -> None:
             "current": lambda: A.flash_forward_kernel(q, k, v, True),
             "pipelined": lambda: pipe_flash_forward(q, k, v, True),
         }
+        times = {"current": [], "pipelined": []}
         for name in ("current", "pipelined", "pipelined", "current"):
             ms = cuda_ms(runs[name], ITERS)
+            times[name].append(ms)
             tflops = flops / ms / 1e9
             _emit(probe="pipeline", shape=tag, kernel=name, ms=ms, tflops=tflops,
                   pct_peak=None if peak is None else 100 * tflops * 1e12 / peak)
+        ratio = sum(times["pipelined"]) / sum(times["current"])
+        _emit(probe="pipeline", shape=tag, pipelined_over_current=ratio,
+              verdict="the probe's order (S_{n+1} before softmax_n) is "
+                      + ("faster" if ratio < 1 else "slower")
+                      + f" than K3's by {abs(1 - ratio):.1%}")
         del q, k, v
     _emit(probe="pipeline", device=torch.cuda.get_device_name(device),
           launches={key: A.KERNEL_LAUNCHES[key] for key in ("bhsd_fwd", "pipe_fwd")})

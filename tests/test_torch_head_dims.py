@@ -1,13 +1,14 @@
-"""Head dims between the kernels' instances, and the backward's kernel choice.
+"""Head dims between the kernels' instances, and the kernels' source choice.
 
-The CUDA kernels are compiled for head_dim 32, 64 and 128; any other head_dim
-up to 128 runs zero-padded to the next of those. What makes that exact is
-checked here on the CPU through the plain versions: the padded call at the
-real head_dim's scale equals the unpadded one (f32, 1e-6 relative), and the
-rope pairing survives only the half-by-half pad. The port is held against the
-JAX package at head_dim 32 (the CLI's default d_model 128 over 4 heads) and
-80, and through one training step at the CLI's defaults (f32, 1e-4 absolute
-on the losses, the tolerance of tests/test_torch_train_lm.py).
+The CUDA kernels are compiled for head_dim 32, 64, 128 and 256; any other
+head_dim up to 256 runs zero-padded to the next of those. What makes that
+exact is checked here on the CPU through the plain versions: the padded call
+at the real head_dim's scale equals the unpadded one (f32, 1e-6 relative),
+and the rope pairing survives only the half-by-half pad. The port is held
+against the JAX package at head_dim 32 (the CLI's default d_model 128 over 4
+heads), 80, 192 and 256 (Gemma 7B's), and through one training step at the
+CLI's defaults (f32, 1e-4 absolute on the losses, the tolerance of
+tests/test_torch_train_lm.py).
 """
 
 import math
@@ -47,7 +48,7 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-@pytest.mark.parametrize("d", [48, 80])
+@pytest.mark.parametrize("d", [48, 80, 160, 192])
 def test_padded_plain_equals_unpadded_plain(d):
     """Forward and backward with rope, GQA and causal masking, at head_dim d
     and padded to the next instance: out, lse and every gradient agree."""
@@ -72,7 +73,7 @@ def test_padded_plain_equals_unpadded_plain(d):
         assert torch.equal(got, TA.pad_head_dim(TA.unpad_head_dim(got, d), dp)), name
 
 
-@pytest.mark.parametrize("d", [48, 80])
+@pytest.mark.parametrize("d", [48, 80, 160, 192])
 def test_tail_pad_breaks_the_rope_pairing(d):
     """The control: padding the tail instead pairs column i with i + dp/2,
     which holds another column or a zero, and the rotation comes out wrong."""
@@ -98,10 +99,10 @@ def test_pad_round_trips_and_instances():
     odd = torch.ones(1, 33)
     assert torch.equal(TA.unpad_head_dim(TA.pad_head_dim(odd, 64), 33), odd)
     assert TA.pad_head_dim(x, 80) is x
-    assert [TA._instance_dim(d) for d in (8, 32, 33, 64, 80, 96, 128)] == [32, 32, 64, 64,
-                                                                           128, 128, 128]
-    with pytest.raises(ValueError, match="up to 128, got 160"):
-        TA._instance_dim(160)
+    assert [TA._instance_dim(d) for d in (8, 32, 33, 64, 80, 96, 128, 129, 160, 192, 256)] == [
+        32, 32, 64, 64, 128, 128, 128, 256, 256, 256, 256]
+    with pytest.raises(ValueError, match="up to 256, got 320"):
+        TA._instance_dim(320)
     cos, sin = TR.rope_tables(80, 5)
     pc, ps = TA.pad_rope_tables(cos, sin, 128)
     assert pc.shape == (1, 5, 64) and torch.equal(pc[..., :40], cos)
@@ -110,11 +111,13 @@ def test_pad_round_trips_and_instances():
 
 
 def test_kernel_wrappers_reject_head_dims_above_128():
-    x = torch.zeros(1, 8, 3 * 160)  # one head of 160: the shape is refused before the device
-    with pytest.raises(ValueError, match="head_dim up to 128, got 160"):
+    """The kernels take head_dim up to 256 (the name is the test's from when
+    the limit was 128): one head of 320 is refused before the device."""
+    x = torch.zeros(1, 8, 3 * 320)
+    with pytest.raises(ValueError, match="head_dim up to 256, got 320"):
         TA.flash_forward_qkv_kernel(x, 1, 1, True, None, None, None, None)
-    q = torch.zeros(1, 1, 8, 160)
-    with pytest.raises(ValueError, match="head_dim up to 128, got 160"):
+    q = torch.zeros(1, 1, 8, 320)
+    with pytest.raises(ValueError, match="head_dim up to 256, got 320"):
         TA.flash_forward_kernel(q, q, q, True)
 
 
@@ -130,6 +133,55 @@ def test_kernel_wrappers_reject_head_dims_above_128():
 def test_backward_kernel_dispatch(case):
     args, want = case
     assert TA.backward_kernel(*args) == want
+
+
+@pytest.mark.parametrize("case", [
+    ((torch.bfloat16, 128), "flash_bwd_dq_sm90"),
+    ((torch.bfloat16, 64), "flash_bwd_dq_sm90"),
+    ((torch.float32, 128), "flash_bwd_dq"),
+    ((torch.float32, 64), "flash_bwd_dq"),
+    ((torch.bfloat16, 32), "flash_bwd_dq"),
+    ((torch.bfloat16, 256), "flash_bwd_dq"),
+])
+def test_backward_dq_kernel_dispatch(case):
+    """K5: bf16 at 64/128 on the warpgroup kernel; f32, 32 and 256 on the
+    plain-design one."""
+    args, want = case
+    assert TA.backward_dq_kernel(*args) == want
+
+
+@pytest.mark.parametrize("case", [
+    ((torch.bfloat16, 128), "flash_fwd_pipe_sm90"),
+    ((torch.bfloat16, 64), "flash_fwd_pipe_sm90"),
+    ((torch.float32, 128), "flash_fwd_pipe"),
+    ((torch.float32, 64), "flash_fwd_pipe"),
+])
+def test_pipe_forward_kernel_dispatch(case):
+    """K9: bf16 on the warpgroup kernel, f32 on the old one."""
+    args, want = case
+    assert TA.pipe_forward_kernel(*args) == want
+
+
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_head_dims_to_256_keep_the_plain_design_kernels(d):
+    """Head dims 129-256 run the instance 256, which only the plain-design
+    kernels have, in bf16 too."""
+    dp = TA._instance_dim(d)
+    assert dp == 256
+    for dtype in (torch.bfloat16, torch.float32):
+        assert TA.forward_kernel(dtype, dp) == "flash_fwd"
+        assert TA.backward_kernel(dtype, dp, True) == "flash_bwd"
+        assert TA.backward_kernel(dtype, dp, False) == "flash_bwd"
+        assert TA.backward_dq_kernel(dtype, dp) == "flash_bwd_dq"
+
+
+def test_new_sm90_sources_are_built_on_the_shared_header():
+    assert {"flash_bwd_dq_sm90", "flash_fwd_pipe_sm90"} <= set(_build.sources())
+    for name in ("flash_bwd_dq_sm90", "flash_fwd_pipe_sm90"):
+        assert _build.library_path(name).name.startswith(f"{name}-")
+        assert '#include "sm90_common.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+    for name in TA.SOURCE_LAUNCHES:
+        assert (_build.CSRC / f"{name}.cu").exists(), name
 
 
 def test_new_backward_source_is_built():
@@ -174,6 +226,30 @@ def test_flash_qkv_at_head_dim_matches_jax(d, kv, window, rope):
     (got_d,) = torch.autograd.grad(got, x, torch.tensor(g))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=1e-4, rtol=0)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_head_flash_qkv_matches_jax(d):
+    """flash_attention_qkv at head_dim 192 (padded to 256 on the card) and
+    256 (Gemma 7B's head width) — rope, 4 query heads on 2 kv heads, causal,
+    batch 1, seq 128 — against the JAX function in interpret mode: out and
+    each of dq, dk, dv within 1e-4 absolute (f32)."""
+    h, kv, s = 4, 2, 128
+    rng = np.random.default_rng(d)
+    qkv = rng.standard_normal((1, s, (h + 2 * kv) * d)).astype(np.float32)
+    g = rng.standard_normal((1, s, h * d)).astype(np.float32)
+    out, vjp = jax.vjp(lambda t: JA.flash_attention_qkv(t, h, kv, causal=True, interpret=True,
+                                                        rope_theta=10000.0), jnp.asarray(qkv))
+    (want_d,) = vjp(jnp.asarray(g))
+    x = torch.tensor(qkv, requires_grad=True)
+    got = TA.flash_attention_qkv(x, h, kv, causal=True, rope_theta=10000.0)
+    (got_d,) = torch.autograd.grad(got, x, torch.tensor(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=1e-4, rtol=0)
+    sections = np.cumsum([h * d, kv * d])
+    for name, got_g, want_g in zip(("dq", "dk", "dv"), np.split(got_d.numpy(), sections, -1),
+                                   np.split(np.asarray(want_d), sections, -1)):
+        assert np.abs(want_g).max() > 0, name
+        np.testing.assert_allclose(got_g, want_g, atol=1e-4, rtol=0, err_msg=name)
 
 
 def _cli_config():
