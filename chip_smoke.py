@@ -7,7 +7,9 @@ Phases, in order; any failed check exits non-zero and no result is printed:
 
   1. card      — nvidia-smi's name and power limit, torch's device name;
   2. build     — nvcc builds every kernel under
-                 distributed_tensorflow_tpu_torch/csrc/ (in parallel);
+                 distributed_tensorflow_tpu_torch/csrc/ (in parallel), with
+                 each instance's registers and spills and ptxas's wgmma
+                 advisories, and a summary of the head_dim 256 instances;
   3. kernels   — each kernel against its plain PyTorch version on the same
                  inputs, by a max-based and a blockwise normwise limit (see
                  TOL and BLOCK_TOL). One CUDA kernel per direction serves
@@ -41,29 +43,48 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  step's P·V that the blockwise check must catch; K6 bf16
                  non-causal and fully masked. Head_dim 32 (an instance) and
                  80 (padded to 128) at the CLI's call shape, packed and BHSD,
-                 bf16 and f32; head_dim 256 (the plain-design kernels'
-                 instance, its accumulator columns split over two blocks)
-                 and 160/192 (padded to 256), bf16 and f32: K1/K2 at Gemma
-                 7B's attention width (16 heads of 256, seq 2048), with GQA
-                 and rope at a ragged length, K3/K4 with fully masked rows,
-                 K5-K8 with GQA, window, rope and cross-length and with
-                 fully masked rows, every launch on flash_fwd.cu,
-                 flash_bwd.cu or flash_bwd_dq.cu;
+                 bf16 and f32; head_dim 256 (an instance of its own) and
+                 160/192 (padded to 256): K1/K2 at Gemma 7B's attention width
+                 (16 heads of 256, seq 2048), with GQA and rope at a ragged
+                 length, K3/K4 with fully masked rows and cross-length, K5-K8
+                 with GQA, window, rope and cross-length and with fully
+                 masked rows, in bf16 and f32; then, for the warpgroup
+                 kernels at 256 (bf16), packed GQA + window + rope at a
+                 ragged length, the forward with GQA + window + rope,
+                 cross-length on a q segment, with fully masked rows and
+                 non-causal, K4 non-causal cross-length, K4 on q segments
+                 placed by q_pos_offset against one whole call, the rotate
+                 pass bit for bit, the `wide` path's own calls at its full
+                 shape (K1 with rope on packed qkv, its backward's eight K8
+                 segment calls on dqkv, and the timed last-segment call's dq
+                 rows and dk/dv shares; the plain versions one batch row at
+                 a time), the long family at that length (K7, K8 on eight
+                 q segments, K5, K6 and its delta, 4 heads), and planted
+                 faults: a
+                 dropped kv tile in each product and one warpgroup's column
+                 half of dK zeroed. Every bf16 launch at 160-256 must run
+                 flash_fwd_sm90.cu or flash_bwd_sm90.cu (K5 flash_bwd_dq.cu),
+                 every f32 one flash_fwd.cu, flash_bwd.cu or flash_bwd_dq.cu;
   4. main      — the trainer (cli/train_lm.py) for 6 steps on each main path:
                  dp and tp (--model_parallel 1, a world of one) at the bench
                  flagship's full width and depth (d_model 2048, 16 heads, 8
                  layers, d_ff 8192, seq 2048, batch 12, bias-free, flash
-                 attention), and long-context training (the same width with
-                 4 kv heads, seq 8192, batch 3, rope θ 500000): finite loss
-                 at every boundary and exactly the path's launches per step
-                 (8 + 8 of dp's or tp's pair; 8 K1 and 32 K8 on the long
-                 path) and none of any other kernel, every launch on the
+                 attention), long-context training (the same width with
+                 4 kv heads, seq 8192, batch 3, rope θ 500000), and `wide`,
+                 Gemma 7B's attention at its context (16 heads of 256 on 16
+                 kv heads, rope θ 10000, seq 8192, batch 2, d_model 4096,
+                 d_ff 16384, 8 layers): finite loss at every boundary and
+                 exactly the path's launches per step (8 + 8 of dp's or tp's
+                 pair; 8 K1 and 32 K8 on the long path; 8 K1 and 64 K8 on
+                 `wide`) and none of any other kernel, every launch on the
                  warpgroup kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) and
-                 none on flash_fwd.cu or flash_bwd.cu; then the trainer at its
+                 none on flash_fwd.cu or flash_bwd.cu; `wide` again for 3
+                 steps with both directions forced to flash_fwd.cu and
+                 flash_bwd.cu (its "was" reading); then the trainer at its
                  own defaults (head_dim 32: flash_fwd.cu and flash_bwd.cu),
-                 at head_dim 80 (the warpgroup kernels) and at head_dim 256
-                 (d_model 1024 over 4 heads: flash_fwd.cu and flash_bwd.cu,
-                 its loss falling), 4 steps each;
+                 at head_dim 80 and at head_dim 256 (d_model 1024 over 4
+                 heads, its loss falling), both on the warpgroup kernels, 4
+                 steps each;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
@@ -76,22 +97,28 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  through plain dense attention, same weights and tokens: the
                  dp model, and the tp model against the dp model (its fused
                  qkv weight split into q/k/v) and against dense attention;
+                 and one step at the `wide` width (2 layers, batch 1, seq
+                 2048: K8 on two q segments) against dense attention;
   6. turns     — the warpgroup kernels against the bf16 instances of the
                  kernels they replaced (flash_fwd.cu, flash_bwd.cu,
                  flash_bwd_dq.cu), in turns (new, old, old, new) at the K1,
-                 K2, K3, K4, long K7, K8, K6 and K5 calls and K1 with rope at
-                 the long call;
+                 K2, K3, K4, long K7, K8, K6 and K5 calls, K1 with rope at
+                 the long call, K1 and K2 at head_dim 256 (Gemma 7B's width,
+                 seq 2048), and K1 with rope and one K8 segment call (the
+                 last, 1024 q rows against 8192 keys) at the `wide` call;
      timing    — each kernel at its path's call shape beside its plain
                  version, its bound on this card and the library's nearest
                  call (scaled_dot_product_attention, forward for a forward
                  kernel and forward+backward for a fused backward kernel,
                  with its backward alone beside it; its top-left causal
-                 alignment agrees with ours because Sq == Skv); K5-K8 at the
+                 alignment agrees with ours because Sq == Skv, and the K8
+                 segment row passes its end-aligned mask); K5-K8 at the
                  long path's call (batch 3, seq 8192, 16 heads on 4 kv
                  heads), K1 with rope at the long path's call (a row of its
                  own), K1/K2 at head_dim 256 (Gemma 7B's width, rows of
-                 their own), and the three backward routes of one long
-                 layer;
+                 their own), K1 with rope and the K8 segment call at the
+                 `wide` call, K1/K2 at head_dim 32 (the CLI's call), and the
+                 three backward routes of one long layer;
   7. probes    — the two kernel probes (tools/pipeline_probe.py and
                  tools/bshd_probe.py of the port): K9, the forward in the
                  probe's issue order (flash_fwd_pipe_sm90.cu in bf16),
@@ -106,8 +133,9 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  contiguous copy and held against its plain version; both
                  timed like phase 6; then each probe's main() as a
                  subprocess, which must exit 0 having launched its kernel;
-  8. profile   — one training step of each main path under torch.profiler:
-                 device time by kernel class and the device's idle share.
+  8. profile   — one training step of each main path (`wide` included) under
+                 torch.profiler: device time by kernel class and the
+                 device's idle share.
 
 Then a line with nvidia-smi's name and power limit, a JSON line with the
 kernels' numbers, and last ``{"ok": true, "device": {...}}``. Needs one
@@ -116,8 +144,10 @@ card and no network.
 
 import contextlib
 import io
+import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -137,6 +167,14 @@ FLAGSHIP = dict(d_model=2048, num_heads=16, num_layers=8, d_ff=8192, seq_len=204
 # 4 query heads per kv head) at the flagship's width; batch 3 keeps its
 # 24576 tokens a step.
 LONG = dict(FLAGSHIP, num_kv_heads=4, seq_len=8192, batch_size=3, rope_theta=500000.0)
+# `wide`: Gemma 7B's attention at its context (its config.json: head_dim 256,
+# 16 attention heads on 16 kv heads, max_position_embeddings 8192,
+# rope_theta 10000) in the repo's block: d_model 4096 (the model ties it to
+# heads x head_dim, where Gemma has 3072), LayerNorm and a GELU MLP at 4x
+# (d_ff 16384), 8 of its 28 layers, batch 2 (16,384 tokens a step).
+WIDE = dict(d_model=4096, num_heads=16, num_layers=8, d_ff=16384, seq_len=8192, batch_size=2,
+            rope_theta=10000.0)
+SHAPES = {"dp": FLAGSHIP, "tp": FLAGSHIP, "long": LONG, "wide": WIDE}
 STEPS, INTERVAL = 6, 2
 # Tolerances, as max |kernel - plain| / max |plain|, except lse (absolute).
 # f32 runs every product in full f32 (no TF32); bf16 rounds p and dS to
@@ -181,47 +219,61 @@ REPLACES = {
     "probe_bshd_fwd": "tools/bshd_probe.py:49 (_flash_kernel of distributed_tensorflow_tpu/ops/"
                       "attention.py via bshd_forward)",
 }
-# K1 with rope at the long path's call, and K1/K2 at head_dim 256, have
-# timing rows of their own.
-REPLACES["flash_fwd_rope"] = REPLACES["flash_fwd_d256"] = REPLACES["flash_fwd"]
-REPLACES["flash_bwd_d256"] = REPLACES["flash_bwd"]
+# K1 with rope at the long path's call, K1/K2 at head_dim 256 and at 32, and
+# the `wide` path's K1 with rope and K8 segment call have timing rows of
+# their own.
+REPLACES.update({row: REPLACES["flash_fwd"] for row in (
+    "flash_fwd_rope", "flash_fwd_d256", "flash_fwd_d32", "flash_fwd_rope_d256_wide")})
+REPLACES.update({row: REPLACES["flash_bwd"] for row in ("flash_bwd_d256", "flash_bwd_d32")})
+REPLACES["bshd_bwd_d256_wide"] = REPLACES["bshd_bwd"]
 # The wrappers' launch counters and the source each one launches at the
-# main paths' calls (bf16, head_dim 64/128): every layout goes through one
-# forward and one fused backward kernel, as the TPU's do — the warpgroup
-# kernels flash_fwd_sm90.cu and flash_bwd_sm90.cu (attention.forward_kernel,
-# attention.backward_kernel; f32 and head_dim 32 calls take flash_fwd.cu and
-# flash_bwd.cu); the two-pass pair is flash_bwd_dq_sm90.cu (K5;
-# attention.backward_dq_kernel, f32, D 32 and D 256 on flash_bwd_dq.cu) and
-# flash_bwd_sm90.cu with dq compiled out (K6). The BSHD probe (K10) is the
-# forward on head views; the pipelining probe (K9) has a kernel of its own,
-# flash_fwd_pipe_sm90.cu in bf16 (attention.pipe_forward_kernel; f32 on
-# flash_fwd_pipe.cu). At head_dim 256 K1 and K2 run the plain-design
-# flash_fwd.cu and flash_bwd.cu. A main path's launches by source must be
-# exactly what this map makes of its launches by wrapper.
+# main paths' calls (bf16, head_dim 64, 128 or 256): every layout goes
+# through one forward and one fused backward kernel, as the TPU's do — the
+# warpgroup kernels flash_fwd_sm90.cu and flash_bwd_sm90.cu
+# (attention.forward_kernel, attention.backward_kernel; f32 and head_dim 32
+# calls take flash_fwd.cu and flash_bwd.cu); the two-pass pair is
+# flash_bwd_dq_sm90.cu (K5; attention.backward_dq_kernel, f32, D 32 and D
+# 256 on flash_bwd_dq.cu) and flash_bwd_sm90.cu with dq compiled out (K6).
+# The BSHD probe (K10) is the forward on head views; the pipelining probe
+# (K9) has a kernel of its own, flash_fwd_pipe_sm90.cu in bf16
+# (attention.pipe_forward_kernel; f32 on flash_fwd_pipe.cu). The head_dim 32
+# rows run the plain-design kernels. A main path's launches by source must
+# be exactly what this map makes of its launches by wrapper.
 SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
            "bshd_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90",
            "bhsd_bwd": "flash_bwd_sm90", "bshd_bwd": "flash_bwd_sm90",
            "bwd_dq": "flash_bwd_dq_sm90", "bwd_dkv": "flash_bwd_sm90",
            "pipe_fwd": "flash_fwd_pipe_sm90", "probe_bshd_fwd": "flash_fwd_sm90",
-           "flash_fwd_rope": "flash_fwd_sm90", "flash_fwd_d256": "flash_fwd",
-           "flash_bwd_d256": "flash_bwd"}
+           "flash_fwd_rope": "flash_fwd_sm90", "flash_fwd_d256": "flash_fwd_sm90",
+           "flash_bwd_d256": "flash_bwd_sm90", "flash_fwd_rope_d256_wide": "flash_fwd_sm90",
+           "bshd_bwd_d256_wide": "flash_bwd_sm90", "flash_fwd_d32": "flash_fwd",
+           "flash_bwd_d32": "flash_bwd"}
 # Each main path: its trainer flags and its launches per layer per step
 # (every other counter must stay at 0). The long path's backward runs the
-# fused kernel on four q segments of 2048 rows (the JAX package's gate).
+# fused kernel on four q segments of 2048 rows, `wide`'s on eight of 1024
+# (the JAX package's gate at head_dim 128 and 256).
 MAIN_PATHS = {
     "dp": ([], {"flash_fwd": 1, "flash_bwd": 1}),
     "tp": (["--parallelism", "tp", "--model_parallel", "1"], {"bhsd_fwd": 1, "bhsd_bwd": 1}),
     "long": (["--num_kv_heads", "4", "--position", "rope", "--rope_theta", "500000"],
              {"flash_fwd": 1, "bshd_bwd": 4}),
+    # At the CLI's default rate (3e-3) the flagship's loss rises over its
+    # first 6 steps; `wide` must show a falling one, at a rate for its width.
+    "wide": (["--position", "rope", "--rope_theta", "10000", "--learning_rate", "1e-4"],
+             {"flash_fwd": 1, "bshd_bwd": 8}),
 }
+# The sources `wide`'s "was" run forces: the plain-design kernels.
+PLAIN_DESIGN = {"flash_fwd_sm90": "flash_fwd", "flash_bwd_sm90": "flash_bwd"}
 
 
-def expected_sources(launches):
+def expected_sources(launches, forced=None):
     """The launches by source (``attention.SOURCE_LAUNCHES``) that wrapper
-    ``launches`` make on the main paths' calls, by :data:`SOURCES`."""
+    ``launches`` make on the main paths' calls, by :data:`SOURCES`, each
+    source replaced by its entry in ``forced`` where it has one."""
     out = {src: 0 for src in A.SOURCE_LAUNCHES}
     for name, n in launches.items():
-        out[SOURCES[name]] += n
+        src = SOURCES[name]
+        out[(forced or {}).get(src, src)] += n
     return out
 
 
@@ -260,6 +312,30 @@ def phase_build():
         emit(phase="build", kernel=name, library=str(_build.library_path(name).name),
              nvcc_seconds=_build.BUILD_SECONDS.get(name), ptxas=lines)
     emit(phase="build", seconds=round(seconds, 2))
+    for name in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        for rec in _ptxas_instances(_build.build_log(name)):
+            if "ILi256E" in rec["entry"] or "cols_kernel" in rec["entry"]:
+                emit(phase="build", kernel=name, head_dim=256, **rec)
+
+
+def _ptxas_instances(log):
+    """Each kernel instance of an ``nvcc -Xptxas -v`` report: its mangled
+    entry name, registers, spill stores and loads (bytes), and ptxas's
+    wgmma advisories (C75xx) that name it."""
+    instances = []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            instances.append({"entry": ln.split("'")[1], "registers": None, "spill_stores": None,
+                              "spill_loads": None})
+        elif instances and "spill stores" in ln:
+            stores, loads = re.findall(r"(\d+) bytes spill", ln)
+            instances[-1].update(spill_stores=int(stores), spill_loads=int(loads))
+        elif instances and re.search(r"Used \d+ registers", ln):
+            instances[-1]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    for rec in instances:
+        rec["wgmma_advisories"] = [ln.strip() for ln in log.splitlines()
+                                   if "C75" in ln and rec["entry"] in ln]
+    return instances
 
 
 def _packed(b, s, h, kv, d, dtype, seed):
@@ -366,8 +442,9 @@ def compare_bhsd(case, b, h, sq, skv, d, dtype, causal=True, window=None, bshd=F
                  controls=False):
     """K3/K4 vs their plain versions on the same inputs. Rows that attend
     nothing must come out exactly 0 with lse at NEG_INF. With ``controls``
-    the planted faults are checked too. Returns the max abs errors of out
-    and of the worst gradient."""
+    the planted faults are checked too (at head_dim 256 also one
+    warpgroup's column half of dK zeroed). Returns the max abs errors of
+    out and of the worst gradient."""
     q, k, v, g = _bhsd(b, h, sq, skv, d, dtype, seed, bshd)
     out, lse = A.flash_forward_kernel(q, k, v, causal, window)
     grads = A.flash_backward_kernel(q, k, v, out, lse, g, causal, window)
@@ -386,7 +463,28 @@ def compare_bhsd(case, b, h, sq, skv, d, dtype, causal=True, window=None, bshd=F
                         for name, t, r in zip(("dq", "dk", "dv"), grads, ref_grads))
     if controls:
         fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads)
+        if d == 256:
+            column_half_control(case, grads[1], ref_grads[1])
     return errs
+
+
+def column_half_control(case, dk, ref_dk):
+    """The fault a column split can make: the second warpgroup's half of dK
+    (columns [64, 128) and [192, 256) at head_dim 256) zeroed for one
+    64-row kv tile, the middle one of head (0, 0), which the blockwise
+    check must catch."""
+    bad = dk.to(torch.float32, copy=True)
+    rows = slice(dk.shape[2] // 2, dk.shape[2] // 2 + BLOCK_ROWS)
+    bad[0, 0, rows, 64:128] = 0
+    bad[0, 0, rows, 192:256] = 0
+    _, rel = _err(bad, ref_dk)
+    block = _block_err(bad, ref_dk)
+    caught = block > BLOCK_TOL[dk.dtype]["dqkv"]
+    emit(phase="kernels", case=case, control="dk: one warpgroup's column half", rel_err=rel,
+         tol=TOL[dk.dtype]["dqkv"], passes_max_rule=rel <= TOL[dk.dtype]["dqkv"], block_err=block,
+         block_tol=BLOCK_TOL[dk.dtype]["dqkv"], caught=caught)
+    if not caught:
+        fail(f"{case}: the blockwise check misses a zeroed column half of dK")
 
 
 def fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads,
@@ -575,34 +673,80 @@ def phase_kernels():
 
 
 # Gemma 7B's attention width (16 heads of 256; its config.json on the Hugging
-# Face hub) at seq 2048: the D 256 instance's call for phase 3 and its
-# timing rows.
+# Face hub) at seq 2048: the D 256 instance's call for phase 3, its turns
+# and its timing rows.
 GEMMA = dict(batch_size=2, seq_len=2048, num_heads=16, head_dim=256)
 
 
+def _head_dim_sources(case, want):
+    """The launches by source since the counts were zeroed must be on the
+    sources ``want`` and no other."""
+    sources = {k: n for k, n in A.SOURCE_LAUNCHES.items() if n}
+    emit(phase="head_dims", case=case, source_launches=sources)
+    if set(sources) != set(want):
+        fail(f"head_dims: {case} ran {sources}, expected {sorted(want)}")
+
+
 def phase_head_dims():
-    """Head dims off the main paths: 32 (an instance of its own; the CLI's
-    default d_model 128 over 4 heads) at the CLI's call shape (batch 8, seq
-    128), and 80 (zero-padded to 128, rope paired half by half), forward and
-    backward, packed qkv and BHSD, bf16 and f32, against the plain versions
-    at the real head_dim. Then head_dim 256 (an instance of the plain-design
-    kernels flash_fwd.cu, flash_bwd.cu and flash_bwd_dq.cu, which split its
-    accumulator columns over two blocks) and 160/192 (padded to 256), bf16
-    and f32: K1/K2 at Gemma 7B's width, with GQA and rope at a ragged
-    length, K3/K4 with fully masked rows and cross-length, and K5-K8 with
-    GQA, window, rope and cross-length and with fully masked rows. Every
-    launch at 160-256 must run a plain-design source."""
+    """Head dims off the flagship's 128: 32 (an instance of its own; the
+    CLI's default d_model 128 over 4 heads) at the CLI's call shape (batch
+    8, seq 128), and 80 (zero-padded to 128, rope paired half by half),
+    forward and backward, packed qkv and BHSD, bf16 and f32, against the
+    plain versions at the real head_dim. Then head_dim
+    256 and 160/192 (padded to 256) in bf16, where every launch runs the
+    warpgroup kernels flash_fwd_sm90.cu and flash_bwd_sm90.cu (K5 stays on
+    flash_bwd_dq.cu): K1/K2 at Gemma 7B's width, packed GQA + rope (and +
+    window) at a ragged length, K3/K4 with fully masked rows, cross-length,
+    window and non-causal with planted faults, K4 on q segments against one
+    whole call, the forward's own cases and rotate pass, and K5-K8 with GQA,
+    window, rope and cross-length, with fully masked rows and at the `wide`
+    path's length, and the `wide` path's own calls at its full shape
+    (compare_wide); then the same families in f32, on flash_fwd.cu,
+    flash_bwd.cu and flash_bwd_dq.cu. Returns the errors of the D 32 and
+    D 256 rows."""
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+
+    errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        compare("packed_d32_cli_shape", 8, 128, 4, 4, 32, dtype, seed=60)
+        d32 = compare("packed_d32_cli_shape", 8, 128, 4, 4, 32, dtype, seed=60)
+        if dtype == torch.bfloat16:
+            errs["flash_fwd_d32"], errs["flash_bwd_d32"] = d32["out"], d32["dqkv"]
         compare("packed_d80_gqa_rope", 8, 128, 4, 2, 80, dtype, rope=True, seed=61)
         compare_bhsd("bhsd_d32_cross_window", 2, 4, 136, 200, 32, dtype, window=50, seed=62)
         compare_bhsd("bhsd_d80_cross", 2, 4, 136, 200, 80, dtype, seed=63)
+    bf = torch.bfloat16
     _zero_counts()
     gm = GEMMA
     gemma = compare("packed_d256_gemma_width", gm["batch_size"], gm["seq_len"], gm["num_heads"],
-                    gm["num_heads"], gm["head_dim"], torch.bfloat16, seed=64)
+                    gm["num_heads"], gm["head_dim"], bf, seed=64)
+    errs["flash_fwd_d256"], errs["flash_bwd_d256"] = gemma["out"], gemma["dqkv"]
     torch.cuda.empty_cache()
-    for dtype in (torch.bfloat16, torch.float32):
+    compare("packed_d256_gqa_window_rope_ragged", 2, 200, 8, 2, 256, bf, window=100, rope=True,
+            seed=71)
+    compare_bhsd("bhsd_d256_noncausal_cross", 2, 8, 136, 200, 256, bf, causal=False, seed=72)
+    compare_bhsd("bhsd_d256_cross_window", 2, 4, 192, 320, 256, bf, window=100, seed=73)
+    compare_bhsd("bhsd_d256_controls", 1, 4, 1024, 1024, 256, bf, seed=74, controls=True)
+    check_segments("bhsd_segments_d256", 2, 4, 384, 256, bf, n_seg=3, seed=75)
+    compare_fwd("fwd_d256_gqa_window_rope_ragged", 2, 8, 2, 300, 300, 256, window=100, rope=True,
+                seed=76)
+    compare_fwd("fwd_d256_cross_offset", 2, 4, 4, 136, 320, 256, q_pos_offset=100, seed=77)
+    compare_fwd("fwd_d256_fully_masked_rows", 2, 4, 2, 200, 72, 256, seed=78)
+    compare_fwd("fwd_d256_noncausal_gqa", 2, 8, 2, 200, 136, 256, causal=False, seed=79)
+    compare_fwd("fwd_d256_controls", 2, 4, 4, 1024, 1024, 256, seed=80, controls=True)
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    qkv = torch.randn(2, 300, 12 * 256, device="cuda", generator=gen).to(bf)
+    check_rotate("rotate_k_d256", qkv, 8, 2, 256, *rope_tables(256, 300, 10000.0, device="cuda"))
+    del qkv
+    # The `wide` path's own calls at its full shape give its rows' errors;
+    # the long family at the same length (K7, K8 on eight q segments, K5, K6
+    # and its delta, 4 heads) is an extra check.
+    errs.update(compare_wide("wide_call"))
+    torch.cuda.empty_cache()
+    compare_long("wide_segment_call_long_family", 1, 4, 4, WIDE["seq_len"], WIDE["seq_len"], 256,
+                 bf, rope=True, segments=8, seed=82, theta=WIDE["rope_theta"])
+    torch.cuda.empty_cache()
+
+    def families(dtype):
         compare("packed_d256_gqa_rope_ragged", 2, 200, 4, 2, 256, dtype, rope=True, seed=65)
         compare("packed_d192_gqa_rope", 2, 136, 4, 2, 192, dtype, rope=True, seed=66)
         compare_bhsd("bhsd_d256_fully_masked_rows", 2, 4, 200, 72, 256, dtype, seed=67)
@@ -610,11 +754,73 @@ def phase_head_dims():
         compare_long("long_d256_gqa_window_cross_rope", 2, 8, 2, 192, 320, 256, dtype,
                      window=100, rope=True, segments=2, seed=69)
         compare_long("long_d256_fully_masked_rows", 2, 4, 4, 200, 72, 256, dtype, seed=70)
-    sources = {k: n for k, n in A.SOURCE_LAUNCHES.items() if n}
-    emit(phase="head_dims", d256_source_launches=sources)
-    if set(sources) != {"flash_fwd", "flash_bwd", "flash_bwd_dq"}:
-        fail(f"head_dims: the D 256 calls ran {sources}, expected the plain-design sources")
-    return {"flash_fwd_d256": gemma["out"], "flash_bwd_d256": gemma["dqkv"]}
+
+    families(bf)
+    _head_dim_sources("d160_256_bf16", ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq"))
+    _zero_counts()
+    families(torch.float32)
+    _head_dim_sources("d160_256_f32", ("flash_fwd", "flash_bwd", "flash_bwd_dq"))
+    return errs
+
+
+def compare_wide(case):
+    """The `wide` path's own calls at its full shape (_wide_operands: batch
+    2, seq 8192, 16 heads of 256, packed qkv, rope θ 10000, bf16), each held
+    against its plain version run one batch row at a time: K1 with rope (out
+    and lse, rows that attend nothing exactly 0); the backward as the
+    trainer's autograd runs it (_backward_by_route: the eight K8 segment
+    calls, their dq rows in place and their dk/dv shares summed) on dqkv;
+    and the call the timing phase times, K8 on the last segment, on its dq
+    rows and its dk/dv shares. Returns the rows' errors: out's, and the
+    worst of K8's gradients."""
+    w = _wide_operands()
+    qkv, go, cos, sin, out, lse = (w[key] for key in ("qkv", "go", "cos", "sin", "out", "lse"))
+    b, s, h, d, a, seg = (w[key] for key in ("b", "s", "h", "d", "a", "seg"))
+    bf = qkv.dtype
+    plain = [A.flash_forward_qkv_reference(qkv[i:i + 1], h, h, True, None, cos, sin)
+             for i in range(b)]
+    ref_out, ref_lse = (torch.cat(t) for t in zip(*plain))
+    del plain
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        fail(f"{case}: non-finite out or lse")
+    dead = _masked_rows(case, lse, ref_lse, A._heads(out, d))
+    errs = {"flash_fwd_rope_d256_wide": _check(case, "out", bf, A._heads(out, d),
+                                               A._heads(ref_out, d), "out")}
+    _check(case, "lse", bf, lse[~dead], ref_lse[~dead], "lse")
+    del ref_out
+
+    before = A.KERNEL_LAUNCHES["bshd_bwd"]
+    dqkv = torch.empty_like(qkv)
+    A._backward_by_route("flash_bwd", "bshd_bwd", *A._packed_heads(qkv, h, h, d),
+                         A._heads(out, d), A._heads(go, d), lse, *A._packed_heads(dqkv, h, h, d),
+                         True, None, 0, None, cos, sin)
+    torch.cuda.synchronize()
+    if A.KERNEL_LAUNCHES["bshd_bwd"] != before + s // seg:
+        fail(f"{case}: the backward did not run {s // seg} K8 segment calls")
+    if not torch.isfinite(dqkv).all():
+        fail(f"{case}: non-finite dqkv")
+    ref = torch.cat([A.flash_backward_qkv_reference(qkv[i:i + 1], out[i:i + 1], lse[i:i + 1],
+                                                    go[i:i + 1], h, h, True, None, cos, sin)
+                     for i in range(b)])
+    # each head's rows: (B, S, 3·h·d) -> (B, 3·h, S, d)
+    worst = _check(case, "dqkv", bf, A._heads(dqkv, d), A._heads(ref, d), "dqkv")
+    del dqkv, ref
+
+    w["segment"]()
+    torch.cuda.synchronize()
+    got = (w["dq_seg"], w["dk_s"], w["dv_s"])
+    for name, t in zip(("dq", "dk", "dv"), got):
+        if not torch.isfinite(t).all():
+            fail(f"{case}: non-finite segment {name}")
+    plain = [A.flash_backward_reference(w["q_seg"][i:i + 1], w["k"][i:i + 1], w["v"][i:i + 1],
+                                        w["out_seg"][i:i + 1], w["lse_seg"][i:i + 1],
+                                        w["g_seg"][i:i + 1], True, None, None, a, cos, sin)
+             for i in range(b)]
+    _masked_rows(f"{case} segment", w["lse_seg"], ref_lse[:, :, a:], w["dq_seg"])
+    for name, t, r in zip(("dq", "dk", "dv"), got, (torch.cat(p) for p in zip(*plain))):
+        worst = max(worst, _check(case, f"segment_{name}", bf, t, r, "dqkv"))
+    errs["bshd_bwd_d256_wide"] = worst
+    return errs
 
 
 def _long_operands(b, h, kv, sq, skv, d, dtype, seed):
@@ -626,10 +832,10 @@ def _long_operands(b, h, kv, sq, skv, d, dtype, seed):
 
 
 def compare_long(case, b, h, kv, sq, skv, d, dtype, causal=True, window=None, rope=False,
-                 segments=1, seed=0, controls=False):
+                 segments=1, seed=0, controls=False, theta=LONG["rope_theta"]):
     """K7, K8, K5 and K6 against their plain versions on the same BSHD
     operands (GQA through the head-group divisor, rope tables of Skv rows
-    read at each row's position, end-aligned causal masking): K7's forward
+    at ``theta`` read at each row's position, end-aligned causal masking): K7's forward
     first, then every backward on the kernel's own forward results. K8 runs
     on ``segments`` q segments placed by q_pos_offset, their dq rows
     concatenated and their dk/dv shares summed in f32, as the packed long
@@ -642,7 +848,7 @@ def compare_long(case, b, h, kv, sq, skv, d, dtype, causal=True, window=None, ro
     V = lambda t: t.transpose(1, 2)  # BSHD <-> BHSD view
     cos = sin = None
     if rope:
-        cos, sin = rope_tables(d, skv, LONG["rope_theta"], device="cuda")
+        cos, sin = rope_tables(d, skv, theta, device="cuda")
     off = skv - sq
     out, lse = A.flash_forward_kernel(V(q), V(k), V(v), causal, window, None, off, cos, sin,
                                       counter="bshd_fwd")
@@ -723,41 +929,51 @@ def _zero_counts():
             counts[k] = 0
 
 
-def phase_main(smi, path):
-    """The trainer (cli/train_lm.py) on one main path for STEPS steps: finite
-    loss at every boundary and exactly the path's launches."""
+def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
+    """The trainer (cli/train_lm.py) on one main path for ``steps`` steps:
+    finite loss at every boundary and exactly the path's launches. With
+    ``forced`` (a map of source to source, :data:`PLAIN_DESIGN`) every
+    launch goes to the forced sources instead. Returns the path's launches
+    and its records."""
     from distributed_tensorflow_tpu_torch.cli import train_lm
 
-    shape = LONG if path == "long" else FLAGSHIP
+    shape = SHAPES[path]
     flags, per_layer = MAIN_PATHS[path]
     argv = [
         "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
         "--num_layers", str(shape["num_layers"]), "--d_ff", str(shape["d_ff"]),
         "--seq_len", str(shape["seq_len"]), "--batch_size", str(shape["batch_size"]),
-        "--use_bias", "0", "--attention", "flash", "--training_steps", str(STEPS),
-        "--eval_step_interval", str(INTERVAL), "--device", "cuda", *flags,
+        "--use_bias", "0", "--attention", "flash", "--training_steps", str(steps),
+        "--eval_step_interval", str(interval), "--device", "cuda", *flags,
     ]
     parallelism = "tp" if path == "tp" else "dp"
-    phase = f"main_{path}"
+    phase = f"main_{path}" + ("_plain_design" if forced else "")
     _zero_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.ExitStack() as stack:
+        if forced:
+            stack.enter_context(kernel_source("forward", forced["flash_fwd_sm90"]))
+            stack.enter_context(kernel_source("backward", forced["flash_bwd_sm90"]))
+        stack.enter_context(contextlib.redirect_stdout(buf))
         train_lm.main(argv)
     wall = time.perf_counter() - t0
     launches = dict(A.KERNEL_LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
     records = [json.loads(line) for line in buf.getvalue().splitlines()]
     for r in records:
         emit(phase=phase, **r)
-    if [r["step"] for r in records] != list(range(INTERVAL, STEPS + 1, INTERVAL)):
+    if [r["step"] for r in records] != list(range(interval, steps + 1, interval)):
         fail(f"{phase}: unexpected boundaries {[r['step'] for r in records]}")
     if not all(r["parallelism"] == parallelism for r in records):
         fail(f"{phase}: records name another parallelism")
     if not all(r["loss"] == r["loss"] and abs(r["loss"]) < float("inf") for r in records):
         fail(f"{phase}: non-finite loss")
-    want = {k: per_layer.get(k, 0) * shape["num_layers"] * STEPS for k in A.KERNEL_LAUNCHES}
-    # Every forward and backward launch ran a warpgroup kernel.
-    sources, want_sources = dict(A.SOURCE_LAUNCHES), expected_sources(want)
+    want = {k: per_layer.get(k, 0) * shape["num_layers"] * steps for k in A.KERNEL_LAUNCHES}
+    # Every forward and backward launch ran a warpgroup kernel (or, forced,
+    # the plain-design one).
+    sources, want_sources = dict(A.SOURCE_LAUNCHES), expected_sources(want, forced)
     emit(phase=phase, launches=launches, expected=want, source_launches=sources,
          expected_sources=want_sources, wall_s=round(wall, 2))
     if launches != want:
@@ -769,16 +985,33 @@ def phase_main(smi, path):
         fail(f"{phase}: no timed window")
     emit(phase=phase, steps_per_sec=last["steps_per_sec"],
          tokens_per_sec=last["tokens_per_sec"], mfu=last.get("mfu"), card=smi)
-    return {k: v for k, v in launches.items() if k in per_layer}
+    return {k: v for k, v in launches.items() if k in per_layer}, records
+
+
+def phase_wide(smi):
+    """The `wide` path as trained (phase_main's 6 steps) and again for 3
+    steps with both directions forced to the plain-design kernels
+    (flash_fwd.cu, flash_bwd.cu): its "was" reading, in the same run. The
+    loss must fall over the 6 steps. Returns the path's launches."""
+    launches, records = phase_main(smi, "wide")
+    if not records[-1]["loss"] < records[0]["loss"]:
+        fail(f"main_wide: the loss did not fall ({[r['loss'] for r in records]})")
+    new = records[-1]
+    was = phase_main(smi, "wide", steps=3, interval=1, forced=PLAIN_DESIGN)[1][-1]
+    emit(phase="main_wide", steps_per_sec=new["steps_per_sec"],
+         plain_design_steps_per_sec=was["steps_per_sec"],
+         speedup=new["steps_per_sec"] / was["steps_per_sec"], mfu=new.get("mfu"),
+         plain_design_mfu=was.get("mfu"), card=smi)
+    return launches
 
 
 # The trainer at its own defaults (d_model 128 over 4 heads: head_dim 32, 4
 # layers, seq 128, batch 8), at head_dim 80 (d_model 320, padded to 128) and
-# at head_dim 256 (d_model 1024, an instance of the plain-design kernels):
-# extra flags, and the forward and backward sources each must run.
+# at head_dim 256 (d_model 1024): extra flags, and the forward and backward
+# sources each must run.
 CLI_RUNS = {"cli_defaults_d32": ([], "flash_fwd", "flash_bwd"),
             "cli_d80_padded": (["--d_model", "320"], "flash_fwd_sm90", "flash_bwd_sm90"),
-            "cli_d256": (["--d_model", "1024"], "flash_fwd", "flash_bwd")}
+            "cli_d256": (["--d_model", "1024"], "flash_fwd_sm90", "flash_bwd_sm90")}
 CLI_STEPS, CLI_LAYERS = 4, 4
 
 
@@ -981,6 +1214,43 @@ def phase_parity():
     _parity("parity_tp", "tp_flash", results["tp_flash"], "tp_dense", results["tp_dense"])
 
 
+# `wide` cut for its parity step: 2 layers, batch 1, seq 2048 (the backward
+# gate still segments it: K8 on two q segments of 1024 rows).
+WIDE_PARITY = dict(WIDE, num_layers=2, batch_size=1, seq_len=2048)
+
+
+def phase_parity_wide():
+    """One step at the `wide` width (WIDE_PARITY) through the kernels and
+    through plain dense attention, on the same weights and tokens, by the
+    flagship parity check's limits; the flash step's launches must be K1
+    and K8 on the warpgroup kernels."""
+    from distributed_tensorflow_tpu_torch.models.transformer import TransformerLM
+
+    shape, d = WIDE_PARITY, WIDE_PARITY["d_model"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tokens = torch.randint(0, 256, (shape["batch_size"], shape["seq_len"]), device="cuda",
+                           generator=gen)
+    n_seg = shape["seq_len"] // A._segment_rows(shape["seq_len"], d // shape["num_heads"])
+    want = {"flash_fwd": shape["num_layers"], "bshd_bwd": n_seg * shape["num_layers"]}
+    results = {}
+    for attention in ("flash", "dense"):
+        model = TransformerLM(_cfg(shape, attention=attention), seed=0, device="cuda")
+        _zero_counts()
+        loss = _loss_and_backward(model, tokens)
+        launches = {k: n for k, n in A.KERNEL_LAUNCHES.items() if n}
+        sources, want_sources = dict(A.SOURCE_LAUNCHES), expected_sources(
+            want if attention == "flash" else {})
+        emit(phase="parity_wide", attention=attention, loss=loss, launches=launches,
+             source_launches={k: n for k, n in sources.items() if n})
+        if launches != (want if attention == "flash" else {}) or sources != want_sources:
+            fail(f"parity_wide: {attention} launched {launches} by source {sources}")
+        results[attention] = (loss, model.block_0.qkv.weight.grad.float()[:d].clone())
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    _parity("parity_wide", "flash", results["flash"], "dense", results["dense"])
+
+
 def _sdpa(q, k, v, g):
     """The library's calls on (B, H, S, D) tensors: forward, forward +
     backward, and backward alone (None without ``g``)."""
@@ -1056,8 +1326,10 @@ def phase_turns(notes):
     inputs in turns (new, old, old, new) at each path's call: K1 and K2 on
     the dp path's packed qkv, K3 and K4 on the tp path's head views, K7 and
     K8 (one whole call) at the long shape, K1 with rope on the long path's
-    packed qkv, and K6 and K5 at the long shape. Adds each kernel's turns
-    and the old kernel's mean time to its row's notes."""
+    packed qkv, K6 and K5 at the long shape, K1 and K2 at head_dim 256 at
+    Gemma 7B's width, and K1 with rope and one K8 segment call at the
+    `wide` call. Adds each kernel's turns and the old kernel's mean time to
+    its row's notes."""
     from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
 
     fl = FLAGSHIP
@@ -1100,13 +1372,64 @@ def phase_turns(notes):
         return {"flash_fwd_rope": lambda: A.flash_forward_qkv_kernel(qkv, lh, lkv, True, None,
                                                                      cos, sin, None)}
 
-    for make in (packed, views, long_bshd, long_rope):
+    def gemma():
+        b, s, h, d = (GEMMA[key] for key in ("batch_size", "seq_len", "num_heads", "head_dim"))
+        qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=64)
+        out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None, None)
+        return {"flash_fwd_d256": lambda: A.flash_forward_qkv_kernel(qkv, h, h, True, None, None,
+                                                                     None, None),
+                "flash_bwd_d256": lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g, h, h,
+                                                                      True, None, None, None,
+                                                                      None)}
+
+    def wide():
+        ops = _wide_operands()
+        return {"flash_fwd_rope_d256_wide": ops["forward"], "bshd_bwd_d256_wide": ops["segment"]}
+
+    for make in (packed, views, long_bshd, long_rope, gemma, wide):
         for name, run in make().items():
             _turns(name, run, notes)
         torch.cuda.empty_cache()
 
 
+def _wide_operands():
+    """The `wide` path's attention call (batch 2, seq 8192, 16 heads of 256,
+    packed qkv, rope θ 10000): its operands and its two launches as the
+    trainer makes them — ``forward``, K1 with rope, and ``segment``, K8 on
+    the last of its eight q segments (1024 rows at offset 7168 against all
+    8192 keys, rope at the rows' positions), the heaviest of them."""
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+
+    b, s, h = WIDE["batch_size"], WIDE["seq_len"], WIDE["num_heads"]
+    d = WIDE["d_model"] // h
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen).to(torch.bfloat16)
+    go = torch.randn(b, s, h * d, device="cuda", generator=gen).to(torch.bfloat16)
+    cos, sin = rope_tables(d, s, WIDE["rope_theta"], device="cuda")
+    out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, cos, sin, None)
+    seg = A._segment_rows(s, d)
+    a = s - seg
+    q, k, v = A._packed_heads(qkv, h, h, d)
+    rows = slice(a, s)
+    q_seg = q[:, :, rows]
+    out_seg, g_seg = A._heads(out, d)[:, :, rows], A._heads(go, d)[:, :, rows]
+    lse_seg = lse[:, :, rows].contiguous()
+    dq_seg = torch.empty(b, h, seg, d, dtype=qkv.dtype, device="cuda")
+    dk_s, dv_s = (torch.empty(b, h, s, d, dtype=qkv.dtype, device="cuda") for _ in range(2))
+
+    def segment():
+        A._launch_backward("bshd_bwd", q_seg, k, v, out_seg, g_seg, lse_seg, dq_seg, dk_s, dv_s,
+                           True, None, a, None, cos, sin)
+
+    return dict(qkv=qkv, go=go, cos=cos, sin=sin, out=out, lse=lse, b=b, s=s, h=h, d=d, a=a,
+                seg=seg, q=q, k=k, v=v, q_seg=q_seg, out_seg=out_seg, g_seg=g_seg,
+                lse_seg=lse_seg, dq_seg=dq_seg, dk_s=dk_s, dv_s=dv_s, segment=segment,
+                forward=lambda: A.flash_forward_qkv_kernel(qkv, h, h, True, None, cos, sin, None))
+
+
 def phase_timing(launches, errs, notes):
+    """K1/K2 at the dp path's call, K3/K4 at the tp path's, K1/K2 at head_dim
+    256 (Gemma 7B's width) and at head_dim 32 (the CLI's call)."""
     from distributed_tensorflow_tpu_torch.utils.flops import chip_hbm_bandwidth, chip_peak_flops
 
     fl = FLAGSHIP
@@ -1115,43 +1438,16 @@ def phase_timing(launches, errs, notes):
     peak, bw = chip_peak_flops(), chip_hbm_bandwidth()
     if peak is None:
         fail(f"timing: no peak rates known for {torch.cuda.get_device_name(0)}")
-    pairs = s * (s + 1) // 2  # attended (q, k) pairs of one causal head
-    fwd_flops = 4 * b * h * d * pairs  # q·kᵀ and p·v
-    bwd_flops = fwd_flops * 5 // 2  # five products against the forward's two
-
-    # K1/K2 on the dp path's packed operand.
-    qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=3)
-    args = (h, h, True, None, None, None)
-    out, lse = A.flash_forward_qkv_kernel(qkv, *args, None)
-    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1))
-    lib = _sdpa(q, k, v, g.reshape(b, s, h, d).transpose(1, 2))
-    elt = qkv.element_size()
-    qkv_bytes, o_bytes, lse_bytes = qkv.numel() * elt, out.numel() * elt, lse.numel() * 4
-    runs = {
-        "flash_fwd": (
-            (fwd_flops, qkv_bytes + o_bytes + lse_bytes),
-            lambda: A.flash_forward_qkv_kernel(qkv, *args, None),
-            lambda: A.flash_forward_qkv_reference(qkv, *args),
-            lib[0], None,
-        ),
-        # reads qkv, out, lse, dO, writes dqkv
-        "flash_bwd": (
-            (bwd_flops, 2 * qkv_bytes + 2 * o_bytes + lse_bytes),
-            lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g, *args, None),
-            lambda: A.flash_backward_qkv_reference(qkv, out, lse, g, *args),
-            lib[1], lib[2],
-        ),
-    }
-    kernels = _time_kernels(runs, launches, errs, peak, bw,
-                            dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True), notes)
-    del qkv, g, out, lse, q, k, v, lib
-    torch.cuda.empty_cache()
+    kernels = _time_packed_pair(("flash_fwd", "flash_bwd"), b, s, h, d, 3, launches, errs, peak,
+                                bw, notes)
 
     # K3/K4 on the tp path's head-transposed views.
+    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)  # q·kᵀ and p·v over the causal pairs
     q, k, v, g = _bhsd(b, h, s, s, d, torch.bfloat16, seed=10, bshd=True)
     out, lse = A.flash_forward_kernel(q, k, v, True)
     lib = _sdpa(q, k, v, g)
     t_bytes = q.numel() * q.element_size()  # one of q, k, v, out, dO, dq, dk, dv
+    lse_bytes = lse.numel() * 4
     runs = {
         "bhsd_fwd": (
             (fwd_flops, 4 * t_bytes + lse_bytes),
@@ -1159,9 +1455,9 @@ def phase_timing(launches, errs, notes):
             lambda: A.flash_forward_reference(q, k, v, True),
             lib[0], None,
         ),
-        # reads q, k, v, out, dO, lse, writes dq, dk, dv
+        # reads q, k, v, out, dO, lse, writes dq, dk, dv: five products
         "bhsd_bwd": (
-            (bwd_flops, 8 * t_bytes + lse_bytes),
+            (fwd_flops * 5 // 2, 8 * t_bytes + lse_bytes),
             lambda: A.flash_backward_kernel(q, k, v, out, lse, g, True),
             lambda: A.flash_backward_reference(q, k, v, out, lse, g, True),
             lib[1], lib[2],
@@ -1172,33 +1468,114 @@ def phase_timing(launches, errs, notes):
                                   layout="BSHD views"), notes)
     del q, k, v, g, out, lse, lib
     torch.cuda.empty_cache()
+    gm = GEMMA
+    kernels += _time_packed_pair(("flash_fwd_d256", "flash_bwd_d256"), gm["batch_size"],
+                                 gm["seq_len"], gm["num_heads"], gm["head_dim"], 64, launches,
+                                 errs, peak, bw, notes)
+    return kernels + _time_packed_pair(("flash_fwd_d32", "flash_bwd_d32"), 8, 128, 4, 32, 84,
+                                       launches, errs, peak, bw, notes)
 
-    # K1/K2 at head_dim 256 (flash_fwd.cu, flash_bwd.cu), Gemma 7B's width.
-    b, s, h, d = (GEMMA[key] for key in ("batch_size", "seq_len", "num_heads", "head_dim"))
-    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)
-    qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=64)
+
+def _time_packed_pair(names, b, s, h, d, seed, launches, errs, peak, bw, notes):
+    """K1 and K2 (rows ``names``) on packed bf16 qkv of batch ``b``, seq
+    ``s``, ``h`` heads of ``d`` made from ``seed``, causal, against their
+    plain versions, bounds and SDPA (its forward; its forward+backward and
+    its backward alone)."""
+    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)  # q·kᵀ and p·v over the causal pairs
+    qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=seed)
     args = (h, h, True, None, None, None)
     out, lse = A.flash_forward_qkv_kernel(qkv, *args, None)
     q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1))
     lib = _sdpa(q, k, v, g.reshape(b, s, h, d).transpose(1, 2))
+    elt = qkv.element_size()
     qkv_bytes, o_bytes, lse_bytes = qkv.numel() * elt, out.numel() * elt, lse.numel() * 4
     runs = {
-        "flash_fwd_d256": (
+        names[0]: (
             (fwd_flops, qkv_bytes + o_bytes + lse_bytes),
             lambda: A.flash_forward_qkv_kernel(qkv, *args, None),
             lambda: A.flash_forward_qkv_reference(qkv, *args),
             lib[0], None,
         ),
-        "flash_bwd_d256": (
+        # reads qkv, out, lse, dO, writes dqkv: five products
+        names[1]: (
             (fwd_flops * 5 // 2, 2 * qkv_bytes + 2 * o_bytes + lse_bytes),
             lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g, *args, None),
             lambda: A.flash_backward_qkv_reference(qkv, out, lse, g, *args),
             lib[1], lib[2],
         ),
     }
-    kernels += _time_kernels(runs, launches, errs, peak, bw,
-                             dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True), notes)
+    kernels = _time_kernels(runs, launches, errs, peak, bw,
+                            dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True), notes)
     del qkv, g, out, lse, q, k, v, lib
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_timing_wide(launches, errs, notes):
+    """The `wide` path's two launches at its call (_wide_operands): K1 with
+    rope, and K8 on the last q segment. SDPA's operands are q and k rotated
+    beforehand; for the segment its lower-right causal bias, which is our
+    end-aligned mask there (the segment's last row sits at the last key)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from distributed_tensorflow_tpu_torch.utils.flops import chip_hbm_bandwidth, chip_peak_flops
+
+    peak, bw = chip_peak_flops(), chip_hbm_bandwidth()
+    w = _wide_operands()
+    b, s, h, d, a, seg = (w[key] for key in ("b", "s", "h", "d", "a", "seg"))
+    qkv, cos, sin = w["qkv"], w["cos"], w["sin"]
+    elt = qkv.element_size()
+    table_bytes = 2 * cos.numel() * 4
+    head_bytes = b * h * s * d * elt  # one of q, k, v, out over the whole sequence
+    pairs = s * (s + 1) // 2
+    q_rot = A._rotate(w["q"], cos, sin, 0)
+    k_rot = A.rotate_k_reference(w["k"], cos, sin)
+    lib = _sdpa(q_rot, k_rot, w["v"], None)
+    runs = {"flash_fwd_rope_d256_wide": (
+        # reads qkv and the tables, writes out and lse
+        (4 * b * h * d * pairs, qkv.numel() * elt + head_bytes + b * h * s * 4 + table_bytes),
+        w["forward"],
+        lambda: [A.flash_forward_qkv_reference(qkv[i:i + 1], h, h, True, None, cos, sin)
+                 for i in range(b)],
+        lib[0], None)}
+    kernels = _time_kernels(runs, launches, errs, peak, bw,
+                            dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True, rope=True,
+                                 layout="packed qkv"), notes)
+    del q_rot, lib
+
+    # K8 on the segment: q rows [a, s) against keys [0, s).
+    seg_pairs = seg * a + seg * (seg + 1) // 2
+    q_seg_rot = A._rotate(w["q_seg"], cos, sin, a)
+    g_seg = w["g_seg"]
+    mask = causal_lower_right(seg, s)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q_seg_rot, k_rot, w["v"]))
+
+    def lib_fwd_bwd():
+        F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask).backward(g_seg)
+
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+
+    def lib_bwd():
+        torch.autograd.grad(o_lib, (ql, kl, vl), g_seg, retain_graph=True)
+
+    def plain(i):
+        r = slice(i, i + 1)
+        return A.flash_backward_reference(w["q_seg"][r], w["k"][r], w["v"][r], w["out_seg"][r],
+                                          w["lse_seg"][r], g_seg[r], True, None, None, a, cos,
+                                          sin)
+
+    seg_bytes = b * h * seg * d * elt  # one of q, out, dO, dq over the segment
+    runs = {"bshd_bwd_d256_wide": (
+        # reads q, out, dO (the segment's rows), k, v, lse and the tables;
+        # writes dq (the segment's rows) and the segment's dk, dv shares
+        (4 * b * h * d * seg_pairs * 5 // 2,
+         4 * seg_bytes + 4 * head_bytes + b * h * seg * 4 + table_bytes),
+        w["segment"], lambda: [plain(i) for i in range(b)], lib_fwd_bwd, lib_bwd)}
+    kernels += _time_kernels(runs, launches, errs, peak, bw,
+                             dict(B=b, Sq=seg, Skv=s, q_pos_offset=a, H=h, KV=h, D=d, dtype="bf16",
+                                  causal=True, rope=True, layout="packed qkv head views"), notes)
+    del w, k_rot, q_seg_rot, ql, kl, vl, o_lib
     torch.cuda.empty_cache()
     return kernels
 
@@ -1524,10 +1901,11 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
 # fused backward's, whose substring its warpgroup kernel's name contains;
 # no other kernel name of one class contains another class's substring.
 # Each profiled step runs one path, so
-# attn_fwd is K1 in the dp and long steps (with its rotate pass,
-# dtt::flash_fwd_rotate_k, on the long path) and K3 in the tp step, all on
-# dtt::flash_fwd_sm90_kernel, and attn_bwd is K2, K4 and K8 (K8 on four q
-# segments) in them, all three on dtt::flash_bwd_sm90_kernel.
+# attn_fwd is K1 in the dp, long and wide steps (with its rotate pass,
+# dtt::flash_fwd_rotate_k, on the long and wide paths) and K3 in the tp
+# step, all on dtt::flash_fwd_sm90_kernel, and attn_bwd is K2, K4 and K8 (K8
+# on four q segments on the long path, eight on wide) in them, on
+# dtt::flash_bwd_sm90_kernel (wide: dtt::flash_bwd_sm90_cols_kernel).
 KERNEL_CLASSES = (
     ("attn_fwd", ("dtt::flash_fwd",)),
     ("attn_bwd_dq", ("dtt::two_pass_dq", "dtt::flash_bwd_dq_sm90")),  # K5
@@ -1550,7 +1928,7 @@ def phase_profile(path):
     )
     from distributed_tensorflow_tpu_torch.train.optimizers import make_optimizer
 
-    shape = LONG if path == "long" else FLAGSHIP
+    shape = SHAPES[path]
     if path == "tp":
         model = TpTransformerLM(_cfg(), seed=0, device="cuda")
         build = build_tp_lm_train_step
@@ -1612,7 +1990,8 @@ def main():
     errs = phase_kernels()
     errs.update(phase_kernels_long())
     errs.update(phase_head_dims())
-    by_path = {path: phase_main(smi, path) for path in MAIN_PATHS}
+    by_path = {path: phase_main(smi, path)[0] for path in MAIN_PATHS if path != "wide"}
+    by_path["wide"] = phase_wide(smi)
     cli_runs = phase_cli_head_dims()
     # A kernel's launches are those of the first main path it serves; the
     # record lists every path's, and the routes phase's for the kernels no
@@ -1622,14 +2001,25 @@ def main():
                 for k in A.KERNEL_LAUNCHES}
     notes = {k: {"launches_by_path": {p: c[k] for p, c in by_path.items() if k in c}}
              for k in A.KERNEL_LAUNCHES}
-    launches["flash_fwd_rope"] = by_path["long"]["flash_fwd"]
-    notes["flash_fwd_rope"] = {"launches_by_path": {"long": launches["flash_fwd_rope"]},
-                               "library_call": "SDPA forward on q and k rotated beforehand"}
-    # The head_dim 256 rows: launches of the trainer's run at head_dim 256
-    # (phase 4, CLI_LAYERS layers x CLI_STEPS steps).
-    for name, counter in (("flash_fwd_d256", "flash_fwd"), ("flash_bwd_d256", "flash_bwd")):
-        launches[name] = cli_runs["cli_d256"][counter]
-        notes[name] = {"launches_by_path": {"cli_d256": launches[name]}}
+    # Rows of their own: K1 with rope on the long path, K1 with rope and K8
+    # on `wide`, and K1/K2 at head_dim 256 and 32 — the launches of the
+    # trainer's runs at d_model 1024 over 4 heads and at its defaults (phase
+    # 4, CLI_LAYERS layers x CLI_STEPS steps).
+    rows = {"flash_fwd_rope": ("long", "flash_fwd"),
+            "flash_fwd_rope_d256_wide": ("wide", "flash_fwd"),
+            "bshd_bwd_d256_wide": ("wide", "bshd_bwd")}
+    for name, (path, counter) in rows.items():
+        launches[name] = by_path[path][counter]
+        notes[name] = {"launches_by_path": {path: launches[name]}}
+    for name in ("flash_fwd_rope", "flash_fwd_rope_d256_wide"):
+        notes[name]["library_call"] = "SDPA forward on q and k rotated beforehand"
+    notes["bshd_bwd_d256_wide"].update(
+        call="the last of the path's eight q segments a layer",
+        library_call="SDPA forward+backward on q and k rotated beforehand, lower-right causal")
+    for tag, run in (("d256", "cli_d256"), ("d32", "cli_defaults_d32")):
+        for name, counter in ((f"flash_fwd_{tag}", "flash_fwd"), (f"flash_bwd_{tag}", "flash_bwd")):
+            launches[name] = cli_runs[run][counter]
+            notes[name] = {"launches_by_path": {run: launches[name]}}
     for name, route_launches in phase_routes().items():
         for k in ("bshd_fwd", "bwd_dq", "bwd_dkv"):
             if k in route_launches:
@@ -1637,8 +2027,10 @@ def main():
     for k in ("bwd_dq", "bwd_dkv"):
         notes[k]["library_call"] = "SDPA backward alone (all three gradients)"
     phase_parity()
+    phase_parity_wide()
     phase_turns(notes)
     kernels = phase_timing(launches, errs, notes) + phase_timing_long(launches, errs, notes)
+    kernels += phase_timing_wide(launches, errs, notes)
     kernels += phase_probes()
     for path in MAIN_PATHS:
         phase_profile(path)

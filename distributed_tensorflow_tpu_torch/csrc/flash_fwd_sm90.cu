@@ -2,8 +2,8 @@
 // warpgroup kernel: both tile products are wgmma.
 //
 // Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_kernel wherever
-// the call is bf16 at head_dim 64 or 128 — through _flash_forward_qkv (:1660,
-// K1, packed qkv with GQA and rope), _flash_forward (:481, K3, BHSD,
+// the call is bf16 at head_dim 64, 128 or 256 — through _flash_forward_qkv
+// (:1660, K1, packed qkv with GQA and rope), _flash_forward (:481, K3, BHSD,
 // cross-length), _flash_forward_bshd (:1261, K7, BSHD views) and the BSHD
 // probe's forward (tools/bshd_probe.py:49, K10, head views of (B, S, H·dh)).
 // f32 and head_dim 32 stay on flash_fwd.cu, whose C contract this file
@@ -18,9 +18,14 @@
 // (about 0.21 ms at 989 TFLOP/s). Only wgmma reaches that rate; flash_fwd.cu's
 // per-warp mma.sync reads every fragment from shared memory in each warp.
 //
-// Design. One warpgroup (128 threads) per (64-row q tile, q head, batch),
-// two blocks an SM; the grid runs the q tiles with the most keys first.
-// Per 64-key kv tile n:
+// Design. One warpgroup (128 threads) per 64-row q tile; at head_dim 64 and
+// 128 one warpgroup a block and two blocks an SM, at 256 two warpgroups a
+// block (each its own 64-row q tile, the two sharing the K and V tiles) and
+// one block an SM: there a warpgroup's O alone is 128 f32 registers a
+// thread, and q plus two K and two V tiles take 160 KB, so a second block
+// would not fit beside the first; sharing K and V halves the loads a q row
+// costs. Blocks run over (q tile, q head, batch), the q tiles with the most
+// keys first. Per 64-key kv tile n, each warpgroup:
 //   S = (q·s)·Kᵀ        wgmma m64n64k16, both operands K-major in shared
 //                       memory
 //   P = exp(S − m)      online softmax in f32 on the S accumulator: exp2 on
@@ -39,48 +44,60 @@
 // next step made it serialise them, C7514). K and V are double-buffered by
 // cp.async in the 128-byte swizzle, K one tile ahead of V: step n holds K_n
 // and V_{n-1} and loads K_{n+1} and V_n into the buffers step n - 1 freed,
-// so one block barrier a step covers every hand-off. Two blocks an SM,
-// rather than two warpgroups of one block, let one block's softmax, loads
-// and barrier overlap the other's products without a shared barrier. q is
-// rotated (rope) and scale-folded in place once per block, on the swizzled
-// tile. Under rope, k is rotated once per call by flash_fwd_rotate_k
+// so one block barrier a step covers every hand-off. At 64 and 128 two
+// blocks an SM, rather than two warpgroups of one block, let one block's
+// softmax, loads and barrier overlap the other's products without a shared
+// barrier. At 256 a block's kv range is that of its later q tile, so under
+// causal masking its earlier warpgroup multiplies one tile that is wholly
+// masked for it (the mask zeroes it). q is rotated (rope) and scale-folded
+// in place once per block, on the swizzled tile; the split-half rope pairs
+// columns i and i + D/2, which sit in 64-column blocks i/64 and i/64 + D/128,
+// and the thread that copies one chunk of a pair copies the other too.
+// Under rope, k is rotated once per call by flash_fwd_rotate_k
 // (sm90_common.cuh) into a (B, KV, Skv, D) scratch the caller allocates,
 // rounded as the plain version rounds it, so the main kernel reads k with no
 // rope (flash_fwd.cu rotates every K tile again in each of a head's q-tile
-// blocks). TMA,
-// mbarrier rings, producer/consumer warp specialisation with setmaxnreg and
-// persistent blocks are the next levers.
+// blocks). TMA, mbarrier rings, producer/consumer warp specialisation with
+// setmaxnreg and persistent blocks are the next levers.
 #include "sm90_common.cuh"
 
 namespace dtt {
 
-constexpr int FWD90_BQ = 64, FWD90_BKV = 64, FWD90_THREADS = 128;
+constexpr int FWD90_BQ = 64, FWD90_BKV = 64;  // rows of a warpgroup's q tile, of a kv tile
+
+// Warpgroups a block: two at head_dim 256, which share their K and V tiles.
+template <int D>
+constexpr int kFwd90Wgs = D == 256 ? 2 : 1;
+template <int D>
+constexpr int kFwd90Threads = 128 * kFwd90Wgs<D>;
 
 template <int D>
 constexpr size_t fwd90_smem_bytes() {
-  // The q tile, two K and two V tiles, and room to align the base to 1024
-  // bytes.
-  return sizeof(bf16) * (FWD90_BQ + 4 * FWD90_BKV) * D + 1024;
+  // The warpgroups' q tiles, two K and two V tiles, and room to align the
+  // base to 1024 bytes.
+  return sizeof(bf16) * (kFwd90Wgs<D> * FWD90_BQ + 4 * FWD90_BKV) * D + 1024;
 }
 
 template <int D>
-__global__ void __launch_bounds__(FWD90_THREADS, 2)
+__global__ void __launch_bounds__(kFwd90Threads<D>, kFwd90Wgs<D> == 1 ? 2 : 1)
 flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       float* __restrict__ lse, const float* __restrict__ cos,
                       const float* __restrict__ sin, Bhsd sq, Bhsd sk, Bhsd sv, Bhsd so, int H,
                       int group, int Sq, int Skv, int off, int causal, int window,
                       long long tstride, float scale) {
-  constexpr int BQ = FWD90_BQ, BKV = FWD90_BKV, DB = D / 64;  // DB: 64-column blocks
-  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  // DB: 64-column blocks; BQB: q rows a block, BQ a warpgroup.
+  constexpr int BQ = FWD90_BQ, BKV = FWD90_BKV, DB = D / 64, THREADS = kFwd90Threads<D>;
+  constexpr int BQB = kFwd90Wgs<D> * BQ;
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_at(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
-  bf16* sK = sQ + BQ * D;       // two tiles
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));  // BQB rows
+  bf16* sK = sQ + BQB * D;      // two tiles
   bf16* sV = sK + 2 * BKV * D;  // two tiles
 
-  const int num_q = (Sq + BQ - 1) / BQ;
-  const int q0 = (num_q - 1 - (int)blockIdx.x) * BQ;  // the tiles with the most keys first
+  const int num_q = (Sq + BQB - 1) / BQB;
+  const int q0 = (num_q - 1 - (int)blockIdx.x) * BQB;  // the tiles with the most keys first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* kb = k + b * sk.b + kvh * sk.h;
@@ -90,14 +107,15 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // Rope tables are indexed by position: q row r sits at r + off.
   const float* cb = cos == nullptr ? nullptr : cos + b * tstride;
   const float* sb = sin == nullptr ? nullptr : sin + b * tstride;
-  const int wi = threadIdx.x >> 5;  // the warp: rows [16wi, +16) of the tile
+  const int wg = threadIdx.x >> 7;        // the warpgroup: rows [64wg, +64) of the block's
+  const int wi = (threadIdx.x >> 5) & 3;  // the warp: rows [16wi, +16) of the warpgroup's
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r_lo = q0 + 16 * wi;  // the warp's first q row
+  const int r_lo = q0 + BQ * wg + 16 * wi;  // the warp's first q row
   const int row[2] = {r_lo + g, r_lo + g + 8};
 
   int kv_begin = 0, kv_end = Skv;
   if (causal) {
-    kv_end = min(Skv, min(q0 + BQ, Sq) + off);  // keys up to the last row's position
+    kv_end = min(Skv, min(q0 + BQB, Sq) + off);  // keys up to the last row's position
     if (window > 0) kv_begin = max(0, q0 + off - (window - 1)) / BKV * BKV;
   }
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
@@ -120,7 +138,7 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // of the kv loop: this thread copies the 16-byte chunks at rows kr0 +
   // RPR·it, columns kc and kc + D/2, whose swizzled offsets are the same in
   // every round (RPR is a multiple of 8) and every tile.
-  constexpr int CPH = D / 16, RPR = FWD90_THREADS / CPH, ROUNDS = BKV / RPR;
+  constexpr int CPH = D / 16, RPR = THREADS / CPH, ROUNDS = BKV / RPR;
   const int kr0 = (int)threadIdx.x / CPH, kc = ((int)threadIdx.x % CPH) * 8;
   const int so1 = sw<BKV>(kr0, kc), so2 = sw<BKV>(kr0, kc + D / 2);
   auto load_tile = [&](bf16* dst, const bf16* src, long long ld, int row0) {
@@ -154,8 +172,8 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss<0, 0>(s, desc_k(aQ + 2 * sw<BQ>(0, 16 * kk)), desc_k(aK + 2 * sw<BKV>(0, 16 * kk)),
-                   kk > 0);
+      mma_ss<0, 0>(s, desc_k(aQ + 2 * sw<BQB>(BQ * wg, 16 * kk)),
+                   desc_k(aK + 2 * sw<BKV>(0, 16 * kk)), kk > 0);
     wg_commit();
   };
   // O += P·V_n, one commit group: P rounded to bf16 (the TPU kernel's p) is
@@ -214,11 +232,11 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 16; ++j) pf[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
   };
 
-  sw_issue<D, BQ, FWD90_THREADS>(sQ, qb, sq.s, q0, Sq);
+  sw_issue<D, BQB, THREADS>(sQ, qb, sq.s, q0, Sq);
   load_k(0);
   cp_async_commit();
   cp_async_wait<0>();
-  sw_finish<D, BQ, FWD90_THREADS>(sQ, q0, Sq, cb, sb, true, scale, off);
+  sw_finish<D, BQB, THREADS>(sQ, q0, Sq, cb, sb, true, scale, off);
   proxy_fence();
   __syncthreads();
   if (n_tiles > 1) load_k(1);
@@ -299,8 +317,9 @@ int launch_fwd90(const void* q, const void* k, const void* v, void* out, void* l
     k = k_rot;
     sk = Bhsd{(long long)KV * Skv * D, (long long)Skv * D, D};
   }
-  const dim3 grid((Sq + FWD90_BQ - 1) / FWD90_BQ, H, B);
-  flash_fwd_sm90_kernel<D><<<grid, FWD90_THREADS, smem, stream>>>(
+  constexpr int BQB = kFwd90Wgs<D> * FWD90_BQ;
+  const dim3 grid((Sq + BQB - 1) / BQB, H, B);
+  flash_fwd_sm90_kernel<D><<<grid, kFwd90Threads<D>, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), static_cast<float*>(lse), static_cast<const float*>(cos),
       static_cast<const float*>(sin), sq, sk, sv, so, H, H / KV, Sq, Skv, off, causal, window,
@@ -310,8 +329,8 @@ int launch_fwd90(const void* q, const void* k, const void* v, void* out, void* l
 
 }  // namespace dtt
 
-// dtt_flash_fwd's contract (flash_fwd.cu) for bf16 operands at head_dim 64
-// or 128, plus `k_rot`: with rope tables, a contiguous (B, KV, Skv, D) bf16
+// dtt_flash_fwd's contract (flash_fwd.cu) for bf16 operands at head_dim 64,
+// 128 or 256, plus `k_rot`: with rope tables, a contiguous (B, KV, Skv, D) bf16
 // scratch that receives k rotated once (flash_fwd_rotate_k) and is what the
 // main kernel reads; unused (may be null) without them. Any other call
 // returns cudaErrorInvalidValue. Returns a cudaError_t.
@@ -332,6 +351,9 @@ extern "C" int dtt_flash_fwd_sm90(const void* q, const void* k, const void* v, v
                             q_pos_offset, causal, window, tstride, scale, st);
   if (D == 128)
     return launch_fwd90<128>(q, k, v, out, lse, cos, sin, k_rot, strides, B, H, KV, Sq, Skv,
+                             q_pos_offset, causal, window, tstride, scale, st);
+  if (D == 256)
+    return launch_fwd90<256>(q, k, v, out, lse, cos, sin, k_rot, strides, B, H, KV, Sq, Skv,
                              q_pos_offset, causal, window, tstride, scale, st);
   return (int)cudaErrorInvalidValue;
 }

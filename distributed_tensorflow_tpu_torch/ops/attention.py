@@ -31,22 +31,25 @@ Kernels (``csrc/``): ``flash_fwd.cu`` — one forward on strided (B, H, S, D)
 operands behind every layout (K1, K3, K7, and the BSHD probe's K10);
 ``flash_fwd_sm90.cu`` — the same forward as a warpgroup (wgmma) kernel, with
 k rotated once per call under rope, which takes every bf16 call at head_dim
-64 or 128 (:func:`forward_kernel`); ``flash_bwd.cu`` — one fused backward
-behind every layout (K2, K4, K8) and, with dq compiled out, the two-pass
-dk/dv kernel (K6); ``flash_bwd_sm90.cu`` — the same fused backward, K6
-included, as a warpgroup kernel, which takes every bf16 call at head_dim 64
-or 128 (:func:`backward_kernel`); ``flash_bwd_dq.cu`` — the two-pass dq
-kernel (K5), and ``flash_bwd_dq_sm90.cu`` the same as a warpgroup kernel
+64, 128 or 256 (:func:`forward_kernel`); ``flash_bwd.cu`` — one fused
+backward behind every layout (K2, K4, K8) and, with dq compiled out, the
+two-pass dk/dv kernel (K6); ``flash_bwd_sm90.cu`` — the same fused
+backward, K6 included, as a warpgroup kernel, which takes every bf16 call at
+head_dim 64, 128 or 256 (:func:`backward_kernel`; at 256 its two
+warpgroups split dK and dV by columns); ``flash_bwd_dq.cu`` — the two-pass
+dq kernel (K5), and ``flash_bwd_dq_sm90.cu`` the same as a warpgroup kernel
 for bf16 at head_dim 64 or 128 (:func:`backward_dq_kernel`);
 ``flash_fwd_pipe.cu`` — the forward of the pipelining probe (K9,
 ``tools/pipeline_probe.py``), and ``flash_fwd_pipe_sm90.cu`` the same on
 the warpgroup forward's skeleton for bf16 (:func:`pipe_forward_kernel`).
-Each has a plain PyTorch version
+So f32, head_dim 32 and K5 at 256 run the plain-design kernels
+(``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_dq.cu``), every other bf16
+call a warpgroup kernel. Each has a plain PyTorch version
 (``*_reference``). The kernels are compiled for head_dim 32, 64, 128 and 256
-(the warpgroup kernels for 64 and 128 only); any other head_dim up to 256
-runs zero-padded to the next of those (:func:`pad_head_dim`). A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises —
-there is no fallback between them.
+(the two-pass dq and pipelining kernels' warpgroup versions for 64 and 128
+only); any other head_dim up to 256 runs zero-padded to the next of those
+(:func:`pad_head_dim`). A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises — there is no fallback between them.
 """
 
 from __future__ import annotations
@@ -527,12 +530,17 @@ def _dims(q, k):
     return b, h, k.shape[1], sq, k.shape[2], d
 
 
+# The instances the warpgroup forward and fused backward are compiled for.
+_SM90_HEAD_DIMS = (64, 128, 256)
+
+
 def forward_kernel(dtype: torch.dtype, d: int) -> str:
     """The source of the forward kernel that runs a call: bf16 at head_dim
-    64 or 128 goes to the warpgroup (wgmma) kernel ``csrc/flash_fwd_sm90.cu``;
-    f32 and head_dim 32 stay on ``csrc/flash_fwd.cu``. ``d`` is the instance
-    the call runs at (after padding)."""
-    if dtype == torch.bfloat16 and d in (64, 128):
+    64, 128 or 256 goes to the warpgroup (wgmma) kernel
+    ``csrc/flash_fwd_sm90.cu`` (two warpgroups a block at 256); f32 and
+    head_dim 32 stay on ``csrc/flash_fwd.cu``. ``d`` is the instance the call
+    runs at (after padding)."""
+    if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
         return "flash_fwd_sm90"
     return "flash_fwd"
 
@@ -610,12 +618,13 @@ def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None
 
 def backward_kernel(dtype: torch.dtype, d: int, want_dq: bool) -> str:
     """The source of the fused backward kernel that runs a call: bf16 at
-    head_dim 64 or 128 goes to the warpgroup (wgmma) kernel
-    ``csrc/flash_bwd_sm90.cu``, with dq (K2/K4/K8) or without (the two-pass
-    pair's dk/dv half, K6, which compiles the dQ product out); f32 and
-    head_dim 32 stay on ``csrc/flash_bwd.cu``. ``d`` is the instance the
-    call runs at (after padding)."""
-    if dtype == torch.bfloat16 and d in (64, 128):
+    head_dim 64, 128 or 256 goes to the warpgroup (wgmma) kernel
+    ``csrc/flash_bwd_sm90.cu`` (at 256 a 64-row kv tile a block, dK and dV
+    split by columns over its two warpgroups), with dq (K2/K4/K8) or without
+    (the two-pass pair's dk/dv half, K6, which compiles the dQ product out);
+    f32 and head_dim 32 stay on ``csrc/flash_bwd.cu``. ``d`` is the instance
+    the call runs at (after padding)."""
+    if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
         return "flash_bwd_sm90"
     return "flash_bwd"
 

@@ -1,6 +1,6 @@
 """The warpgroup forward's dispatch and its rotate-once design, on the CPU.
 
-bf16 calls at head_dim 64 or 128 run ``csrc/flash_fwd_sm90.cu`` on the card
+bf16 calls at head_dim 64, 128 or 256 run ``csrc/flash_fwd_sm90.cu`` on the card
 (:func:`forward_kernel`); under rope that kernel rotates k once a call
 (``flash_fwd_rotate_k``) and q inside its blocks. What can be checked here,
 with no card: the dispatch table; the plain version of the rotate pass
@@ -36,6 +36,8 @@ pytestmark = pytest.mark.torch_port
     ((torch.float32, 128), "flash_fwd"),
     ((torch.float32, 64), "flash_fwd"),
     ((torch.float32, 32), "flash_fwd"),
+    ((torch.bfloat16, 256), "flash_fwd_sm90"),
+    ((torch.float32, 256), "flash_fwd"),
 ])
 def test_forward_kernel_dispatch(case):
     args, want = case
@@ -43,10 +45,11 @@ def test_forward_kernel_dispatch(case):
 
 
 @pytest.mark.parametrize("dh,want", [(80, "flash_fwd_sm90"), (48, "flash_fwd_sm90"),
-                                     (20, "flash_fwd")])
+                                     (20, "flash_fwd"), (160, "flash_fwd_sm90")])
 def test_padded_head_dims_dispatch_at_their_instance(dh, want):
-    """dh 80 runs the instance 128 and dh 48 the instance 64 (both bf16 on
-    the warpgroup kernel); dh 20 runs the instance 32 on flash_fwd.cu."""
+    """dh 80 runs the instance 128, dh 48 the instance 64 and dh 160 the
+    instance 256 (all bf16 on the warpgroup kernel); dh 20 runs the instance
+    32 on flash_fwd.cu."""
     assert TA.forward_kernel(torch.bfloat16, TA._instance_dim(dh)) == want
 
 
@@ -64,7 +67,7 @@ def _tables(b, s, half, seed):
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
-@pytest.mark.parametrize("tb,d", [(1, 64), (2, 128)])
+@pytest.mark.parametrize("tb,d", [(1, 64), (2, 128), (1, 256)])
 def test_rotate_k_reference_matches_jax_apply_rope(tb, d):
     """The rotate pass's plain version on (B, KV, S, D) bf16 k, shared (1)
     or per-batch (2) tables, against JAX's apply_rope on the (B, S, KV, D)

@@ -1,4 +1,5 @@
-"""Head dims between the kernels' instances, and the kernels' source choice.
+"""Head dims between the kernels' instances, and the kernels' source choice
+(bf16 at 64, 128 and 256 on the warpgroup forward and fused backward).
 
 The CUDA kernels are compiled for head_dim 32, 64, 128 and 256; any other
 head_dim up to 256 runs zero-padded to the next of those. What makes that
@@ -129,6 +130,10 @@ def test_kernel_wrappers_reject_head_dims_above_128():
     ((torch.bfloat16, 128, False), "flash_bwd_sm90"),
     ((torch.bfloat16, 64, False), "flash_bwd_sm90"),
     ((torch.float32, 64, False), "flash_bwd"),
+    ((torch.bfloat16, 256, True), "flash_bwd_sm90"),
+    ((torch.bfloat16, 256, False), "flash_bwd_sm90"),
+    ((torch.float32, 256, True), "flash_bwd"),
+    ((torch.float32, 256, False), "flash_bwd"),
 ])
 def test_backward_kernel_dispatch(case):
     args, want = case
@@ -164,14 +169,19 @@ def test_pipe_forward_kernel_dispatch(case):
 
 @pytest.mark.parametrize("d", [160, 192, 256])
 def test_head_dims_to_256_keep_the_plain_design_kernels(d):
-    """Head dims 129-256 run the instance 256, which only the plain-design
-    kernels have, in bf16 too."""
+    """Head dims 129-256 run the instance 256: in bf16 the warpgroup forward
+    and fused backward (K6 included), in f32 the plain-design kernels; the
+    two-pass dq kernel (K5) keeps the plain design at 256 in both. (The name
+    is the test's from when every call at 256 took the plain design.)"""
     dp = TA._instance_dim(d)
     assert dp == 256
+    assert TA.forward_kernel(torch.bfloat16, dp) == "flash_fwd_sm90"
+    assert TA.backward_kernel(torch.bfloat16, dp, True) == "flash_bwd_sm90"
+    assert TA.backward_kernel(torch.bfloat16, dp, False) == "flash_bwd_sm90"
+    assert TA.forward_kernel(torch.float32, dp) == "flash_fwd"
+    assert TA.backward_kernel(torch.float32, dp, True) == "flash_bwd"
+    assert TA.backward_kernel(torch.float32, dp, False) == "flash_bwd"
     for dtype in (torch.bfloat16, torch.float32):
-        assert TA.forward_kernel(dtype, dp) == "flash_fwd"
-        assert TA.backward_kernel(dtype, dp, True) == "flash_bwd"
-        assert TA.backward_kernel(dtype, dp, False) == "flash_bwd"
         assert TA.backward_dq_kernel(dtype, dp) == "flash_bwd_dq"
 
 
