@@ -9,7 +9,8 @@ Phases, in order; any failed check exits non-zero and no result is printed:
   2. build     — nvcc builds every kernel under
                  distributed_tensorflow_tpu_torch/csrc/ (in parallel), with
                  each instance's registers and spills and ptxas's wgmma
-                 advisories, and a summary of the head_dim 256 instances;
+                 advisories, and a summary of the head_dim 256 instances
+                 and of the column-group kernels (head_dim above 256);
   3. kernels   — each kernel against its plain PyTorch version on the same
                  inputs, by a max-based and a blockwise normwise limit (see
                  TOL and BLOCK_TOL). One CUDA kernel per direction serves
@@ -64,7 +65,19 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  dropped kv tile in each product and one warpgroup's column
                  half of dK zeroed. Every bf16 launch at 160-256 must run
                  flash_fwd_sm90.cu or flash_bwd_sm90.cu (K5 flash_bwd_dq.cu),
-                 every f32 one flash_fwd.cu, flash_bwd.cu or flash_bwd_dq.cu;
+                 every f32 one flash_fwd.cu, flash_bwd.cu or flash_bwd_dq.cu.
+                 Head dims above 256, on the column-group kernels
+                 (flash_fwd_dstream.cu, flash_bwd_dstream.cu with and
+                 without dq, flash_bwd_dq_dstream.cu), in bf16 and f32:
+                 320, 384 and 512, 300 without rope and 257 (odd, padded at
+                 the tail), packed GQA + window + rope, BHSD cross-length
+                 with a window and non-causal, fully masked rows, the long
+                 family (K7, K8 on q segments, K5, K6) with GQA + window +
+                 cross-length + rope, K4 on q segments against one whole
+                 call; planted faults at 512 (a dropped kv tile in each
+                 product, one column group's P·V and one D chunk of q·kᵀ
+                 dropped) and the D 512 call the timing phase times; every
+                 launch on a column-group source;
   4. main      — the trainer (cli/train_lm.py) for 6 steps on each main path:
                  dp and tp (--model_parallel 1, a world of one) at the bench
                  flagship's full width and depth (d_model 2048, 16 heads, 8
@@ -84,7 +97,11 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  own defaults (head_dim 32: flash_fwd.cu and flash_bwd.cu),
                  at head_dim 80 and at head_dim 256 (d_model 1024 over 4
                  heads, its loss falling), both on the warpgroup kernels, 4
-                 steps each;
+                 steps each; then `d512`, the flagship's width over 4 heads
+                 of 512 (lr 1e-4, 6 steps, its loss falling): exactly 8 K1,
+                 8 K5 and 8 K6 launches a step (the gate's two-pass route at
+                 head_dim 512), on flash_fwd_dstream.cu,
+                 flash_bwd_dq_dstream.cu and flash_bwd_dstream.cu;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
@@ -117,8 +134,14 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  heads), K1 with rope at the long path's call (a row of its
                  own), K1/K2 at head_dim 256 (Gemma 7B's width, rows of
                  their own), K1 with rope and the K8 segment call at the
-                 `wide` call, K1/K2 at head_dim 32 (the CLI's call), and the
-                 three backward routes of one long layer;
+                 `wide` call, K1/K2 at head_dim 32 (the CLI's call, with each
+                 call's device time by the profiler beside the back-to-back
+                 reading), the three backward routes of one long layer, and
+                 the column-group rows: K1, K2, K5 and K6 at head_dim 512 (B
+                 2, S 2048, 4 heads, packed qkv), K8 at head_dim 320 on the
+                 last of its two q segments, with SDPA's kernels' names (it
+                 has no flash backend above 256), and K5 at head_dim 256
+                 (flash_bwd_dq.cu, Gemma 7B's width);
   7. probes    — the two kernel probes (tools/pipeline_probe.py and
                  tools/bshd_probe.py of the port): K9, the forward in the
                  probe's issue order (flash_fwd_pipe_sm90.cu in bf16),
@@ -174,7 +197,12 @@ LONG = dict(FLAGSHIP, num_kv_heads=4, seq_len=8192, batch_size=3, rope_theta=500
 # (d_ff 16384), 8 of its 28 layers, batch 2 (16,384 tokens a step).
 WIDE = dict(d_model=4096, num_heads=16, num_layers=8, d_ff=16384, seq_len=8192, batch_size=2,
             rope_theta=10000.0)
-SHAPES = {"dp": FLAGSHIP, "tp": FLAGSHIP, "long": LONG, "wide": WIDE}
+# `d512`: the flagship's width over 4 heads of 512 (`--num_heads 4`), the
+# head_dim a user meets at `--d_model 2048 --num_heads 4`; above 256 every
+# call runs the column-group kernels, and at head_dim 512 the backward's gate
+# takes the two-pass pair (K5 + K6) at seq 2048.
+D512 = dict(FLAGSHIP, num_heads=4)
+SHAPES = {"dp": FLAGSHIP, "tp": FLAGSHIP, "long": LONG, "wide": WIDE, "d512": D512}
 STEPS, INTERVAL = 6, 2
 # Tolerances, as max |kernel - plain| / max |plain|, except lse (absolute).
 # f32 runs every product in full f32 (no TF32); bf16 rounds p and dS to
@@ -226,6 +254,11 @@ REPLACES.update({row: REPLACES["flash_fwd"] for row in (
     "flash_fwd_rope", "flash_fwd_d256", "flash_fwd_d32", "flash_fwd_rope_d256_wide")})
 REPLACES.update({row: REPLACES["flash_bwd"] for row in ("flash_bwd_d256", "flash_bwd_d32")})
 REPLACES["bshd_bwd_d256_wide"] = REPLACES["bshd_bwd"]
+# The column-group kernels' rows: K1, K2, K5 and K6 at head_dim 512, K8 at 320
+# (padded to 384), and K5 at 256 on the plain design.
+REPLACES.update({"flash_fwd_d512": REPLACES["flash_fwd"], "flash_bwd_d512": REPLACES["flash_bwd"],
+                 "bwd_dq_d512": REPLACES["bwd_dq"], "bwd_dkv_d512": REPLACES["bwd_dkv"],
+                 "bshd_bwd_d320": REPLACES["bshd_bwd"], "bwd_dq_d256": REPLACES["bwd_dq"]})
 # The wrappers' launch counters and the source each one launches at the
 # main paths' calls (bf16, head_dim 64, 128 or 256): every layout goes
 # through one forward and one fused backward kernel, as the TPU's do — the
@@ -247,23 +280,34 @@ SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
            "flash_fwd_rope": "flash_fwd_sm90", "flash_fwd_d256": "flash_fwd_sm90",
            "flash_bwd_d256": "flash_bwd_sm90", "flash_fwd_rope_d256_wide": "flash_fwd_sm90",
            "bshd_bwd_d256_wide": "flash_bwd_sm90", "flash_fwd_d32": "flash_fwd",
-           "flash_bwd_d32": "flash_bwd"}
-# Each main path: its trainer flags and its launches per layer per step
-# (every other counter must stay at 0). The long path's backward runs the
-# fused kernel on four q segments of 2048 rows, `wide`'s on eight of 1024
-# (the JAX package's gate at head_dim 128 and 256).
-MAIN_PATHS = {
-    "dp": ([], {"flash_fwd": 1, "flash_bwd": 1}),
-    "tp": (["--parallelism", "tp", "--model_parallel", "1"], {"bhsd_fwd": 1, "bhsd_bwd": 1}),
-    "long": (["--num_kv_heads", "4", "--position", "rope", "--rope_theta", "500000"],
-             {"flash_fwd": 1, "bshd_bwd": 4}),
-    # At the CLI's default rate (3e-3) the flagship's loss rises over its
-    # first 6 steps; `wide` must show a falling one, at a rate for its width.
-    "wide": (["--position", "rope", "--rope_theta", "10000", "--learning_rate", "1e-4"],
-             {"flash_fwd": 1, "bshd_bwd": 8}),
-}
+           "flash_bwd_d32": "flash_bwd", "flash_fwd_d512": "flash_fwd_dstream",
+           "flash_bwd_d512": "flash_bwd_dstream", "bwd_dq_d512": "flash_bwd_dq_dstream",
+           "bwd_dkv_d512": "flash_bwd_dstream", "bshd_bwd_d320": "flash_bwd_dstream",
+           "bwd_dq_d256": "flash_bwd_dq"}
 # The sources `wide`'s "was" run forces: the plain-design kernels.
 PLAIN_DESIGN = {"flash_fwd_sm90": "flash_fwd", "flash_bwd_sm90": "flash_bwd"}
+# Where every launch above head_dim 256 goes instead: the column-group kernels.
+DSTREAM = {"flash_fwd_sm90": "flash_fwd_dstream", "flash_bwd_sm90": "flash_bwd_dstream",
+           "flash_bwd_dq_sm90": "flash_bwd_dq_dstream"}
+# Each main path: its trainer flags, its launches per layer per step (every
+# other counter must stay at 0) and the map of SOURCES' sources to those its
+# launches run instead (None: SOURCES as it stands). The long path's
+# backward runs the fused kernel on four q segments of 2048 rows, `wide`'s on
+# eight of 1024 (the JAX package's gate at head_dim 128 and 256); at head_dim
+# 512 `d512`'s takes the two-pass pair.
+MAIN_PATHS = {
+    "dp": ([], {"flash_fwd": 1, "flash_bwd": 1}, None),
+    "tp": (["--parallelism", "tp", "--model_parallel", "1"], {"bhsd_fwd": 1, "bhsd_bwd": 1},
+           None),
+    "long": (["--num_kv_heads", "4", "--position", "rope", "--rope_theta", "500000"],
+             {"flash_fwd": 1, "bshd_bwd": 4}, None),
+    # At the CLI's default rate (3e-3) the flagship's loss rises over its
+    # first 6 steps; `wide` and `d512` must show a falling one, at a rate for
+    # their widths.
+    "wide": (["--position", "rope", "--rope_theta", "10000", "--learning_rate", "1e-4"],
+             {"flash_fwd": 1, "bshd_bwd": 8}, None),
+    "d512": (["--learning_rate", "1e-4"], {"flash_fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}, DSTREAM),
+}
 
 
 def expected_sources(launches, forced=None):
@@ -316,6 +360,10 @@ def phase_build():
         for rec in _ptxas_instances(_build.build_log(name)):
             if "ILi256E" in rec["entry"] or "cols_kernel" in rec["entry"]:
                 emit(phase="build", kernel=name, head_dim=256, **rec)
+    # The column-group kernels (head_dim above 256, taken at run time).
+    for name in DSTREAM.values():
+        for rec in _ptxas_instances(_build.build_log(name)):
+            emit(phase="build", kernel=name, head_dim="above 256", **rec)
 
 
 def _ptxas_instances(log):
@@ -465,7 +513,36 @@ def compare_bhsd(case, b, h, sq, skv, d, dtype, causal=True, window=None, bshd=F
         fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads)
         if d == 256:
             column_half_control(case, grads[1], ref_grads[1])
+        if d > 256:
+            column_group_controls(case, q, k, v, out, ref_out)
     return errs
+
+
+def column_group_controls(case, q, k, v, out, ref_out):
+    """The faults a column-group kernel (head_dim above 256) can make, planted
+    into the last 64-row q tile of head (0, 0) of its forward's out: one
+    column group's P·V dropped (its 128 columns of out zero), and one
+    64-column chunk of D dropped from q·kᵀ (those rows as the plain forward
+    gives them with that chunk of q zeroed). The blockwise check must catch
+    both (causal, Sq == Skv, no window, no rope)."""
+    rows = slice(q.shape[2] - BLOCK_ROWS, q.shape[2])
+    q_drop = q.clone()
+    q_drop[..., 128:192] = 0  # the third chunk, in the second column group
+    dropped = A.flash_forward_reference(q_drop[:1, :1], k[:1, :1], v[:1, :1], True)[0]
+    kind = "out"
+    for name, plant in (("out: one column group's P.V", lambda t: t[0, 0, rows, 128:256].zero_()),
+                        ("out: one D chunk of q.k^T", lambda t: t[0, 0, rows].copy_(
+                            dropped[0, 0, rows].float()))):
+        bad = out.to(torch.float32, copy=True)
+        plant(bad)
+        _, rel = _err(bad, ref_out)
+        block = _block_err(bad, ref_out)
+        caught = block > BLOCK_TOL[q.dtype][kind]
+        emit(phase="kernels", case=case, control=name, rel_err=rel, tol=TOL[q.dtype][kind],
+             passes_max_rule=rel <= TOL[q.dtype][kind], block_err=block,
+             block_tol=BLOCK_TOL[q.dtype][kind], caught=caught)
+        if not caught:
+            fail(f"{case}: the blockwise check misses the planted fault {name}")
 
 
 def column_half_control(case, dk, ref_dk):
@@ -763,6 +840,79 @@ def phase_head_dims():
     return errs
 
 
+def compare_two_pass(case, b, s, h, d, seed):
+    """The d512 path's calls: K1 on packed bf16 qkv (batch ``b``, seq ``s``,
+    ``h`` heads of ``d``, causal, no rope), then K6 (dk, dv, delta) and K5
+    (dq) on its head views, each against its plain version. Returns the
+    errors (out, lse, dq, and the larger of dk's and dv's) and the operands
+    (q, k, v, out, lse, dO and delta as head views)."""
+    bf = torch.bfloat16
+    qkv, g = _packed(b, s, h, h, d, bf, seed)
+    args = (h, h, True, None, None, None)
+    out, lse = A.flash_forward_qkv_kernel(qkv, *args, None)
+    q, k, v = A._packed_heads(qkv, h, h, d)
+    o4, go = A._heads(out, d), A._heads(g, d)
+    dk, dv, delta = A.flash_backward_dkv_kernel(q, k, v, o4, lse, go, True)
+    dq = A.flash_backward_dq_kernel(q, k, v, lse, go, delta, True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = A.flash_forward_qkv_reference(qkv, *args)
+    errs = {"out": _check(case, "out", bf, o4, A._heads(ref_out, d), "out"),
+            "lse": _check(case, "lse", bf, lse, ref_lse, "lse")}
+    del ref_out, ref_lse
+    ref = A.flash_backward_reference(q, k, v, o4, lse, go, True)
+    errs["dq"] = _check(case, "k5_dq", bf, dq, ref[0], "dqkv")
+    errs["dkv"] = max(_check(case, f"k6_{n}", bf, t, r, "dqkv")
+                      for n, t, r in zip(("dk", "dv"), (dk, dv), ref[1:]))
+    _check(case, "k6_delta", bf, delta, (go.float() * o4.float()).sum(-1), "lse")
+    return errs, (q, k, v, o4, lse, go, delta)
+
+
+def phase_head_dims_above_256():
+    """Head dims above 256 on the column-group kernels (flash_fwd_dstream.cu,
+    flash_bwd_dstream.cu with and without dq, flash_bwd_dq_dstream.cu), which
+    run every call at head_dim 320 and 300 (padded to 384), 384 and 512, and
+    257 (odd, padded at the tail), in bf16 and f32: packed qkv (K1/K2) with
+    GQA + window + rope and with rope alone; BHSD (K3/K4) cross-length with
+    a window, non-causal cross-length without rope, and with fully masked
+    rows; the long family (K7, K8 on q segments placed by q_pos_offset, K5,
+    K6 and its delta) with GQA + window + cross-length + rope and with fully
+    masked rows; K4 on q segments against one whole call; then, in bf16, the
+    planted faults (a dropped kv tile in each product, one column group's
+    P·V and one D chunk of q·kᵀ dropped) and the D 512 call the timing
+    phase times (B 2, S 2048, 4 heads of 512, packed qkv), and the d512
+    path's own calls at its batch (K1, K6 and K5 at B 12). Every launch must
+    run a column-group source. Returns the errors of the rows: K2 at B 2,
+    K1, K5 and K6 at the path's B 12."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        _zero_counts()
+        compare("ds_packed_d512_gqa_window_rope", 2, 200, 4, 2, 512, dtype, window=100,
+                rope=True, seed=90)
+        compare("ds_packed_d320_rope", 2, 136, 4, 4, 320, dtype, rope=True, seed=91)
+        compare_bhsd("ds_bhsd_d384_cross_window", 2, 4, 192, 320, 384, dtype, window=100, seed=92)
+        compare_bhsd("ds_bhsd_d300_noncausal_cross", 2, 4, 136, 200, 300, dtype, causal=False,
+                     seed=93)
+        compare_bhsd("ds_bhsd_d512_fully_masked_rows", 2, 4, 200, 72, 512, dtype, seed=94)
+        compare_long("ds_long_d512_gqa_window_cross_rope", 2, 8, 2, 192, 320, 512, dtype,
+                     window=100, rope=True, segments=2, seed=95)
+        compare_long("ds_long_d320_fully_masked_rows", 2, 4, 4, 200, 72, 320, dtype, seed=96)
+        compare_long("ds_long_d257_odd_cross", 1, 4, 2, 136, 200, 257, dtype, seed=97)
+        check_segments(f"ds_segments_d384_{str(dtype).split('.')[-1]}", 2, 4, 384, 384, dtype,
+                       n_seg=3, seed=98)
+        _head_dim_sources(f"d257_512_{str(dtype).split('.')[-1]}", set(DSTREAM.values()))
+    bf = torch.bfloat16
+    compare_bhsd("ds_bhsd_d512_controls", 1, 4, 1024, 1024, 512, bf, seed=99, controls=True)
+    compare_long("ds_long_d512_controls", 1, 4, 1, 2048, 2048, 512, bf, seed=100, controls=True)
+    errs["flash_bwd_d512"] = compare("ds_packed_d512_call", 2, 2048, 4, 4, 512, bf,
+                                     seed=101)["dqkv"]
+    b, s, h = (D512[key] for key in ("batch_size", "seq_len", "num_heads"))
+    path = compare_two_pass("ds_packed_d512_path_call", b, s, h, D512["d_model"] // h, seed=103)[0]
+    errs["flash_fwd_d512"], errs["bwd_dq_d512"], errs["bwd_dkv_d512"] = (
+        path["out"], path["dq"], path["dkv"])
+    torch.cuda.empty_cache()
+    return errs
+
+
 def compare_wide(case):
     """The `wide` path's own calls at its full shape (_wide_operands: batch
     2, seq 8192, 16 heads of 256, packed qkv, rope θ 10000, bf16), each held
@@ -931,14 +1081,15 @@ def _zero_counts():
 
 def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
     """The trainer (cli/train_lm.py) on one main path for ``steps`` steps:
-    finite loss at every boundary and exactly the path's launches. With
-    ``forced`` (a map of source to source, :data:`PLAIN_DESIGN`) every
-    launch goes to the forced sources instead. Returns the path's launches
-    and its records."""
+    finite loss at every boundary and exactly the path's launches, on the
+    path's sources. With ``forced`` (a map of source to source,
+    :data:`PLAIN_DESIGN`) every launch goes to the forced sources instead.
+    Returns the path's launches and its records."""
     from distributed_tensorflow_tpu_torch.cli import train_lm
 
     shape = SHAPES[path]
-    flags, per_layer = MAIN_PATHS[path]
+    flags, per_layer, remap = MAIN_PATHS[path]
+    remap = forced or remap
     argv = [
         "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
         "--num_layers", str(shape["num_layers"]), "--d_ff", str(shape["d_ff"]),
@@ -973,7 +1124,7 @@ def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
     want = {k: per_layer.get(k, 0) * shape["num_layers"] * steps for k in A.KERNEL_LAUNCHES}
     # Every forward and backward launch ran a warpgroup kernel (or, forced,
     # the plain-design one).
-    sources, want_sources = dict(A.SOURCE_LAUNCHES), expected_sources(want, forced)
+    sources, want_sources = dict(A.SOURCE_LAUNCHES), expected_sources(want, remap)
     emit(phase=phase, launches=launches, expected=want, source_launches=sources,
          expected_sources=want_sources, wall_s=round(wall, 2))
     if launches != want:
@@ -986,6 +1137,19 @@ def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
     emit(phase=phase, steps_per_sec=last["steps_per_sec"],
          tokens_per_sec=last["tokens_per_sec"], mfu=last.get("mfu"), card=smi)
     return {k: v for k, v in launches.items() if k in per_layer}, records
+
+
+def phase_d512(smi):
+    """The trainer at the flagship's width over 4 heads of 512 (`d512`, 6
+    steps): every attention launch on the column-group kernels — 8 K1 on
+    flash_fwd_dstream.cu, 8 K5 on flash_bwd_dq_dstream.cu and 8 K6 on
+    flash_bwd_dstream.cu a step (at head_dim 512 the gate leaves the fused
+    backward for the two-pass pair) — and a falling loss. Returns the path's
+    launches."""
+    launches, records = phase_main(smi, "d512")
+    if not records[-1]["loss"] < records[0]["loss"]:
+        fail(f"main_d512: the loss did not fall ({[r['loss'] for r in records]})")
+    return launches
 
 
 def phase_wide(smi):
@@ -1688,6 +1852,195 @@ def phase_timing_long(launches, errs, notes):
     return kernels
 
 
+def _device_ms(fn, n=20):
+    """One call of ``fn`` as torch.profiler sees it over ``n`` calls: the
+    summed device time of its kernels (memsets and copies included) per
+    call, in ms, and the kernels' names. Unlike cuda_ms's events, which time
+    the calls back to back, this leaves out the host's dispatch between
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        fail("profiler: no device events")
+    busy = sum(e.time_range.end - e.time_range.start for e in events)
+    return busy / 1e3 / n, sorted({e.name for e in events})
+
+
+def d32_device_times(notes):
+    """K1 and K2 at head_dim 32 (the CLI's call: batch 8, seq 128, 4 heads,
+    the timing rows' inputs): each call's device time by the profiler beside
+    the rows' back-to-back reading, which at this size is mostly the
+    wrapper's host dispatch."""
+    b, s, h, d = 8, 128, 4, 32
+    qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=84)
+    args = (h, h, True, None, None, None)
+    out, lse = A.flash_forward_qkv_kernel(qkv, *args, None)
+    for name, fn in (("flash_fwd_d32", lambda: A.flash_forward_qkv_kernel(qkv, *args, None)),
+                     ("flash_bwd_d32", lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g,
+                                                                           *args, None))):
+        ms, kernels = _device_ms(fn)
+        emit(phase="timing_device", kernel=name, profiler_device_ms=ms, kernels=kernels)
+        notes.setdefault(name, {}).update(profiler_device_ms=ms, profiler_kernels=kernels)
+
+
+def phase_timing_dstream(launches, errs, notes):
+    """The column-group kernels at head_dim 512 — K1 and K2 (packed qkv, B 2,
+    S 2048, 4 heads of 512, bf16, causal: phase 3's ds_packed_d512_call
+    inputs), K5 and K6 on the same call's head views — and K8 at head_dim
+    320 (padded to 384) on the last of its two q segments (1024 rows against
+    2048 keys); then K5 at head_dim 256 (Gemma 7B's width, on
+    flash_bwd_dq.cu). Each beside its plain version, its bound (the work
+    the function needs, at the real head dim, not the recompute of the
+    column groups) and SDPA, whose kernels' names are recorded (no flash
+    backend above 256). K5's and K6's outputs at this call (phase 3 holds
+    them at the d512 path's B 12) and K8's are held against their plain
+    versions here."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from distributed_tensorflow_tpu_torch.utils.flops import chip_hbm_bandwidth, chip_peak_flops
+
+    peak, bw = chip_peak_flops(), chip_hbm_bandwidth()
+    bf = torch.bfloat16
+    b, s, h, d = 2, 2048, 4, 512
+    qkv, g = _packed(b, s, h, h, d, bf, seed=101)
+    q, k, v = A._packed_heads(qkv, h, h, d)
+    go = A._heads(g, d)
+    lib = _sdpa(q, k, v, go)
+    for name, fn in (("flash_fwd_d512", lib[0]), ("flash_bwd_d512", lib[1])):
+        notes.setdefault(name, {})["library_kernels"] = _device_ms(fn, 3)[1]
+    del lib
+    kernels = _time_packed_pair(("flash_fwd_d512", "flash_bwd_d512"), b, s, h, d, 101, launches,
+                                errs, peak, bw, notes)
+    del qkv, g, q, k, v, go
+    _, (q, k, v, o4, lse, go, delta) = compare_two_pass("ds_packed_d512_call two-pass", b, s, h,
+                                                        d, seed=101)
+    lib = _sdpa(q, k, v, go)
+    bwd_kernels = _device_ms(lib[2], 3)[1]
+    for name in ("bwd_dq_d512", "bwd_dkv_d512"):
+        notes.setdefault(name, {}).update(library_call="SDPA backward alone (all three gradients)",
+                                          library_kernels=bwd_kernels)
+    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)
+    qb, sb = q.numel() * q.element_size(), lse.numel() * 4  # one of q, k, v, dO, out
+    runs = {
+        # reads q, k, v, dO, lse, delta; writes dq: three products
+        "bwd_dq_d512": ((fwd_flops * 3 // 2, 5 * qb + 2 * sb),
+                        lambda: A.flash_backward_dq_kernel(q, k, v, lse, go, delta, True),
+                        lambda: A.flash_backward_dq_reference(q, k, v, o4, lse, go, True),
+                        lib[2], None),
+        # reads q, k, v, out, dO, lse; writes dk, dv, delta: four products
+        "bwd_dkv_d512": ((fwd_flops * 2, 7 * qb + 2 * sb),
+                         lambda: A.flash_backward_dkv_kernel(q, k, v, o4, lse, go, True),
+                         lambda: A.flash_backward_dkv_reference(q, k, v, o4, lse, go, True),
+                         lib[2], None),
+    }
+    shape = dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True,
+                 layout="packed qkv head views")
+    kernels += _time_kernels(runs, launches, errs, peak, bw, shape, notes)
+    del q, k, v, go, lse, o4, delta, lib
+    torch.cuda.empty_cache()
+
+    # K8 at head_dim 320 (padded to 384 in the launch) on its last q segment.
+    d = 320
+    seg = A._segment_rows(s, d)
+    a = s - seg
+    qkv, g = _packed(b, s, h, h, d, bf, seed=102)
+    q, k, v = A._packed_heads(qkv, h, h, d)
+    out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None, None)
+    rows = slice(a, s)
+    q_seg, out_seg, g_seg = q[:, :, rows], A._heads(out, d)[:, :, rows], A._heads(g, d)[:, :, rows]
+    lse_seg = lse[:, :, rows].contiguous()
+    dq_seg = torch.empty(b, h, seg, d, dtype=bf, device="cuda")
+    dk_s, dv_s = (torch.empty(b, h, s, d, dtype=bf, device="cuda") for _ in range(2))
+
+    def segment():
+        A._launch_backward("bshd_bwd", q_seg, k, v, out_seg, g_seg, lse_seg, dq_seg, dk_s, dv_s,
+                           True, None, a, None)
+
+    before = A.SOURCE_LAUNCHES["flash_bwd_dstream"]
+    segment()
+    torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES["flash_bwd_dstream"] != before + 1:
+        fail("timing: K8 at head_dim 320 did not run flash_bwd_dstream.cu")
+    plain = lambda: A.flash_backward_reference(q_seg, k, v, out_seg, lse_seg, g_seg, True, None,
+                                               None, a)
+    case = "ds_packed_d320_last_segment"
+    errs["bshd_bwd_d320"] = max(_check(case, n, bf, t, r, "dqkv")
+                                for n, t, r in zip(("dq", "dk", "dv"), (dq_seg, dk_s, dv_s),
+                                                   plain()))
+    mask = causal_lower_right(seg, s)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q_seg, k, v))
+
+    def lib_fwd_bwd():
+        F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask).backward(g_seg)
+
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+
+    def lib_bwd():
+        torch.autograd.grad(o_lib, (ql, kl, vl), g_seg, retain_graph=True)
+
+    notes.setdefault("bshd_bwd_d320", {}).update(
+        call="the last of the two q segments at head_dim 320 (padded to 384 in the launch)",
+        library_call="SDPA forward+backward, lower-right causal",
+        library_kernels=_device_ms(lib_fwd_bwd, 3)[1])
+    seg_pairs = seg * a + seg * (seg + 1) // 2
+    elt = qkv.element_size()
+    seg_bytes, head_bytes = b * h * seg * d * elt, b * h * s * d * elt
+    runs = {"bshd_bwd_d320": (
+        # reads q, out, dO (the segment's rows), k, v, lse; writes dq (the
+        # segment's rows) and the segment's dk, dv shares
+        (4 * b * h * d * seg_pairs * 5 // 2, 4 * seg_bytes + 4 * head_bytes + b * h * seg * 4),
+        segment, plain, lib_fwd_bwd, lib_bwd)}
+    kernels += _time_kernels(runs, launches, errs, peak, bw,
+                             dict(B=b, Sq=seg, Skv=s, q_pos_offset=a, H=h, KV=h, D=d,
+                                  dtype="bf16", causal=True, layout="packed qkv head views"),
+                             notes)
+    del qkv, g, q, k, v, out, lse, q_seg, out_seg, g_seg, dq_seg, dk_s, dv_s, ql, kl, vl, o_lib
+    torch.cuda.empty_cache()
+
+    # K5 at head_dim 256 (Gemma 7B's width, packed head views) on flash_bwd_dq.cu.
+    b, s, h, d = (GEMMA[key] for key in ("batch_size", "seq_len", "num_heads", "head_dim"))
+    qkv, g = _packed(b, s, h, h, d, bf, seed=64)
+    q, k, v = A._packed_heads(qkv, h, h, d)
+    go = A._heads(g, d)
+    out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None, None)
+    o4 = A._heads(out, d)
+    _, _, delta = A.flash_backward_dkv_kernel(q, k, v, o4, lse, go, True)
+    before = A.SOURCE_LAUNCHES["flash_bwd_dq"]
+    dq5 = A.flash_backward_dq_kernel(q, k, v, lse, go, delta, True)
+    torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES["flash_bwd_dq"] != before + 1:
+        fail("timing: K5 at head_dim 256 did not run flash_bwd_dq.cu")
+    errs["bwd_dq_d256"] = _check("packed_d256_gemma_width two-pass", "k5_dq", bf, dq5,
+                                 A.flash_backward_dq_reference(q, k, v, o4, lse, go, True),
+                                 "dqkv")
+    del dq5
+    lib = _sdpa(q, k, v, go)
+    notes.setdefault("bwd_dq_d256", {}).update(
+        library_call="SDPA backward alone (all three gradients)",
+        library_kernels=_device_ms(lib[2], 3)[1])
+    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)
+    qb, sb = q.numel() * qkv.element_size(), lse.numel() * 4
+    runs = {"bwd_dq_d256": (
+        (fwd_flops * 3 // 2, 5 * qb + 2 * sb),
+        lambda: A.flash_backward_dq_kernel(q, k, v, lse, go, delta, True),
+        lambda: A.flash_backward_dq_reference(q, k, v, o4, lse, go, True),
+        lib[2], None)}
+    kernels += _time_kernels(runs, launches, errs, peak, bw,
+                             dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True,
+                                  layout="packed qkv head views"), notes)
+    del qkv, g, q, k, v, go, out, lse, o4, delta, lib
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def compare_pipe(case, b, h, sq, skv, d, dtype, causal=True, seed=0, controls=False):
     """K9 against its plain version on the same (B, H, S, D) inputs: out by
     the max-based and blockwise limits, lse by its absolute limit, and rows
@@ -1905,10 +2258,15 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
 # dtt::flash_fwd_rotate_k, on the long and wide paths) and K3 in the tp
 # step, all on dtt::flash_fwd_sm90_kernel, and attn_bwd is K2, K4 and K8 (K8
 # on four q segments on the long path, eight on wide) in them, on
-# dtt::flash_bwd_sm90_kernel (wide: dtt::flash_bwd_sm90_cols_kernel).
+# dtt::flash_bwd_sm90_kernel (wide: dtt::flash_bwd_sm90_cols_kernel). The
+# d512 step runs the column-group kernels: attn_fwd is K1 on
+# dtt::flash_fwd_dstream_kernel, attn_bwd_dq K5 on
+# dtt::flash_bwd_dq_dstream_kernel and attn_bwd K6 (and its delta pre-pass)
+# on dtt::flash_bwd_dstream_kernel.
 KERNEL_CLASSES = (
     ("attn_fwd", ("dtt::flash_fwd",)),
-    ("attn_bwd_dq", ("dtt::two_pass_dq", "dtt::flash_bwd_dq_sm90")),  # K5
+    ("attn_bwd_dq", ("dtt::two_pass_dq", "dtt::flash_bwd_dq_sm90",
+                     "dtt::flash_bwd_dq_dstream")),  # K5
     ("attn_bwd", ("dtt::flash_bwd",)),  # delta pre-pass, main kernel, dq pass
     ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
     ("layer_norm", ("layer_norm",)),
@@ -1990,13 +2348,16 @@ def main():
     errs = phase_kernels()
     errs.update(phase_kernels_long())
     errs.update(phase_head_dims())
-    by_path = {path: phase_main(smi, path)[0] for path in MAIN_PATHS if path != "wide"}
+    errs.update(phase_head_dims_above_256())
+    by_path = {path: phase_main(smi, path)[0] for path in ("dp", "tp", "long")}
     by_path["wide"] = phase_wide(smi)
     cli_runs = phase_cli_head_dims()
-    # A kernel's launches are those of the first main path it serves; the
-    # record lists every path's, and the routes phase's for the kernels no
-    # main path takes (K5/K6 run only where no q segmentation exists, K7
-    # only under flash_attention_bshd).
+    d512 = phase_d512(smi)
+    # A kernel's launches are those of the first path of by_path it serves
+    # (`d512`'s launches run the column-group sources and go to their own
+    # rows); the record lists every path's, and the routes phase's for the
+    # kernels no such path takes (K5/K6 at head_dim 128 run only where no q
+    # segmentation exists, K7 only under flash_attention_bshd).
     launches = {k: next((c[k] for c in by_path.values() if k in c), 0)
                 for k in A.KERNEL_LAUNCHES}
     notes = {k: {"launches_by_path": {p: c[k] for p, c in by_path.items() if k in c}}
@@ -2020,6 +2381,21 @@ def main():
         for name, counter in ((f"flash_fwd_{tag}", "flash_fwd"), (f"flash_bwd_{tag}", "flash_bwd")):
             launches[name] = cli_runs[run][counter]
             notes[name] = {"launches_by_path": {run: launches[name]}}
+    # The column-group rows: `d512`'s K1, K5 and K6 launches, with the errors
+    # of phase 3's check at the path's call; K2 at 512, K8 at 320 and K5 at
+    # 256 run on no path of this script.
+    for name, counter in (("flash_fwd_d512", "flash_fwd"), ("bwd_dq_d512", "bwd_dq"),
+                          ("bwd_dkv_d512", "bwd_dkv")):
+        launches[name] = d512[counter]
+        notes[name] = {"launches_by_path": {"d512": launches[name]},
+                       "max_abs_err_call": "the d512 path's: B 12, S 2048, 4 heads of 512"}
+    for name, where in (("flash_bwd_d512", "the fused backward at head_dim 512: the gate's "
+                                           "route for sequences up to 819 rows"),
+                        ("bshd_bwd_d320", "K8 at head_dim 320: the gate's route at seq 2048 "
+                                          "and 8192"),
+                        ("bwd_dq_d256", "K5 at head_dim 256: the two-pass route only")):
+        launches[name] = 0
+        notes[name] = {"launches_note": f"0 on every path driven here; {where}"}
     for name, route_launches in phase_routes().items():
         for k in ("bshd_fwd", "bwd_dq", "bwd_dkv"):
             if k in route_launches:
@@ -2029,8 +2405,10 @@ def main():
     phase_parity()
     phase_parity_wide()
     phase_turns(notes)
+    d32_device_times(notes)
     kernels = phase_timing(launches, errs, notes) + phase_timing_long(launches, errs, notes)
     kernels += phase_timing_wide(launches, errs, notes)
+    kernels += phase_timing_dstream(launches, errs, notes)
     kernels += phase_probes()
     for path in MAIN_PATHS:
         phase_profile(path)

@@ -1,17 +1,20 @@
-"""Run the tp trainer on one card and across the cards of one host, and
-compare.
+"""Run the tp and dp trainers on one card and across the cards of one host,
+and compare.
 
     python -m distributed_tensorflow_tpu_torch.cli.tp_cards [--cards 4] [trainer flags]
 
-Three runs of ``cli/train_lm.py --parallelism tp`` with the same flags and
-seed (default: the bench flagship, 6 steps): ``--model_parallel 1`` on one
-card, then under ``torchrun --standalone --nproc_per_node N`` with
-``--model_parallel N`` and with ``--model_parallel N/2`` (data 2 x model
-N/2). Every split trains the same whole model, so the losses must agree up
-to bf16 rounding (relative ``LOSS_TOL``). Prints each run's command and
-its chief's JSON records, then one summary line; exits non-zero when a run
-fails or the losses disagree. The summary names the cards as ``nvidia-smi
---query-gpu=name,power.limit`` gives them.
+Runs of ``cli/train_lm.py`` with the same flags, seed and global batch
+(default: the bench flagship, 6 steps). tp: ``--parallelism tp
+--model_parallel 1`` on one card, then under ``torchrun --standalone
+--nproc_per_node N`` with ``--model_parallel N`` and with
+``--model_parallel N/2`` (data 2 x model N/2). dp: ``--parallelism dp`` on
+one card, then under the same ``torchrun`` over N cards (each rank its rows
+of the batch, the gradients averaged in one all-reduce). Every split of a
+mode trains the same whole model, so its losses must agree with the one-card
+run's up to bf16 rounding (relative ``LOSS_TOL``). Prints each run's command
+and its chief's JSON records, then one summary line; exits non-zero when a
+run fails or the losses disagree. The summary names the cards as
+``nvidia-smi --query-gpu=name,power.limit`` gives them.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ FLAGSHIP = [
     "--d_ff", "8192", "--seq_len", "2048", "--batch_size", "12", "--use_bias", "0",
     "--training_steps", "6", "--eval_step_interval", "2",
 ]
-TRAINER = ["-m", "distributed_tensorflow_tpu_torch.cli.train_lm", "--parallelism", "tp"]
+TRAINER = ["-m", "distributed_tensorflow_tpu_torch.cli.train_lm"]
 LOSS_TOL = 1e-2  # bf16 compute: splits sum partial products in other orders
 
 
@@ -62,23 +65,27 @@ def main(argv: list[str] | None = None) -> None:
     flags = flags or FLAGSHIP
     torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                 "--nproc_per_node", str(args.cards)]
-    runs = {
-        "tp1_one_card": run([sys.executable, *TRAINER, *flags, "--model_parallel", "1"]),
-        f"tp{args.cards}": run([*torchrun, *TRAINER, *flags,
-                                "--model_parallel", str(args.cards)]),
-        f"data2_tp{args.cards // 2}": run([*torchrun, *TRAINER, *flags,
-                                           "--model_parallel", str(args.cards // 2)]),
-    }
-    base = [r["loss"] for r in runs["tp1_one_card"]]
+    tp, dp = [*TRAINER, "--parallelism", "tp"], [*TRAINER, "--parallelism", "dp"]
+    # Each run and the one-card run of its mode that it is held against.
+    runs = {"tp1_one_card": (run([sys.executable, *tp, *flags, "--model_parallel", "1"]),
+                             "tp1_one_card")}
+    runs[f"tp{args.cards}"] = (run([*torchrun, *tp, *flags, "--model_parallel", str(args.cards)]),
+                               "tp1_one_card")
+    runs[f"data2_tp{args.cards // 2}"] = (run([*torchrun, *tp, *flags, "--model_parallel",
+                                               str(args.cards // 2)]), "tp1_one_card")
+    runs["dp1_one_card"] = (run([sys.executable, *dp, *flags]), "dp1_one_card")
+    runs[f"dp{args.cards}"] = (run([*torchrun, *dp, *flags]), "dp1_one_card")
     summary = {"cards": args.cards, "nvidia_smi": nvidia_smi()}
     ok = True
-    for name, records in runs.items():
+    for name, (records, base_name) in runs.items():
+        base = [r["loss"] for r in runs[base_name][0]]
         losses = [r["loss"] for r in records]
         worst = max(abs(a - b) / abs(b) for a, b in zip(losses, base)) if losses else None
         agree = len(losses) == len(base) and worst is not None and worst <= LOSS_TOL
         ok &= agree
         last = records[-1] if records else {}
-        summary[name] = {"losses": losses, "loss_rel_diff": worst, "agree": agree,
+        summary[name] = {"losses": losses, "against": base_name, "loss_rel_diff": worst,
+                         "agree": agree,
                          **{k: last.get(k) for k in ("steps_per_sec", "tokens_per_sec", "mfu")}}
     summary["ok"] = ok
     print(json.dumps(summary), flush=True)

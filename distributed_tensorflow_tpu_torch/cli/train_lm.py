@@ -1,19 +1,26 @@
 """Transformer-LM training CLI — the port of ``tools/train_lm.py`` in its
-``dp`` mode (one device) and ``tp`` mode (Megatron tensor parallelism).
+``dp`` mode (data parallelism) and ``tp`` mode (Megatron tensor
+parallelism).
 
     python -m distributed_tensorflow_tpu_torch.cli.train_lm \\
         --d_model 2048 --num_heads 16 --num_layers 8 --d_ff 8192 \\
         --seq_len 2048 --batch_size 12 --use_bias 0 --attention flash
     torchrun --nproc_per_node N -m distributed_tensorflow_tpu_torch.cli.train_lm \\
+        --parallelism dp --attention flash ...
+    torchrun --nproc_per_node N -m distributed_tensorflow_tpu_torch.cli.train_lm \\
         --parallelism tp --model_parallel N --attention flash ...
 
 Flags keep the JAX trainer's names and defaults. It runs on the card
 (``--device cuda``, the default) in bf16, or on the CPU in f32 when asked
-with ``--device cpu``; with no card it raises rather than fall back. ``tp``
-joins a process group (``parallel/distributed.py``: ``torchrun``'s
+with ``--device cpu``; with no card it raises rather than fall back. Both
+modes join a process group (``parallel/distributed.py``: ``torchrun``'s
 environment, else ``--worker_hosts``/``--task_index``, else a world of one
-in-process), splits it into data x model groups of ``--model_parallel``
-ranks, and gives each data group's ranks their slice of the global
+in-process). ``dp`` gives each rank its rows of the global ``--batch_size``
+and averages the loss and gradients over the world in one all-reduce (none
+in a world of one); after training in a world of more than one it checks
+that every rank holds bitwise-equal parameters, as the JAX trainer does.
+``tp`` splits the world into data x model groups of ``--model_parallel``
+ranks and gives each data group's ranks their slice of the global
 ``--batch_size``. Data: ``--text_file`` trains byte-level (vocab 256) on
 random windows of a file; without it, the JAX trainer's synthetic copy task
 from ``np.random.default_rng(seed)``. One JSON record per eval boundary,
@@ -25,7 +32,6 @@ card), timed over windows drained by ``torch.cuda.synchronize()``.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import functools
 import json
 
@@ -43,9 +49,9 @@ def synthetic_tokens(rng, batch, seq_len, vocab):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--parallelism", choices=("dp", "tp"), default="dp",
-                   help="dp: one device; tp: tensor parallelism over --model_parallel "
-                        "ranks, data parallelism across the rest (other modes are not "
-                        "ported yet)")
+                   help="dp: data parallelism over every rank; tp: tensor parallelism over "
+                        "--model_parallel ranks, data parallelism across the rest (other "
+                        "modes are not ported yet)")
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--training_steps", type=int, default=100)
     p.add_argument("--eval_step_interval", type=int, default=10)
@@ -90,15 +96,10 @@ def main(argv=None) -> float:
 
     from distributed_tensorflow_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
-    if args.parallelism == "tp":
-        from distributed_tensorflow_tpu_torch.parallel.distributed import process_group
+    from distributed_tensorflow_tpu_torch.parallel.distributed import process_group
 
-        cluster = process_group(device, args.worker_hosts, args.task_index)
-    else:
-        cluster = contextlib.nullcontext()
-    with cluster as c:
-        return _train(args, device if c is None else c.device, c)
+    with process_group(resolve_device(args.device), args.worker_hosts, args.task_index) as c:
+        return _train(args, c.device, c)
 
 
 def _train(args, device, cluster) -> float:
@@ -138,10 +139,17 @@ def _train(args, device, cluster) -> float:
         attention=args.attention,
         compute_dtype=compute_dtype(device),
     )
-    world, chief, rows = 1, True, slice(None)
-    if cluster is None:
+    world, chief = cluster.world_size, cluster.is_chief
+    if args.parallelism == "dp":
+        import torch.distributed as dist
+
+        if args.batch_size % world:
+            raise ValueError(f"--batch_size {args.batch_size} does not split over {world} "
+                             f"data-parallel ranks")
+        per = args.batch_size // world
+        rows = slice(cluster.rank * per, (cluster.rank + 1) * per)  # this rank's batch rows
         model = TransformerLM(cfg, seed=args.seed, device=device)
-        build_step = build_lm_train_step
+        build_step = functools.partial(build_lm_train_step, group=dist.group.WORLD)
     else:
         from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
         from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
@@ -154,7 +162,6 @@ def _train(args, device, cluster) -> float:
             raise ValueError(f"--batch_size {args.batch_size} does not split over "
                              f"{mesh.data_size} data-parallel ranks")
         per = args.batch_size // mesh.data_size
-        world, chief = cluster.world_size, cluster.is_chief
         rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)  # this rank's batch rows
         model = TpTransformerLM(cfg, mesh, seed=args.seed, device=device)
         build_step = functools.partial(build_tp_lm_train_step, mesh=mesh)
@@ -200,6 +207,14 @@ def _train(args, device, cluster) -> float:
             if chief:
                 print(json.dumps(record), flush=True)
             timer.mark(i_end)
+    if args.parallelism == "dp" and world > 1:
+        # Replicated parameters: every rank must hold the same bits (the
+        # JAX trainer's check after multi-process dp).
+        from distributed_tensorflow_tpu_torch.parallel.consistency import (
+            check_cross_process_consistency,
+        )
+
+        check_cross_process_consistency(model)
     return loss
 
 

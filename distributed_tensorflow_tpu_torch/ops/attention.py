@@ -44,12 +44,18 @@ for bf16 at head_dim 64 or 128 (:func:`backward_dq_kernel`);
 the warpgroup forward's skeleton for bf16 (:func:`pipe_forward_kernel`).
 So f32, head_dim 32 and K5 at 256 run the plain-design kernels
 (``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_dq.cu``), every other bf16
-call a warpgroup kernel. Each has a plain PyTorch version
-(``*_reference``). The kernels are compiled for head_dim 32, 64, 128 and 256
-(the two-pass dq and pipelining kernels' warpgroup versions for 64 and 128
-only); any other head_dim up to 256 runs zero-padded to the next of those
-(:func:`pad_head_dim`). A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises — there is no fallback between them.
+call up to 256 a warpgroup kernel. Head dims above 256 run the column-group
+family (``flash_fwd_dstream.cu``, ``flash_bwd_dstream.cu`` with or without
+dq, ``flash_bwd_dq_dstream.cu``; bf16 on mma.sync and f32 on FMAs), which
+takes the head dim at run time: a block owns 128 output columns and streams
+q·kᵀ over D in 64-column chunks, and q and k reach it rotated (and q
+scale-folded) by a pass, as a rope pair spans two column groups. Each has a
+plain PyTorch version (``*_reference``). The kernels are compiled for
+head_dim 32, 64, 128 and 256 (the two-pass dq and pipelining kernels'
+warpgroup versions for 64 and 128 only); any other head_dim up to 256 runs
+zero-padded to the next of those, and one above 256 to the next multiple of
+128 (:func:`pad_head_dim`). A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises — there is no fallback between them.
 """
 
 from __future__ import annotations
@@ -80,16 +86,20 @@ KERNEL_LAUNCHES = {
 # (:func:`forward_kernel`), a backward's flash_bwd or flash_bwd_sm90
 # (:func:`backward_kernel`), K5's flash_bwd_dq or flash_bwd_dq_sm90
 # (:func:`backward_dq_kernel`), K9's flash_fwd_pipe or flash_fwd_pipe_sm90
-# (:func:`pipe_forward_kernel`).
+# (:func:`pipe_forward_kernel`); above head_dim 256 each direction runs its
+# column-group source (*_dstream).
 SOURCE_LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd": 0, "flash_bwd_sm90": 0,
     "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_fwd_pipe": 0, "flash_fwd_pipe_sm90": 0,
+    "flash_fwd_dstream": 0, "flash_bwd_dstream": 0, "flash_bwd_dq_dstream": 0,
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # The head dims the kernels are compiled for; any other dh up to the last
-# is zero-padded to the next one (:func:`pad_head_dim`).
+# is zero-padded to the next one (:func:`pad_head_dim`). Above it the
+# column-group kernels take any multiple of _DSTREAM_COLS at run time.
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+_DSTREAM_COLS = 128
 
 
 def _scale(head_dim: int, scale: float | None) -> float:
@@ -97,12 +107,13 @@ def _scale(head_dim: int, scale: float | None) -> float:
 
 
 def _instance_dim(d: int) -> int:
-    """The kernel instance that runs head_dim ``d``: the smallest compiled
-    head dim that holds it."""
+    """The head dim a kernel runs head_dim ``d`` at: the smallest compiled
+    instance that holds it, and above the last one the next multiple of
+    128, which the column-group kernels take (320 -> 384, 512 -> 512)."""
     for n in _KERNEL_HEAD_DIMS:
         if d <= n:
             return n
-    raise ValueError(f"the flash kernels take head_dim up to {_KERNEL_HEAD_DIMS[-1]}, got {d}")
+    return -(-d // _DSTREAM_COLS) * _DSTREAM_COLS
 
 
 def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -495,6 +506,12 @@ _BWD_DQ_ARGTYPES = (
     + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 )
 _BWD_DQ90_ARGTYPES = _BWD_DQ_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]  # + k_rot
+# The column-group sources add their scratches before the stream: q_s and
+# k_rot (forward); q_s, k_rot and the f32 dk sum (fused backward); q_s, k_rot
+# and the f32 dq sum (K5).
+_FWD_DS_ARGTYPES = _FWD_ARGTYPES[:-1] + [ctypes.c_void_p] * 3
+_BWD_DS_ARGTYPES = _BWD_ARGTYPES[:-1] + [ctypes.c_void_p] * 4
+_BWD_DQ_DS_ARGTYPES = _BWD_DQ_ARGTYPES[:-1] + [ctypes.c_void_p] * 4
 
 
 def _kernel_fn(name: str, argtypes):
@@ -534,12 +551,24 @@ def _dims(q, k):
 _SM90_HEAD_DIMS = (64, 128, 256)
 
 
+def _dstream_scratch(q, k, cos):
+    """The column-group kernels' prepare-pass outputs: q rotated and
+    scale-folded, contiguous (B, H, Sq, D), and under rope k rotated,
+    contiguous (B, KV, Skv, D) (else None)."""
+    q_s = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    k_rot = None if cos is None else torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    return q_s, k_rot
+
+
 def forward_kernel(dtype: torch.dtype, d: int) -> str:
-    """The source of the forward kernel that runs a call: bf16 at head_dim
-    64, 128 or 256 goes to the warpgroup (wgmma) kernel
+    """The source of the forward kernel that runs a call: head_dim above 256
+    goes to the column-group kernel ``csrc/flash_fwd_dstream.cu`` in either
+    dtype; bf16 at head_dim 64, 128 or 256 to the warpgroup (wgmma) kernel
     ``csrc/flash_fwd_sm90.cu`` (two warpgroups a block at 256); f32 and
     head_dim 32 stay on ``csrc/flash_fwd.cu``. ``d`` is the instance the call
     runs at (after padding)."""
+    if d > _KERNEL_HEAD_DIMS[-1]:
+        return "flash_fwd_dstream"
     if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
         return "flash_fwd_sm90"
     return "flash_fwd"
@@ -565,12 +594,15 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
         return
     strides = _strides(q, k, v, out)
     source = forward_kernel(q.dtype, d)
-    extra = ()
+    extra, argtypes = (), _FWD_ARGTYPES
     if source == "flash_fwd_sm90":
         if cos is not None and k_rot is None:
             k_rot = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-        extra = (_ptr(k_rot),)
-    fn = _kernel_fn(source, _FWD90_ARGTYPES if extra else _FWD_ARGTYPES)
+        extra, argtypes = (_ptr(k_rot),), _FWD90_ARGTYPES
+    elif source == "flash_fwd_dstream":
+        q_s, k_rot = _dstream_scratch(q, k, cos)  # held until the launch returns
+        extra, argtypes = (_ptr(q_s), _ptr(k_rot)), _FWD_DS_ARGTYPES
+    fn = _kernel_fn(source, argtypes)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
@@ -617,13 +649,17 @@ def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None
 
 
 def backward_kernel(dtype: torch.dtype, d: int, want_dq: bool) -> str:
-    """The source of the fused backward kernel that runs a call: bf16 at
-    head_dim 64, 128 or 256 goes to the warpgroup (wgmma) kernel
+    """The source of the fused backward kernel that runs a call: head_dim
+    above 256 goes to the column-group kernel ``csrc/flash_bwd_dstream.cu``
+    in either dtype, with dq or without (K6); bf16 at head_dim 64, 128 or
+    256 to the warpgroup (wgmma) kernel
     ``csrc/flash_bwd_sm90.cu`` (at 256 a 64-row kv tile a block, dK and dV
     split by columns over its two warpgroups), with dq (K2/K4/K8) or without
     (the two-pass pair's dk/dv half, K6, which compiles the dQ product out);
     f32 and head_dim 32 stay on ``csrc/flash_bwd.cu``. ``d`` is the instance
     the call runs at (after padding)."""
+    if d > _KERNEL_HEAD_DIMS[-1]:
+        return "flash_bwd_dstream"
     if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
         return "flash_bwd_sm90"
     return "flash_bwd"
@@ -660,14 +696,19 @@ def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,
         delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, out, g, dk if dq is None else dq, dk, dv)
     source = backward_kernel(q.dtype, d, dq is not None)
-    fn = _kernel_fn(source, _BWD_ARGTYPES)
+    extra, argtypes = (), _BWD_ARGTYPES
+    if source == "flash_bwd_dstream":
+        q_s, k_rot = _dstream_scratch(q, k, cos)
+        dk_acc = torch.empty(dk.shape, dtype=torch.float32, device=q.device)
+        extra, argtypes = (_ptr(q_s), _ptr(k_rot), _ptr(dk_acc)), _BWD_DS_ARGTYPES
+    fn = _kernel_fn(source, argtypes)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(g), _ptr(lse), _ptr(cos), _ptr(sin),
             _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_acc), _ptr(delta), ctypes.addressof(strides),
             *_dims(q, k), int(q.dtype == torch.bfloat16), int(causal), window or 0,
-            q_pos_offset, _table_stride(cos), scale, stream,
+            q_pos_offset, _table_stride(cos), scale, *extra, stream,
         )
         KERNEL_LAUNCHES[counter] += 1
         SOURCE_LAUNCHES[source] += 1
@@ -675,11 +716,14 @@ def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,
 
 
 def backward_dq_kernel(dtype: torch.dtype, d: int) -> str:
-    """The source of the two-pass dq kernel (K5) that runs a call: bf16 at
-    head_dim 64 or 128 goes to the warpgroup (wgmma) kernel
-    ``csrc/flash_bwd_dq_sm90.cu``; f32, head_dim 32 and head_dim 256 stay
-    on ``csrc/flash_bwd_dq.cu``. ``d`` is the instance the call runs at
+    """The source of the two-pass dq kernel (K5) that runs a call: head_dim
+    above 256 goes to the column-group kernel ``csrc/flash_bwd_dq_dstream.cu``
+    in either dtype; bf16 at head_dim 64 or 128 to the warpgroup (wgmma)
+    kernel ``csrc/flash_bwd_dq_sm90.cu``; f32, head_dim 32 and head_dim 256
+    stay on ``csrc/flash_bwd_dq.cu``. ``d`` is the instance the call runs at
     (after padding)."""
+    if d > _KERNEL_HEAD_DIMS[-1]:
+        return "flash_bwd_dq_dstream"
     if dtype == torch.bfloat16 and d in (64, 128):
         return "flash_bwd_dq_sm90"
     return "flash_bwd_dq"
@@ -703,11 +747,15 @@ def _launch_backward_dq(q, k, v, g, lse, delta, dq, causal, window, q_pos_offset
         return
     strides = _strides(q, k, v, g, dq)
     source = backward_dq_kernel(q.dtype, d)
-    extra = ()
+    extra, argtypes = (), _BWD_DQ_ARGTYPES
     if source == "flash_bwd_dq_sm90":
         k_rot = None if cos is None else torch.empty(k.shape, dtype=k.dtype, device=k.device)
-        extra = (_ptr(k_rot),)
-    fn = _kernel_fn(source, _BWD_DQ90_ARGTYPES if extra else _BWD_DQ_ARGTYPES)
+        extra, argtypes = (_ptr(k_rot),), _BWD_DQ90_ARGTYPES
+    elif source == "flash_bwd_dq_dstream":
+        q_s, k_rot = _dstream_scratch(q, k, cos)
+        dq_acc = torch.empty(dq.shape, dtype=torch.float32, device=q.device)
+        extra, argtypes = (_ptr(q_s), _ptr(k_rot), _ptr(dq_acc)), _BWD_DQ_DS_ARGTYPES
+    fn = _kernel_fn(source, argtypes)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
@@ -796,7 +844,6 @@ def _backward_by_route(whole, segment, q, k, v, out, g, lse, dq, dk, dv, causal,
 def _check_kernel_operands(qkv, h, kv, causal, window, cos, sin, *others):
     b, sq, width, d = _qkv_dims(qkv, h, kv)
     _check_window(causal, window)
-    _instance_dim(d)
     if qkv.device.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {qkv.device}")
     if qkv.dtype not in _KERNEL_DTYPES:
@@ -926,7 +973,6 @@ def _check_bhsd_kernel_operands(q, k, v, causal, window, *others, cos=None, sin=
                                 q_pos_offset=None):
     b, h, sq, skv, d = _bhsd_dims(q, k, v)
     _check_window(causal, window)
-    _instance_dim(d)
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {q.device}")
     if q.dtype not in _KERNEL_DTYPES:

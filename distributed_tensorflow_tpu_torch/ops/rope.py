@@ -22,7 +22,11 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float = 10000.0)
         -torch.arange(half, dtype=torch.float32, device=positions.device) / half
     )
     ang = positions.to(torch.float32)[..., None] * inv_freq
-    return torch.cos(ang), torch.sin(ang)
+    # cos and sin of the f32 angles are taken in f64 and rounded to f32:
+    # torch's vectorised f32 cos on AVX-512 CPUs was seen to return some
+    # processes' tables off by up to 1.5e-4.
+    ang = ang.to(torch.float64)
+    return torch.cos(ang).to(torch.float32), torch.sin(ang).to(torch.float32)
 
 
 def rope_tables(head_dim: int, seq_len: int, theta: float = 10000.0,

@@ -1,29 +1,57 @@
-"""LM train step.
+"""LM train step, on one device or data-parallel over a process group.
 
 Counterpart of ``build_lm_train_step`` in
-``distributed_tensorflow_tpu/parallel/data_parallel.py``. This slice runs on
-one device; gradient averaging across GPUs (``torch.distributed``) comes
-with multi-GPU data parallelism in a later slice.
+``distributed_tensorflow_tpu/parallel/data_parallel.py``: each rank takes
+its rows of the global batch, and the loss and every gradient are averaged
+over the group before the optimizer step — the mean of the JAX step's
+``lax.pmean`` over its mesh — so every rank applies the same update and the
+replicas stay bitwise equal (``parallel/consistency.py`` checks that).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.models.transformer import next_token_loss
 
 
-def build_lm_train_step(model: torch.nn.Module, opt):
+def mean_over_group(loss: torch.Tensor, grads: list[torch.Tensor], group, size: int):
+    """The mean over ``group`` (``size`` ranks) of ``loss`` and of every
+    tensor of ``grads`` (written back in place), in one all-reduce of the
+    flattened values. Returns the mean loss. One flat all-reduce: for the
+    flagship split data 2 x model 2, a 0.8 GB copy each way per step, which
+    measured no slower than reducing each gradient in place on four H100s."""
+    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= size
+    at = 1
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return flat[0]
+
+
+def build_lm_train_step(model: torch.nn.Module, opt, group=None):
     """``step(tokens) -> {"loss"}``: one optimizer step of next-token
     cross-entropy on ``tokens`` (B, S) on the model's device. ``opt`` is a
-    ``train.optimizers.Optimizer``. The loss comes back as a device scalar:
-    the step never waits for the device."""
+    ``train.optimizers.Optimizer``. With ``group`` (a process group, e.g.
+    ``dist.group.WORLD``) of more than one rank, ``tokens`` are this rank's
+    rows and the loss and gradients are averaged over the group
+    (:func:`mean_over_group`); with none, or a world of one, the step
+    reduces nothing. The loss comes back as a device scalar: the step never
+    waits for the device."""
+    size = 1 if group is None else dist.get_world_size(group)
+    params = list(model.parameters())
 
     def step(tokens: torch.Tensor) -> dict[str, torch.Tensor]:
         opt.zero_grad()
         loss = next_token_loss(model(tokens), tokens)
         loss.backward()
+        loss = loss.detach()
+        if size > 1:
+            loss = mean_over_group(loss, [p.grad for p in params], group, size)
         opt.step()
-        return {"loss": loss.detach()}
+        return {"loss": loss}
 
     return step

@@ -38,6 +38,10 @@ pytestmark = pytest.mark.torch_port
     ((torch.float32, 32), "flash_fwd"),
     ((torch.bfloat16, 256), "flash_fwd_sm90"),
     ((torch.float32, 256), "flash_fwd"),
+    ((torch.bfloat16, 384), "flash_fwd_dstream"),
+    ((torch.bfloat16, 512), "flash_fwd_dstream"),
+    ((torch.float32, 384), "flash_fwd_dstream"),
+    ((torch.float32, 512), "flash_fwd_dstream"),
 ])
 def test_forward_kernel_dispatch(case):
     args, want = case

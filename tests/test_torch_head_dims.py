@@ -2,7 +2,9 @@
 (bf16 at 64, 128 and 256 on the warpgroup forward and fused backward).
 
 The CUDA kernels are compiled for head_dim 32, 64, 128 and 256; any other
-head_dim up to 256 runs zero-padded to the next of those. What makes that
+head_dim up to 256 runs zero-padded to the next of those, and any head_dim
+above 256 zero-padded to the next multiple of 128 on the column-group
+kernels (``*_dstream``), which take the head dim at run time. What makes that
 exact is checked here on the CPU through the plain versions: the padded call
 at the real head_dim's scale equals the unpadded one (f32, 1e-6 relative),
 and the rope pairing survives only the half-by-half pad. The port is held
@@ -102,8 +104,9 @@ def test_pad_round_trips_and_instances():
     assert TA.pad_head_dim(x, 80) is x
     assert [TA._instance_dim(d) for d in (8, 32, 33, 64, 80, 96, 128, 129, 160, 192, 256)] == [
         32, 32, 64, 64, 128, 128, 128, 256, 256, 256, 256]
-    with pytest.raises(ValueError, match="up to 256, got 320"):
-        TA._instance_dim(320)
+    # Above 256: the next multiple of 128, which the column-group kernels take.
+    assert [TA._instance_dim(d) for d in (257, 300, 320, 384, 385, 512, 1000, 1024)] == [
+        384, 384, 384, 384, 512, 512, 1024, 1024]
     cos, sin = TR.rope_tables(80, 5)
     pc, ps = TA.pad_rope_tables(cos, sin, 128)
     assert pc.shape == (1, 5, 64) and torch.equal(pc[..., :40], cos)
@@ -112,13 +115,14 @@ def test_pad_round_trips_and_instances():
 
 
 def test_kernel_wrappers_reject_head_dims_above_128():
-    """The kernels take head_dim up to 256 (the name is the test's from when
-    the limit was 128): one head of 320 is refused before the device."""
+    """The kernels take any head_dim (the name is the test's from when the
+    limit was 128): one head of 320 passes the head-dim checks and is
+    refused only for lying on the CPU, which the kernels do not take."""
     x = torch.zeros(1, 8, 3 * 320)
-    with pytest.raises(ValueError, match="head_dim up to 256, got 320"):
+    with pytest.raises(ValueError, match="take CUDA tensors, got cpu"):
         TA.flash_forward_qkv_kernel(x, 1, 1, True, None, None, None, None)
     q = torch.zeros(1, 1, 8, 320)
-    with pytest.raises(ValueError, match="head_dim up to 256, got 320"):
+    with pytest.raises(ValueError, match="take CUDA tensors, got cpu"):
         TA.flash_forward_kernel(q, q, q, True)
 
 
@@ -134,6 +138,12 @@ def test_kernel_wrappers_reject_head_dims_above_128():
     ((torch.bfloat16, 256, False), "flash_bwd_sm90"),
     ((torch.float32, 256, True), "flash_bwd"),
     ((torch.float32, 256, False), "flash_bwd"),
+    ((torch.bfloat16, 384, True), "flash_bwd_dstream"),
+    ((torch.bfloat16, 512, True), "flash_bwd_dstream"),
+    ((torch.float32, 384, True), "flash_bwd_dstream"),
+    ((torch.float32, 512, True), "flash_bwd_dstream"),
+    ((torch.bfloat16, 512, False), "flash_bwd_dstream"),
+    ((torch.float32, 384, False), "flash_bwd_dstream"),
 ])
 def test_backward_kernel_dispatch(case):
     args, want = case
@@ -147,10 +157,14 @@ def test_backward_kernel_dispatch(case):
     ((torch.float32, 64), "flash_bwd_dq"),
     ((torch.bfloat16, 32), "flash_bwd_dq"),
     ((torch.bfloat16, 256), "flash_bwd_dq"),
+    ((torch.bfloat16, 384), "flash_bwd_dq_dstream"),
+    ((torch.bfloat16, 512), "flash_bwd_dq_dstream"),
+    ((torch.float32, 384), "flash_bwd_dq_dstream"),
+    ((torch.float32, 512), "flash_bwd_dq_dstream"),
 ])
 def test_backward_dq_kernel_dispatch(case):
     """K5: bf16 at 64/128 on the warpgroup kernel; f32, 32 and 256 on the
-    plain-design one."""
+    plain-design one; above 256 on the column-group kernel in both dtypes."""
     args, want = case
     assert TA.backward_dq_kernel(*args) == want
 
