@@ -63,12 +63,17 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  q segments, K5, K6 and its delta, 4 heads), and planted
                  faults: a
                  dropped kv tile in each product and one warpgroup's column
-                 half of dK zeroed. Every bf16 launch at 160-256 must run
-                 flash_fwd_sm90.cu or flash_bwd_sm90.cu (K5 flash_bwd_dq.cu),
-                 every f32 one flash_fwd.cu, flash_bwd.cu or flash_bwd_dq.cu.
+                 half of dK zeroed; K5 on the warpgroup dq kernel at Gemma
+                 7B's width with rope, with GQA + window, and with a
+                 dropped kv tile and one warpgroup's column half of dq.
+                 Every bf16 launch at 160-256 must run flash_fwd_sm90.cu,
+                 flash_bwd_sm90.cu or flash_bwd_dq_sm90.cu, every f32 one
+                 flash_fwd.cu, flash_bwd.cu or flash_bwd_dq.cu.
                  Head dims above 256, on the column-group kernels
                  (flash_fwd_dstream.cu, flash_bwd_dstream.cu with and
-                 without dq, flash_bwd_dq_dstream.cu), in bf16 and f32:
+                 without dq, flash_bwd_dq_dstream.cu; the bf16 forward at
+                 384 and 512 on the warpgroup kernel
+                 flash_fwd_cols_sm90.cu), in bf16 and f32:
                  320, 384 and 512, 300 without rope and 257 (odd, padded at
                  the tail), packed GQA + window + rope, BHSD cross-length
                  with a window and non-causal, fully masked rows, the long
@@ -76,8 +81,17 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  cross-length + rope, K4 on q segments against one whole
                  call; planted faults at 512 (a dropped kv tile in each
                  product, one column group's P·V and one D chunk of q·kᵀ
-                 dropped) and the D 512 call the timing phase times; every
-                 launch on a column-group source;
+                 dropped) and the D 512 call the timing phase times; the
+                 warpgroup forward from dh 320 and at 384/512 with GQA +
+                 window + rope, on a q segment, with fully masked rows,
+                 non-causal, and planted faults (one warpgroup's half of
+                 P·V, one D half of q·kᵀ), K10 on head views at 512, and
+                 bf16 at 640 on the column-group forward; every launch on
+                 the source its dtype and head dim name. Then K9 at dh 80
+                 (padded to 128), 256 and 320 (the shipped forward), bf16
+                 and f32, against its plain version and against K3 (bit
+                 for bit or not, recorded), with fully masked rows,
+                 non-causal and a planted fault at 256;
   4. main      — the trainer (cli/train_lm.py) for 6 steps on each main path:
                  dp and tp (--model_parallel 1, a world of one) at the bench
                  flagship's full width and depth (d_model 2048, 16 heads, 8
@@ -100,7 +114,7 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  steps each; then `d512`, the flagship's width over 4 heads
                  of 512 (lr 1e-4, 6 steps, its loss falling): exactly 8 K1,
                  8 K5 and 8 K6 launches a step (the gate's two-pass route at
-                 head_dim 512), on flash_fwd_dstream.cu,
+                 head_dim 512), on flash_fwd_cols_sm90.cu,
                  flash_bwd_dq_dstream.cu and flash_bwd_dstream.cu;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
@@ -137,11 +151,16 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  `wide` call, K1/K2 at head_dim 32 (the CLI's call, with each
                  call's device time by the profiler beside the back-to-back
                  reading), the three backward routes of one long layer, and
-                 the column-group rows: K1, K2, K5 and K6 at head_dim 512 (B
-                 2, S 2048, 4 heads, packed qkv), K8 at head_dim 320 on the
-                 last of its two q segments, with SDPA's kernels' names (it
-                 has no flash backend above 256), and K5 at head_dim 256
-                 (flash_bwd_dq.cu, Gemma 7B's width);
+                 the rows above 256: K1 (flash_fwd_cols_sm90.cu, against
+                 flash_fwd_dstream.cu in turns), K2, K5 and K6 at head_dim
+                 512 (B 2, S 2048, 4 heads, packed qkv), K8 at head_dim 320
+                 on the last of its two q segments, K1 at head_dim 320 (in
+                 turns too), with SDPA's kernels' names (it has no flash
+                 backend above 256), and K5 at head_dim 256
+                 (flash_bwd_dq_sm90.cu against flash_bwd_dq.cu in turns,
+                 Gemma 7B's width); and one layer's backward at the `wide`
+                 call through each of the three routes (K2 whole, K8 on
+                 eight segments, K6 + K5), forced through the gate's hooks;
   7. probes    — the two kernel probes (tools/pipeline_probe.py and
                  tools/bshd_probe.py of the port): K9, the forward in the
                  probe's issue order (flash_fwd_pipe_sm90.cu in bf16),
@@ -151,7 +170,8 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  of its P.V (the tile its last step handles), within
                  PARITY_TOL of K3 (and whether bit for bit), against
                  flash_fwd_pipe.cu in turns, and against K3 in turns — the
-                 probe's verdict on which issue order wins; K10, the
+                 probe's verdict on which issue order wins (and the same,
+                 but the old kernel, at head_dim 256, Gemma 7B's width); K10, the
                  forward on (B, S, H·dh) views, equal bit for bit to K3 on a
                  contiguous copy and held against its plain version; both
                  timed like phase 6; then each probe's main() as a
@@ -254,24 +274,29 @@ REPLACES.update({row: REPLACES["flash_fwd"] for row in (
     "flash_fwd_rope", "flash_fwd_d256", "flash_fwd_d32", "flash_fwd_rope_d256_wide")})
 REPLACES.update({row: REPLACES["flash_bwd"] for row in ("flash_bwd_d256", "flash_bwd_d32")})
 REPLACES["bshd_bwd_d256_wide"] = REPLACES["bshd_bwd"]
-# The column-group kernels' rows: K1, K2, K5 and K6 at head_dim 512, K8 at 320
-# (padded to 384), and K5 at 256 on the plain design.
+# The rows above head_dim 256: K1 at 512 and 320 (padded to 384) on the
+# warpgroup forward flash_fwd_cols_sm90.cu, K2, K5 and K6 at 512 and K8 at
+# 320 on the column-group kernels; K5 at 256 on the warpgroup dq kernel; K9
+# at 256.
 REPLACES.update({"flash_fwd_d512": REPLACES["flash_fwd"], "flash_bwd_d512": REPLACES["flash_bwd"],
                  "bwd_dq_d512": REPLACES["bwd_dq"], "bwd_dkv_d512": REPLACES["bwd_dkv"],
-                 "bshd_bwd_d320": REPLACES["bshd_bwd"], "bwd_dq_d256": REPLACES["bwd_dq"]})
+                 "bshd_bwd_d320": REPLACES["bshd_bwd"], "bwd_dq_d256": REPLACES["bwd_dq"],
+                 "flash_fwd_d320": REPLACES["flash_fwd"], "pipe_fwd_d256": REPLACES["pipe_fwd"]})
 # The wrappers' launch counters and the source each one launches at the
 # main paths' calls (bf16, head_dim 64, 128 or 256): every layout goes
 # through one forward and one fused backward kernel, as the TPU's do — the
 # warpgroup kernels flash_fwd_sm90.cu and flash_bwd_sm90.cu
 # (attention.forward_kernel, attention.backward_kernel; f32 and head_dim 32
 # calls take flash_fwd.cu and flash_bwd.cu); the two-pass pair is
-# flash_bwd_dq_sm90.cu (K5; attention.backward_dq_kernel, f32, D 32 and D
-# 256 on flash_bwd_dq.cu) and flash_bwd_sm90.cu with dq compiled out (K6).
+# flash_bwd_dq_sm90.cu (K5; attention.backward_dq_kernel, f32 and D 32 on
+# flash_bwd_dq.cu) and flash_bwd_sm90.cu with dq compiled out (K6).
 # The BSHD probe (K10) is the forward on head views; the pipelining probe
 # (K9) has a kernel of its own, flash_fwd_pipe_sm90.cu in bf16
 # (attention.pipe_forward_kernel; f32 on flash_fwd_pipe.cu). The head_dim 32
-# rows run the plain-design kernels. A main path's launches by source must
-# be exactly what this map makes of its launches by wrapper.
+# rows run the plain-design kernels; above 256 the bf16 forward at 384 and
+# 512 runs flash_fwd_cols_sm90.cu, the backward the column-group kernels. A
+# main path's launches by source must be exactly what this map makes of its
+# launches by wrapper.
 SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
            "bshd_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90",
            "bhsd_bwd": "flash_bwd_sm90", "bshd_bwd": "flash_bwd_sm90",
@@ -280,15 +305,20 @@ SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
            "flash_fwd_rope": "flash_fwd_sm90", "flash_fwd_d256": "flash_fwd_sm90",
            "flash_bwd_d256": "flash_bwd_sm90", "flash_fwd_rope_d256_wide": "flash_fwd_sm90",
            "bshd_bwd_d256_wide": "flash_bwd_sm90", "flash_fwd_d32": "flash_fwd",
-           "flash_bwd_d32": "flash_bwd", "flash_fwd_d512": "flash_fwd_dstream",
+           "flash_bwd_d32": "flash_bwd", "flash_fwd_d512": "flash_fwd_cols_sm90",
            "flash_bwd_d512": "flash_bwd_dstream", "bwd_dq_d512": "flash_bwd_dq_dstream",
            "bwd_dkv_d512": "flash_bwd_dstream", "bshd_bwd_d320": "flash_bwd_dstream",
-           "bwd_dq_d256": "flash_bwd_dq"}
+           "bwd_dq_d256": "flash_bwd_dq_sm90", "flash_fwd_d320": "flash_fwd_cols_sm90",
+           "pipe_fwd_d256": "flash_fwd_pipe_sm90"}
 # The sources `wide`'s "was" run forces: the plain-design kernels.
 PLAIN_DESIGN = {"flash_fwd_sm90": "flash_fwd", "flash_bwd_sm90": "flash_bwd"}
-# Where every launch above head_dim 256 goes instead: the column-group kernels.
-DSTREAM = {"flash_fwd_sm90": "flash_fwd_dstream", "flash_bwd_sm90": "flash_bwd_dstream",
+# Where every bf16 launch at head_dim 384 or 512 goes instead: the forward to
+# the warpgroup kernel flash_fwd_cols_sm90.cu, the backward to the
+# column-group kernels. f32 above 256 runs the column-group forward too
+# (DSTREAM_F32).
+DSTREAM = {"flash_fwd_sm90": "flash_fwd_cols_sm90", "flash_bwd_sm90": "flash_bwd_dstream",
            "flash_bwd_dq_sm90": "flash_bwd_dq_dstream"}
+DSTREAM_F32 = dict(DSTREAM, flash_fwd_sm90="flash_fwd_dstream")
 # Each main path: its trainer flags, its launches per layer per step (every
 # other counter must stay at 0) and the map of SOURCES' sources to those its
 # launches run instead (None: SOURCES as it stands). The long path's
@@ -360,8 +390,15 @@ def phase_build():
         for rec in _ptxas_instances(_build.build_log(name)):
             if "ILi256E" in rec["entry"] or "cols_kernel" in rec["entry"]:
                 emit(phase="build", kernel=name, head_dim=256, **rec)
-    # The column-group kernels (head_dim above 256, taken at run time).
-    for name in DSTREAM.values():
+    # The head_dim 256 instances of K5 and K9 (the f32 K9 on flash_fwd_pipe.cu).
+    for name, key in (("flash_bwd_dq_sm90", "cols_kernel"), ("flash_fwd_pipe_sm90", "Li256E"),
+                      ("flash_fwd_pipe", "Li256E")):
+        for rec in _ptxas_instances(_build.build_log(name)):
+            if key in rec["entry"]:
+                emit(phase="build", kernel=name, head_dim=256, **rec)
+    # The kernels above head_dim 256: the column-group kernels (head dim taken
+    # at run time) and the warpgroup forward at 384 and 512.
+    for name in sorted(set(DSTREAM.values()) | set(DSTREAM_F32.values())):
         for rec in _ptxas_instances(_build.build_log(name)):
             emit(phase="build", kernel=name, head_dim="above 256", **rec)
 
@@ -519,20 +556,30 @@ def compare_bhsd(case, b, h, sq, skv, d, dtype, causal=True, window=None, bshd=F
 
 
 def column_group_controls(case, q, k, v, out, ref_out):
-    """The faults a column-group kernel (head_dim above 256) can make, planted
-    into the last 64-row q tile of head (0, 0) of its forward's out: one
-    column group's P·V dropped (its 128 columns of out zero), and one
-    64-column chunk of D dropped from q·kᵀ (those rows as the plain forward
-    gives them with that chunk of q zeroed). The blockwise check must catch
-    both (causal, Sq == Skv, no window, no rope)."""
-    rows = slice(q.shape[2] - BLOCK_ROWS, q.shape[2])
-    q_drop = q.clone()
-    q_drop[..., 128:192] = 0  # the third chunk, in the second column group
-    dropped = A.flash_forward_reference(q_drop[:1, :1], k[:1, :1], v[:1, :1], True)[0]
+    """The faults a kernel above head_dim 256 can make, planted into the last
+    64-row q tile of head (0, 0) of its forward's out: one column group's
+    P·V dropped (its 128 columns of out zero), one 64-column chunk of D
+    dropped from q·kᵀ (those rows as the plain forward gives them with that
+    chunk of q zeroed), and, for the warpgroup forward's split, one
+    warpgroup's half of P·V (out's columns [D/2, D) zero) and one D half of
+    q·kᵀ (q's columns [D/2, D) zeroed). The blockwise check must catch each
+    (causal, Sq == Skv, no window, no rope)."""
+    rows, half = slice(q.shape[2] - BLOCK_ROWS, q.shape[2]), q.shape[3] // 2
+
+    def plain_without(cols):
+        q_drop = q[:1, :1].clone()
+        q_drop[..., cols] = 0
+        return A.flash_forward_reference(q_drop, k[:1, :1], v[:1, :1], True)[0]
+
+    chunk, d_half = plain_without(slice(128, 192)), plain_without(slice(half, None))
     kind = "out"
     for name, plant in (("out: one column group's P.V", lambda t: t[0, 0, rows, 128:256].zero_()),
                         ("out: one D chunk of q.k^T", lambda t: t[0, 0, rows].copy_(
-                            dropped[0, 0, rows].float()))):
+                            chunk[0, 0, rows].float())),
+                        ("out: one warpgroup's half of P.V",
+                         lambda t: t[0, 0, rows, half:].zero_()),
+                        ("out: one D half of q.k^T", lambda t: t[0, 0, rows].copy_(
+                            d_half[0, 0, rows].float()))):
         bad = out.to(torch.float32, copy=True)
         plant(bad)
         _, rel = _err(bad, ref_out)
@@ -545,11 +592,11 @@ def column_group_controls(case, q, k, v, out, ref_out):
             fail(f"{case}: the blockwise check misses the planted fault {name}")
 
 
-def column_half_control(case, dk, ref_dk):
-    """The fault a column split can make: the second warpgroup's half of dK
-    (columns [64, 128) and [192, 256) at head_dim 256) zeroed for one
-    64-row kv tile, the middle one of head (0, 0), which the blockwise
-    check must catch."""
+def column_half_control(case, dk, ref_dk, name="dk"):
+    """The fault a column split can make: the second warpgroup's half of a
+    gradient (``name``: dK of the fused backward, dq of K5; columns [64, 128)
+    and [192, 256) at head_dim 256) zeroed for one 64-row tile, the middle
+    one of head (0, 0), which the blockwise check must catch."""
     bad = dk.to(torch.float32, copy=True)
     rows = slice(dk.shape[2] // 2, dk.shape[2] // 2 + BLOCK_ROWS)
     bad[0, 0, rows, 64:128] = 0
@@ -557,11 +604,11 @@ def column_half_control(case, dk, ref_dk):
     _, rel = _err(bad, ref_dk)
     block = _block_err(bad, ref_dk)
     caught = block > BLOCK_TOL[dk.dtype]["dqkv"]
-    emit(phase="kernels", case=case, control="dk: one warpgroup's column half", rel_err=rel,
+    emit(phase="kernels", case=case, control=f"{name}: one warpgroup's column half", rel_err=rel,
          tol=TOL[dk.dtype]["dqkv"], passes_max_rule=rel <= TOL[dk.dtype]["dqkv"], block_err=block,
          block_tol=BLOCK_TOL[dk.dtype]["dqkv"], caught=caught)
     if not caught:
-        fail(f"{case}: the blockwise check misses a zeroed column half of dK")
+        fail(f"{case}: the blockwise check misses a zeroed column half of {name}")
 
 
 def fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads,
@@ -611,14 +658,17 @@ def fault_controls(case, q, k, v, g, out, lse, grads, ref_out, ref_grads,
 
 def compare_fwd(case, b, h, kv, sq, skv, d, causal=True, window=None, rope=False,
                 q_pos_offset=None, seed=0, controls=False):
-    """The warpgroup forward (bf16, one launch on flash_fwd_sm90.cu) against
-    its plain version on (B, H, Sq, D) q and (B, KV, Skv, D) k, v: out by the
-    max-based and blockwise limits, lse by its absolute limit, and rows that
-    attend nothing exactly 0 with lse at NEG_INF. Rope tables of Skv rows are
-    read at each row's position (q row i at i + q_pos_offset). With
-    ``controls`` the last 64-key tile of the last q tile, which the kernel's
-    last step multiplies with no next product in flight, is dropped from P·V
-    as a planted fault that must be caught. Returns out's max abs error."""
+    """The warpgroup forward (bf16, one launch on the source
+    attention.forward_kernel names: flash_fwd_sm90.cu up to head_dim 256,
+    flash_fwd_cols_sm90.cu at 384 and 512) against its plain version on (B,
+    H, Sq, D) q and (B, KV, Skv, D) k, v: out by the max-based and blockwise
+    limits, lse by its absolute limit, and rows that attend nothing exactly
+    0 with lse at NEG_INF. Rope tables of Skv rows are read at each row's
+    position (q row i at i + q_pos_offset). With ``controls`` the last 64-key
+    tile of the last q tile, which the kernel's last step multiplies with no
+    next product in flight, is dropped from P·V as a planted fault that must
+    be caught, and above 256 column_group_controls' faults too. Returns
+    out's max abs error."""
     from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
 
     dtype = torch.bfloat16
@@ -629,11 +679,12 @@ def compare_fwd(case, b, h, kv, sq, skv, d, causal=True, window=None, rope=False
     if rope:
         cos, sin = rope_tables(d, skv, 10000.0, device="cuda")
     args = (causal, window, None, q_pos_offset, cos, sin)
-    before = A.SOURCE_LAUNCHES["flash_fwd_sm90"]
+    source = A.forward_kernel(dtype, A._instance_dim(d))
+    before = A.SOURCE_LAUNCHES[source]
     out, lse = A.flash_forward_kernel(q, k, v, *args)
     torch.cuda.synchronize()
-    if A.SOURCE_LAUNCHES["flash_fwd_sm90"] != before + 1:
-        fail(f"{case}: the call did not run flash_fwd_sm90.cu")
+    if A.SOURCE_LAUNCHES[source] != before + 1:
+        fail(f"{case}: the call did not run {source}.cu")
     ref_out, ref_lse = A.flash_forward_reference(q, k, v, *args)
     if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
         fail(f"{case}: non-finite out or lse")
@@ -643,6 +694,8 @@ def compare_fwd(case, b, h, kv, sq, skv, d, causal=True, window=None, rope=False
     if controls:
         fault_controls(case, q, k, v, None, out, lse, None, ref_out, None,
                        products=("out: P.V",), keys=slice(sq - BLOCK_ROWS, sq))
+        if d > 256:
+            column_group_controls(case, q, k, v, out, ref_out)
     return err
 
 
@@ -771,8 +824,9 @@ def phase_head_dims():
     forward and backward, packed qkv and BHSD, bf16 and f32, against the
     plain versions at the real head_dim. Then head_dim
     256 and 160/192 (padded to 256) in bf16, where every launch runs the
-    warpgroup kernels flash_fwd_sm90.cu and flash_bwd_sm90.cu (K5 stays on
-    flash_bwd_dq.cu): K1/K2 at Gemma 7B's width, packed GQA + rope (and +
+    warpgroup kernels flash_fwd_sm90.cu, flash_bwd_sm90.cu and
+    flash_bwd_dq_sm90.cu (compare_k5 holds K5 at Gemma 7B's width with rope,
+    GQA + window and planted faults): K1/K2 at Gemma 7B's width, packed GQA + rope (and +
     window) at a ragged length, K3/K4 with fully masked rows, cross-length,
     window and non-causal with planted faults, K4 on q segments against one
     whole call, the forward's own cases and rotate pass, and K5-K8 with GQA,
@@ -822,6 +876,19 @@ def phase_head_dims():
     compare_long("wide_segment_call_long_family", 1, 4, 4, WIDE["seq_len"], WIDE["seq_len"], 256,
                  bf, rope=True, segments=8, seed=82, theta=WIDE["rope_theta"])
     torch.cuda.empty_cache()
+    # K5 on the warpgroup dq kernel at 256: Gemma 7B's width (16 heads of
+    # 256, seq 2048) with rope, with GQA and a window, and with planted
+    # faults; the long family's cases below run it with GQA + window + rope
+    # cross-length and with fully masked rows, and compare_long's controls
+    # with its dropped tile and column half.
+    compare_k5("k5_d256_gemma_width_rope", gm["batch_size"], gm["seq_len"], gm["num_heads"],
+               gm["num_heads"], 256, rope=True, seed=85)
+    compare_k5("k5_d256_gemma_width_gqa_window", gm["batch_size"], gm["seq_len"], gm["num_heads"],
+               4, 256, window=1024, seed=86)
+    compare_k5("k5_d256_gemma_width_controls", gm["batch_size"], gm["seq_len"], gm["num_heads"],
+               gm["num_heads"], 256, seed=87, controls=True)
+    compare_long("long_d256_controls", 1, 4, 1, 2048, 2048, 256, bf, seed=88, controls=True)
+    torch.cuda.empty_cache()
 
     def families(dtype):
         compare("packed_d256_gqa_rope_ragged", 2, 200, 4, 2, 256, dtype, rope=True, seed=65)
@@ -833,7 +900,7 @@ def phase_head_dims():
         compare_long("long_d256_fully_masked_rows", 2, 4, 4, 200, 72, 256, dtype, seed=70)
 
     families(bf)
-    _head_dim_sources("d160_256_bf16", ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq"))
+    _head_dim_sources("d160_256_bf16", ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90"))
     _zero_counts()
     families(torch.float32)
     _head_dim_sources("d160_256_f32", ("flash_fwd", "flash_bwd", "flash_bwd_dq"))
@@ -867,10 +934,73 @@ def compare_two_pass(case, b, s, h, d, seed):
     return errs, (q, k, v, o4, lse, go, delta)
 
 
+def compare_k5(case, b, s, h, kv, d, window=None, rope=False, seed=0, controls=False):
+    """K5 at head_dim ``d`` on BHSD bf16 operands (``h`` query heads on ``kv``
+    kv heads, causal, rope θ 10000 tables of ``s`` rows): K3's forward and
+    K6's delta first, then one K5 launch on the source
+    attention.backward_dq_kernel names, held against its plain version on
+    the kernel forward's results; rows that attend nothing give exact zeros.
+    With ``controls`` (no window, no rope) a dropped kv tile in dS·K and one
+    warpgroup's column half of dq must be caught. Returns dq's max abs
+    error."""
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    make = lambda n: torch.randn(b, n, s, d, device="cuda", generator=gen).to(bf)
+    q, k, v, g = make(h), make(kv), make(kv), make(h)
+    cos = sin = None
+    if rope:
+        cos, sin = rope_tables(d, s, 10000.0, device="cuda")
+    args = (True, window, None, None, cos, sin)
+    out, lse = A.flash_forward_kernel(q, k, v, *args)
+    _, _, delta = A.flash_backward_dkv_kernel(q, k, v, out, lse, g, *args)
+    source = A.backward_dq_kernel(bf, A._instance_dim(d))
+    before = A.SOURCE_LAUNCHES[source]
+    dq = A.flash_backward_dq_kernel(q, k, v, lse, g, delta, *args)
+    torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES[source] != before + 1:
+        fail(f"{case}: K5 did not run {source}.cu")
+    emit(phase="kernels", case=case, k5_source=source)
+    if not torch.isfinite(dq).all():
+        fail(f"{case}: non-finite dq")
+    ref_out, ref_lse = A.flash_forward_reference(q, k, v, *args)
+    _masked_rows(case, lse, ref_lse, dq)
+    ref = A.flash_backward_reference(q, k, v, out, lse, g, *args)
+    err = _check(case, "k5_dq", bf, dq, ref[0], "dqkv")
+    if controls:
+        fault_controls(case, q, k, v, g, None, lse, (dq, None, None), ref_out, ref,
+                       products=("dq: dS.K",))
+        column_half_control(case, dq, ref[0], "dq")
+    return err
+
+
+def check_bshd_probe(case, b, s, h, dh, seed):
+    """K10 (tools/bshd_probe.py's bshd_forward on (B, S, H·dh) bf16 views)
+    at head_dim ``dh`` against its plain version, on the source
+    attention.forward_kernel names."""
+    from distributed_tensorflow_tpu_torch.tools import bshd_probe as bp
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = [torch.randn(b, s, h * dh, device="cuda", generator=gen).to(torch.bfloat16)
+         for _ in range(3)]
+    source = A.forward_kernel(torch.bfloat16, A._instance_dim(dh))
+    before = A.SOURCE_LAUNCHES[source]
+    got, got_lse = bp.bshd_forward(*x, h)
+    torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES[source] != before + 1:
+        fail(f"{case}: K10 did not run {source}.cu")
+    want, want_lse = bp.bshd_forward_reference(*x, h)
+    _check(case, "out", torch.bfloat16, A._heads(got, dh), A._heads(want, dh), "out")
+    _check(case, "lse", torch.bfloat16, got_lse, want_lse, "lse")
+
+
 def phase_head_dims_above_256():
     """Head dims above 256 on the column-group kernels (flash_fwd_dstream.cu,
-    flash_bwd_dstream.cu with and without dq, flash_bwd_dq_dstream.cu), which
-    run every call at head_dim 320 and 300 (padded to 384), 384 and 512, and
+    flash_bwd_dstream.cu with and without dq, flash_bwd_dq_dstream.cu) and,
+    for the bf16 forward at 384 and 512, the warpgroup kernel
+    flash_fwd_cols_sm90.cu, which run every call at head_dim 320 and 300
+    (padded to 384), 384 and 512, and
     257 (odd, padded at the tail), in bf16 and f32: packed qkv (K1/K2) with
     GQA + window + rope and with rope alone; BHSD (K3/K4) cross-length with
     a window, non-causal cross-length without rope, and with fully masked
@@ -880,9 +1010,12 @@ def phase_head_dims_above_256():
     planted faults (a dropped kv tile in each product, one column group's
     P·V and one D chunk of q·kᵀ dropped) and the D 512 call the timing
     phase times (B 2, S 2048, 4 heads of 512, packed qkv), and the d512
-    path's own calls at its batch (K1, K6 and K5 at B 12). Every launch must
-    run a column-group source. Returns the errors of the rows: K2 at B 2,
-    K1, K5 and K6 at the path's B 12."""
+    path's own calls at its batch (K1, K6 and K5 at B 12); the warpgroup
+    forward's own cases (compare_fwd) with its planted faults (one
+    warpgroup's half of P·V, one D half of q·kᵀ), K10 on head views at 512,
+    and bf16 at 640, still on the column-group forward. Every launch must run
+    the source its dtype and head dim name. Returns the errors of the rows:
+    K2 at B 2, K1, K5 and K6 at the path's B 12."""
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         _zero_counts()
@@ -899,8 +1032,27 @@ def phase_head_dims_above_256():
         compare_long("ds_long_d257_odd_cross", 1, 4, 2, 136, 200, 257, dtype, seed=97)
         check_segments(f"ds_segments_d384_{str(dtype).split('.')[-1]}", 2, 4, 384, 384, dtype,
                        n_seg=3, seed=98)
-        _head_dim_sources(f"d257_512_{str(dtype).split('.')[-1]}", set(DSTREAM.values()))
+        _head_dim_sources(f"d257_512_{str(dtype).split('.')[-1]}",
+                          set((DSTREAM if dtype == torch.bfloat16 else DSTREAM_F32).values()))
     bf = torch.bfloat16
+    # The warpgroup forward at 384 and 512 (flash_fwd_cols_sm90.cu) where the
+    # families above leave it untried: GQA + window + rope from dh 320, a q
+    # segment placed by q_pos_offset, rows that attend nothing, non-causal
+    # with GQA, and the planted faults (a dropped kv tile in the last step,
+    # one column group, one warpgroup's half of P·V, one D chunk and one D
+    # half of q·kᵀ) at 512 and from 320; K10 on (B, S, H·dh) views at 512;
+    # and bf16 above 512, which stays on the column-group forward.
+    compare_fwd("fwd_cols_d320_gqa_window_rope", 2, 8, 2, 300, 300, 320, window=100, rope=True,
+                seed=104)
+    compare_fwd("fwd_cols_d512_cross_offset", 2, 4, 4, 136, 320, 512, q_pos_offset=100, seed=105)
+    compare_fwd("fwd_cols_d512_fully_masked_rows", 2, 4, 2, 200, 72, 512, seed=106)
+    compare_fwd("fwd_cols_d384_noncausal_gqa", 2, 8, 2, 200, 136, 384, causal=False, seed=107)
+    compare_fwd("fwd_cols_d512_controls", 2, 4, 4, 1024, 1024, 512, seed=108, controls=True)
+    compare_fwd("fwd_cols_d320_controls", 1, 4, 4, 1024, 1024, 320, seed=109, controls=True)
+    check_bshd_probe("k10_d512_head_views", 2, 300, 4, 512, seed=110)
+    _zero_counts()
+    compare_bhsd("ds_bhsd_d640_bf16", 1, 2, 136, 136, 640, bf, seed=111)
+    _head_dim_sources("d640_bf16", ("flash_fwd_dstream", "flash_bwd_dstream"))
     compare_bhsd("ds_bhsd_d512_controls", 1, 4, 1024, 1024, 512, bf, seed=99, controls=True)
     compare_long("ds_long_d512_controls", 1, 4, 1, 2048, 2048, 512, bf, seed=100, controls=True)
     errs["flash_bwd_d512"] = compare("ds_packed_d512_call", 2, 2048, 4, 4, 512, bf,
@@ -1043,6 +1195,8 @@ def compare_long(case, b, h, kv, sq, skv, d, dtype, causal=True, window=None, ro
                        products=("dq: dS.K",))
         fault_controls(f"{case} K6", qh, kh, vh, gh, None, lse, (None, dk6, dv6), ref_out, ref,
                        products=("dk: dS^T.Q", "dv: P^T.dO"))
+        if d == 256:  # K5's warpgroups split dq by columns at 256
+            column_half_control(f"{case} K5", dq5, ref[0], "dq")
     return errs
 
 
@@ -1141,11 +1295,10 @@ def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
 
 def phase_d512(smi):
     """The trainer at the flagship's width over 4 heads of 512 (`d512`, 6
-    steps): every attention launch on the column-group kernels — 8 K1 on
-    flash_fwd_dstream.cu, 8 K5 on flash_bwd_dq_dstream.cu and 8 K6 on
-    flash_bwd_dstream.cu a step (at head_dim 512 the gate leaves the fused
-    backward for the two-pass pair) — and a falling loss. Returns the path's
-    launches."""
+    steps): 8 K1 on the warpgroup forward flash_fwd_cols_sm90.cu, 8 K5 on
+    flash_bwd_dq_dstream.cu and 8 K6 on flash_bwd_dstream.cu a step (at
+    head_dim 512 the gate leaves the fused backward for the two-pass pair),
+    and no other launch, and a falling loss. Returns the path's launches."""
     launches, records = phase_main(smi, "d512")
     if not records[-1]["loss"] < records[0]["loss"]:
         fail(f"main_d512: the loss did not fall ({[r['loss'] for r in records]})")
@@ -1456,22 +1609,20 @@ def kernel_source(direction, name):
         setattr(A, attr, saved)
 
 
-# Each direction's new and old source, timed in turns (new, old, old, new).
-TURNS = {"forward": ("flash_fwd_sm90", "flash_fwd"), "backward": ("flash_bwd_sm90", "flash_bwd"),
-         "backward_dq": ("flash_bwd_dq_sm90", "flash_bwd_dq"),
-         "pipe_forward": ("flash_fwd_pipe_sm90", "flash_fwd_pipe")}
-
-
-def _direction(name):
-    """The kernel_source direction of timing row ``name``."""
-    return next(d for d, (new, _) in TURNS.items() if SOURCES[name] == new)
+# Each new source's direction and the source it replaced, timed in turns
+# (new, old, old, new).
+TURNS = {"flash_fwd_sm90": ("forward", "flash_fwd"), "flash_bwd_sm90": ("backward", "flash_bwd"),
+         "flash_bwd_dq_sm90": ("backward_dq", "flash_bwd_dq"),
+         "flash_fwd_pipe_sm90": ("pipe_forward", "flash_fwd_pipe"),
+         "flash_fwd_cols_sm90": ("forward", "flash_fwd_dstream")}
 
 
 def _turns(name, run, notes, phase="turns"):
-    """``run`` on the new and the old source of ``name``'s direction in
-    turns (new, old, old, new); the readings go into ``name``'s notes."""
-    direction = _direction(name)
-    new, old = TURNS[direction]
+    """``run`` on the new source of timing row ``name`` and on the one it
+    replaced in turns (new, old, old, new); the readings go into ``name``'s
+    notes."""
+    new = SOURCES[name]
+    direction, old = TURNS[new]
     order = (new, old, old, new)
     turns = []
     for source in order:
@@ -1739,9 +1890,58 @@ def phase_timing_wide(launches, errs, notes):
     kernels += _time_kernels(runs, launches, errs, peak, bw,
                              dict(B=b, Sq=seg, Skv=s, q_pos_offset=a, H=h, KV=h, D=d, dtype="bf16",
                                   causal=True, rope=True, layout="packed qkv head views"), notes)
-    del w, k_rot, q_seg_rot, ql, kl, vl, o_lib
+    del k_rot, q_seg_rot, ql, kl, vl, o_lib
+    torch.cuda.empty_cache()
+    time_wide_routes(w, peak)
+    del w
     torch.cuda.empty_cache()
     return kernels
+
+
+# The launches of one layer's backward at the `wide` call on each route:
+# eight K8 segment calls (the gate's route), K2 in one call, or K6 + K5.
+WIDE_ROUTES = {"k8_segments": {"bshd_bwd": 8}, "k2_whole": {"flash_bwd": 1},
+               "k5_k6_two_pass": {"bwd_dkv": 1, "bwd_dq": 1}}
+
+
+def time_wide_routes(w, peak):
+    """One layer's backward at the `wide` call (_wide_operands: B 2, S 8192,
+    16 heads of 256, rope θ 10000, packed qkv) through each route, forced
+    through the gate's hooks (backward_route): its launches, which must be
+    the route's (all on the warpgroup sources, K5 on
+    flash_bwd_dq_sm90.cu), and its ms. A measurement only: the trainer's
+    route stays the JAX gate's."""
+    b, s, h, d = (w[key] for key in ("b", "s", "h", "d"))
+    qkv, go, cos, sin, out, lse = (w[key] for key in ("qkv", "go", "cos", "sin", "out", "lse"))
+    heads = A._packed_heads(qkv, h, h, d)
+    want_sources = {"bshd_bwd": "flash_bwd_sm90", "flash_bwd": "flash_bwd_sm90",
+                    "bwd_dkv": "flash_bwd_sm90", "bwd_dq": "flash_bwd_dq_sm90"}
+
+    def route(name):
+        def run():
+            with backward_route(name):
+                dqkv = torch.empty_like(qkv)
+                A._backward_by_route("flash_bwd", "bshd_bwd", *heads, A._heads(out, d),
+                                     A._heads(go, d), lse, *A._packed_heads(dqkv, h, h, d),
+                                     True, None, 0, None, cos, sin)
+        return run
+
+    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)
+    for name, want in WIDE_ROUTES.items():
+        counts = dict(A.KERNEL_LAUNCHES), dict(A.SOURCE_LAUNCHES)
+        route(name)()
+        torch.cuda.synchronize()
+        launches = {k: n - counts[0][k] for k, n in A.KERNEL_LAUNCHES.items() if n != counts[0][k]}
+        sources = {k: n - counts[1][k] for k, n in A.SOURCE_LAUNCHES.items() if n != counts[1][k]}
+        expected = {}
+        for counter, n in want.items():
+            expected[want_sources[counter]] = expected.get(want_sources[counter], 0) + n
+        if launches != want or sources != expected:
+            fail(f"timing_routes_wide: {name} launched {launches} by source {sources}, expected "
+                 f"{want} by source {expected}")
+        emit(phase="timing_routes_wide", route=name, ms=cuda_ms(route(name), 3), launches=launches,
+             source_launches=sources, bound_ms=fwd_flops * 5 // 2 / peak * 1e3,
+             shape=dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", rope=True))
 
 
 def phase_timing_long(launches, errs, notes):
@@ -1891,13 +2091,15 @@ def d32_device_times(notes):
 
 
 def phase_timing_dstream(launches, errs, notes):
-    """The column-group kernels at head_dim 512 — K1 and K2 (packed qkv, B 2,
-    S 2048, 4 heads of 512, bf16, causal: phase 3's ds_packed_d512_call
-    inputs), K5 and K6 on the same call's head views — and K8 at head_dim
-    320 (padded to 384) on the last of its two q segments (1024 rows against
-    2048 keys); then K5 at head_dim 256 (Gemma 7B's width, on
-    flash_bwd_dq.cu). Each beside its plain version, its bound (the work
-    the function needs, at the real head dim, not the recompute of the
+    """The kernels above head_dim 256 at head_dim 512 — K1 (on
+    flash_fwd_cols_sm90.cu, against flash_fwd_dstream.cu in turns) and K2
+    (packed qkv, B 2, S 2048, 4 heads of 512, bf16, causal: phase 3's
+    ds_packed_d512_call inputs), K5 and K6 on the same call's head views —
+    K8 at head_dim 320 (padded to 384) on the last of its two q segments
+    (1024 rows against 2048 keys), K1 at head_dim 320 (time_k1_d320); then
+    K5 at head_dim 256 (Gemma 7B's width, on flash_bwd_dq_sm90.cu, against
+    flash_bwd_dq.cu in turns). Each beside its plain version, its bound (the
+    work the function needs, at the real head dim, not the recompute of the
     column groups) and SDPA, whose kernels' names are recorded (no flash
     backend above 256). K5's and K6's outputs at this call (phase 3 holds
     them at the d512 path's B 12) and K8's are held against their plain
@@ -1917,6 +2119,9 @@ def phase_timing_dstream(launches, errs, notes):
     for name, fn in (("flash_fwd_d512", lib[0]), ("flash_bwd_d512", lib[1])):
         notes.setdefault(name, {})["library_kernels"] = _device_ms(fn, 3)[1]
     del lib
+    # K1 on flash_fwd_cols_sm90.cu against flash_fwd_dstream.cu, in turns.
+    _turns("flash_fwd_d512", lambda: A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None,
+                                                                None), notes)
     kernels = _time_packed_pair(("flash_fwd_d512", "flash_bwd_d512"), b, s, h, d, 101, launches,
                                 errs, peak, bw, notes)
     del qkv, g, q, k, v, go
@@ -2005,7 +2210,10 @@ def phase_timing_dstream(launches, errs, notes):
     del qkv, g, q, k, v, out, lse, q_seg, out_seg, g_seg, dq_seg, dk_s, dv_s, ql, kl, vl, o_lib
     torch.cuda.empty_cache()
 
-    # K5 at head_dim 256 (Gemma 7B's width, packed head views) on flash_bwd_dq.cu.
+    kernels += time_k1_d320(b, s, h, launches, errs, peak, bw, notes)
+
+    # K5 at head_dim 256 (Gemma 7B's width, packed head views) on
+    # flash_bwd_dq_sm90.cu, against flash_bwd_dq.cu in turns.
     b, s, h, d = (GEMMA[key] for key in ("batch_size", "seq_len", "num_heads", "head_dim"))
     qkv, g = _packed(b, s, h, h, d, bf, seed=64)
     q, k, v = A._packed_heads(qkv, h, h, d)
@@ -2013,11 +2221,11 @@ def phase_timing_dstream(launches, errs, notes):
     out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None, None)
     o4 = A._heads(out, d)
     _, _, delta = A.flash_backward_dkv_kernel(q, k, v, o4, lse, go, True)
-    before = A.SOURCE_LAUNCHES["flash_bwd_dq"]
+    before = A.SOURCE_LAUNCHES["flash_bwd_dq_sm90"]
     dq5 = A.flash_backward_dq_kernel(q, k, v, lse, go, delta, True)
     torch.cuda.synchronize()
-    if A.SOURCE_LAUNCHES["flash_bwd_dq"] != before + 1:
-        fail("timing: K5 at head_dim 256 did not run flash_bwd_dq.cu")
+    if A.SOURCE_LAUNCHES["flash_bwd_dq_sm90"] != before + 1:
+        fail("timing: K5 at head_dim 256 did not run flash_bwd_dq_sm90.cu")
     errs["bwd_dq_d256"] = _check("packed_d256_gemma_width two-pass", "k5_dq", bf, dq5,
                                  A.flash_backward_dq_reference(q, k, v, o4, lse, go, True),
                                  "dqkv")
@@ -2028,9 +2236,10 @@ def phase_timing_dstream(launches, errs, notes):
         library_kernels=_device_ms(lib[2], 3)[1])
     fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)
     qb, sb = q.numel() * qkv.element_size(), lse.numel() * 4
+    run5 = lambda: A.flash_backward_dq_kernel(q, k, v, lse, go, delta, True)
+    _turns("bwd_dq_d256", run5, notes)
     runs = {"bwd_dq_d256": (
-        (fwd_flops * 3 // 2, 5 * qb + 2 * sb),
-        lambda: A.flash_backward_dq_kernel(q, k, v, lse, go, delta, True),
+        (fwd_flops * 3 // 2, 5 * qb + 2 * sb), run5,
         lambda: A.flash_backward_dq_reference(q, k, v, o4, lse, go, True),
         lib[2], None)}
     kernels += _time_kernels(runs, launches, errs, peak, bw,
@@ -2041,18 +2250,73 @@ def phase_timing_dstream(launches, errs, notes):
     return kernels
 
 
-def compare_pipe(case, b, h, sq, skv, d, dtype, causal=True, seed=0, controls=False):
-    """K9 against its plain version on the same (B, H, S, D) inputs: out by
-    the max-based and blockwise limits, lse by its absolute limit, and rows
-    that attend nothing exactly 0. With ``controls`` the last attended
-    64-key tile of the last q tile (the diagonal one, which the kernel's
-    flush step multiplies) is dropped from out as a planted fault that must
-    be caught. Returns out's max abs error."""
+def time_k1_d320(b, s, h, launches, errs, peak, bw, notes):
+    """K1 at head_dim 320 (padded to 384 in the launch, on
+    flash_fwd_cols_sm90.cu; B ``b``, S ``s``, ``h`` heads, packed bf16 qkv,
+    causal): held against its plain version, timed in turns against
+    flash_fwd_dstream.cu, its device time by the profiler, and beside its
+    bound (at the real 320) and SDPA's forward (its kernels' names
+    recorded)."""
+    bf, d = torch.bfloat16, 320
+    qkv, _ = _packed(b, s, h, h, d, bf, seed=118)
+    args = (h, h, True, None, None, None)
+    run = lambda: A.flash_forward_qkv_kernel(qkv, *args, None)
+    before = A.SOURCE_LAUNCHES["flash_fwd_cols_sm90"]
+    out, lse = run()
+    torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES["flash_fwd_cols_sm90"] != before + 1:
+        fail("timing: K1 at head_dim 320 did not run flash_fwd_cols_sm90.cu")
+    ref_out, ref_lse = A.flash_forward_qkv_reference(qkv, *args)
+    case = "ds_packed_d320_call"
+    errs["flash_fwd_d320"] = _check(case, "out", bf, A._heads(out, d), A._heads(ref_out, d),
+                                    "out")
+    _check(case, "lse", bf, lse, ref_lse, "lse")
+    del ref_out, ref_lse
+    lib = _sdpa(*A._packed_heads(qkv, h, h, d), None)
+    # The call's device time by the profiler beside the back-to-back reading,
+    # which the wrapper's pad and copy-back dispatch can hold up on the host.
+    device_ms, device_kernels = _device_ms(run)
+    notes.setdefault("flash_fwd_d320", {}).update(
+        call="K1 at head_dim 320, padded to 384 in the launch (pad and copy back included)",
+        library_kernels=_device_ms(lib[0], 3)[1], profiler_device_ms=device_ms,
+        profiler_kernels=device_kernels)
+    emit(phase="timing_device", kernel="flash_fwd_d320", profiler_device_ms=device_ms,
+         kernels=device_kernels)
+    _turns("flash_fwd_d320", run, notes)
+    elt = qkv.element_size()
+    runs = {"flash_fwd_d320": (
+        # reads qkv, writes out and lse
+        (4 * b * h * d * (s * (s + 1) // 2),
+         qkv.numel() * elt + out.numel() * elt + lse.numel() * 4),
+        run, lambda: A.flash_forward_qkv_reference(qkv, *args), lib[0], None)}
+    kernels = _time_kernels(runs, launches, errs, peak, bw,
+                            dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True,
+                                 layout="packed qkv"), notes)
+    del qkv, out, lse, lib
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def compare_pipe(case, b, h, sq, skv, d, dtype, causal=True, seed=0, controls=False,
+                 vs_k3=False):
+    """K9 against its plain version on the same (B, H, S, D) inputs, one
+    launch on the source attention.pipe_forward_kernel names for the call's
+    instance: out by the max-based and blockwise limits, lse by its absolute
+    limit, and rows that attend nothing exactly 0. With ``controls`` the
+    last attended 64-key tile of the last q tile (the diagonal one, which
+    the kernel's flush step multiplies) is dropped from out as a planted
+    fault that must be caught. With ``vs_k3`` out is held within PARITY_TOL
+    of K3's on the same inputs, and whether the two agree bit for bit is
+    recorded. Returns out's max abs error."""
     from distributed_tensorflow_tpu_torch.tools import pipeline_probe as pp
 
     q, k, v, _ = _bhsd(b, h, sq, skv, d, dtype, seed)
+    source = A.pipe_forward_kernel(dtype, A._pipe_instance_dim(d))
+    before = A.SOURCE_LAUNCHES[source]
     out, lse = pp.pipe_flash_forward_kernel(q, k, v, causal)
     torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES[source] != before + 1:
+        fail(f"{case}: K9 did not run {source}.cu")
     ref_out, ref_lse = A.flash_forward_reference(q, k, v, causal)
     if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
         fail(f"{case}: non-finite out or lse")
@@ -2062,7 +2326,37 @@ def compare_pipe(case, b, h, sq, skv, d, dtype, causal=True, seed=0, controls=Fa
     if controls:
         fault_controls(case, q, k, v, None, out, lse, None, ref_out, None,
                        products=("out: P.V",), keys=slice(sq - BLOCK_ROWS, sq))
+    if vs_k3:
+        out3 = A.flash_forward_kernel(q, k, v, causal)[0]
+        torch.cuda.synchronize()
+        diff = (out.float() - out3.float()).abs().max().item()
+        emit(phase="kernels", case=case, k9_source=source,
+             k3_source=A.forward_kernel(dtype, A._instance_dim(d)),
+             bitwise_equal_k3=bool(torch.equal(out, out3)), max_abs_diff_k3=diff,
+             tol=pp.PARITY_TOL)
+        if not diff < pp.PARITY_TOL:
+            fail(f"{case}: K9 and K3 differ by {diff}")
     return err
+
+
+def phase_pipe_head_dims():
+    """K9 at the head dims it used to refuse, in bf16 and f32: 80 (padded to
+    128), 256 (an instance: two warpgroups and 32-key tiles in bf16, two
+    blocks a tile in f32) and 320 (above 256, where the call runs the
+    shipped forward at its instance 384), each against its plain version and
+    against K3 on the same inputs (bit for bit or not, recorded); at 256
+    also with rows that attend nothing, non-causal, and a dropped kv tile in
+    the flush step."""
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        for i, d in enumerate((80, 256, 320)):
+            compare_pipe(f"k9_d{d}_{tag}", 2, 4, 200, 200, d, dtype, seed=112 + i, vs_k3=True)
+        compare_pipe(f"k9_d256_fully_masked_rows_{tag}", 2, 4, 200, 72, 256, dtype, seed=115)
+        compare_pipe(f"k9_d256_noncausal_{tag}", 1, 4, 136, 200, 256, dtype, causal=False,
+                     seed=116)
+    compare_pipe("k9_d256_controls", 1, 4, 1024, 1024, 256, torch.bfloat16, seed=117,
+                 controls=True, vs_k3=True)
+    torch.cuda.empty_cache()
 
 
 def _probe_entry(module, counter):
@@ -2098,7 +2392,8 @@ def phase_probes():
     entry = {"pipe_fwd": _probe_entry("pipeline_probe", "pipe_fwd"),
              "probe_bshd_fwd": _probe_entry("bshd_probe", "probe_bshd_fwd")}
     for rec in kernels:
-        rec["launches_by_probe_entry"] = entry[rec["name"]]
+        if rec["name"] in entry:  # the probes' entries run at their own shapes
+            rec["launches_by_probe_entry"] = entry[rec["name"]]
     return kernels
 
 
@@ -2109,12 +2404,23 @@ PROBE_NOTE = {"launches_note": "0 on every main path; one a call of the probe fu
 
 
 def _probe_pipe(peak, bw):
+    """K9 against its plain version at the probe's shapes and cases, then,
+    at each probe shape (row pipe_fwd) and at Gemma 7B's width (B 2, 16
+    heads of 256, S 2048: row pipe_fwd_d256, the instance that raised
+    before it was built), within PARITY_TOL of K3 on the same inputs (bit
+    for bit or not), in turns against the kernel it replaced (at 64 and 128
+    only: no old kernel took 256) and against K3 — the probe's verdict on
+    which issue order wins — and timed like phase 6."""
     import torch.nn.functional as F
 
     from distributed_tensorflow_tpu_torch.tools import pipeline_probe as pp
 
+    gm = GEMMA
+    rows = [("pipe_fwd", tag, shape) for tag, shape in pp.SHAPES.items()]
+    rows.append(("pipe_fwd_d256", "gemma_d256",
+                 tuple(gm[key] for key in ("batch_size", "num_heads", "seq_len", "head_dim"))))
     errs = {}
-    for tag, (b, h, s, d) in pp.SHAPES.items():
+    for _, tag, (b, h, s, d) in rows:
         errs[tag] = compare_pipe(f"k9_{tag}", b, h, s, s, d, torch.bfloat16, seed=50,
                                  controls=tag == "flagship_2k")
         torch.cuda.empty_cache()
@@ -2131,7 +2437,7 @@ def _probe_pipe(peak, bw):
     compare_pipe("k9_noncausal_bf16_d64", 1, 4, 136, 200, 64, torch.bfloat16, causal=False,
                  seed=56)
     kernels = []
-    for tag, (b, h, s, d) in pp.SHAPES.items():
+    for name, tag, (b, h, s, d) in rows:
         q, k, v, _ = _bhsd(b, h, s, s, d, torch.bfloat16, seed=57)
         out3 = A.flash_forward_kernel(q, k, v, True)[0]
         before = A.SOURCE_LAUNCHES["flash_fwd_pipe_sm90"]
@@ -2149,15 +2455,17 @@ def _probe_pipe(peak, bw):
         nbytes = 4 * q.numel() * q.element_size() + b * h * s * 4
         run9 = lambda: pp.pipe_flash_forward_kernel(q, k, v, True)
         run3 = lambda: A.flash_forward_kernel(q, k, v, True)
-        runs = {"pipe_fwd": ((2 * b * h * s * s * d, nbytes), run9,
-                             lambda: pp.pipe_flash_forward_reference(q, k, v, True),
-                             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                             None)}
-        notes = {"pipe_fwd": dict(PROBE_NOTE, probe_shape=tag, bitwise_equal_k3=bitwise)}
+        runs = {name: ((2 * b * h * s * s * d, nbytes), run9,
+                       lambda: pp.pipe_flash_forward_reference(q, k, v, True),
+                       lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), None)}
+        notes = {name: dict(PROBE_NOTE, probe_shape=tag, bitwise_equal_k3=bitwise)}
         # The new K9 against the kernel it replaced, then the probe's question:
         # K9 (S_{n+1} issued before the softmax of S_n) against K3 (the
         # softmax of S_n under P_{n-1}·V_{n-1}) on the same inputs, in turns.
-        _turns("pipe_fwd", run9, notes, phase="probes")
+        if name == "pipe_fwd":
+            _turns(name, run9, notes, phase="probes")
+        else:
+            notes[name]["was"] = "no kernel: K9 raised at head_dim 256"
         t = [cuda_ms(f, 10) for f in (run9, run3, run3, run9)]
         k9_ms, k3_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         ratio = k9_ms / k3_ms
@@ -2165,9 +2473,9 @@ def _probe_pipe(peak, bw):
                    f"{abs(1 - ratio):.1%} at {tag}")
         emit(phase="probes", case=f"k9_vs_k3_turns_{tag}", order=["K9", "K3", "K3", "K9"], ms=t,
              k9_over_k3=ratio, verdict=verdict)
-        notes["pipe_fwd"].update(k3_same_inputs_ms=k3_ms, k9_vs_k3_turns_ms=t, k9_over_k3=ratio,
-                                 verdict=verdict)
-        kernels += _time_kernels(runs, {"pipe_fwd": 0}, {"pipe_fwd": errs[tag]}, peak, bw,
+        notes[name].update(k3_same_inputs_ms=k3_ms, k9_vs_k3_turns_ms=t, k9_over_k3=ratio,
+                           verdict=verdict)
+        kernels += _time_kernels(runs, {name: 0}, {name: errs[tag]}, peak, bw,
                                  dict(B=b, H=h, S=s, D=d, dtype="bf16", causal=True), notes)
         del q, k, v
         torch.cuda.empty_cache()
@@ -2259,8 +2567,8 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
 # step, all on dtt::flash_fwd_sm90_kernel, and attn_bwd is K2, K4 and K8 (K8
 # on four q segments on the long path, eight on wide) in them, on
 # dtt::flash_bwd_sm90_kernel (wide: dtt::flash_bwd_sm90_cols_kernel). The
-# d512 step runs the column-group kernels: attn_fwd is K1 on
-# dtt::flash_fwd_dstream_kernel, attn_bwd_dq K5 on
+# d512 step runs attn_fwd as K1 on dtt::flash_fwd_cols_sm90_kernel (its
+# prepare pass, dtt::dstream_prep_kernel, under other), attn_bwd_dq K5 on
 # dtt::flash_bwd_dq_dstream_kernel and attn_bwd K6 (and its delta pre-pass)
 # on dtt::flash_bwd_dstream_kernel.
 KERNEL_CLASSES = (
@@ -2349,6 +2657,7 @@ def main():
     errs.update(phase_kernels_long())
     errs.update(phase_head_dims())
     errs.update(phase_head_dims_above_256())
+    phase_pipe_head_dims()
     by_path = {path: phase_main(smi, path)[0] for path in ("dp", "tp", "long")}
     by_path["wide"] = phase_wide(smi)
     cli_runs = phase_cli_head_dims()
@@ -2381,9 +2690,9 @@ def main():
         for name, counter in ((f"flash_fwd_{tag}", "flash_fwd"), (f"flash_bwd_{tag}", "flash_bwd")):
             launches[name] = cli_runs[run][counter]
             notes[name] = {"launches_by_path": {run: launches[name]}}
-    # The column-group rows: `d512`'s K1, K5 and K6 launches, with the errors
-    # of phase 3's check at the path's call; K2 at 512, K8 at 320 and K5 at
-    # 256 run on no path of this script.
+    # The rows above 256: `d512`'s K1, K5 and K6 launches, with the errors
+    # of phase 3's check at the path's call; K2 at 512, K8 and K1 at 320 and
+    # K5 at 256 run on no path of this script.
     for name, counter in (("flash_fwd_d512", "flash_fwd"), ("bwd_dq_d512", "bwd_dq"),
                           ("bwd_dkv_d512", "bwd_dkv")):
         launches[name] = d512[counter]
@@ -2393,7 +2702,9 @@ def main():
                                            "route for sequences up to 819 rows"),
                         ("bshd_bwd_d320", "K8 at head_dim 320: the gate's route at seq 2048 "
                                           "and 8192"),
-                        ("bwd_dq_d256", "K5 at head_dim 256: the two-pass route only")):
+                        ("bwd_dq_d256", "K5 at head_dim 256: the two-pass route only"),
+                        ("flash_fwd_d320", "K1 at head_dim 320 (padded to 384): the trainer "
+                                           "at --d_model 1280 --num_heads 4")):
         launches[name] = 0
         notes[name] = {"launches_note": f"0 on every path driven here; {where}"}
     for name, route_launches in phase_routes().items():

@@ -32,16 +32,31 @@
 // flash_fwd.cu holds, so shared memory and the two blocks per SM stay. The
 // last step has no next product: it is the probe's flush step. The cost is
 // a second 16 x 64 score tile per warp (32 f32 registers a thread). The
-// per-tile arithmetic is flash_fwd.cu's, in the same order.
+// per-tile arithmetic is flash_fwd.cu's, in the same order. Instances: bf16
+// and f32 at head_dim 64 and 128, and f32 at 256 (bf16 calls run
+// flash_fwd_pipe_sm90.cu; the wrapper pads any other head_dim up to 256).
+// At 256 the kernel follows flash_fwd.cu's instance there: each (q tile,
+// head, batch) takes two blocks, each multiplying all of q·kᵀ and
+// accumulating 128 of out's columns (kCols, flash_common.cuh), and the f32
+// tiles leave room for one K and one V slot only, so the loads of K_{n+2}
+// and V_{n+1} start once every warp is done with step n (a second barrier a
+// step) instead of under it.
 #include "flash_common.cuh"
 
 namespace dtt {
 
 constexpr int PIPE_BQ = 64, PIPE_BKV = 64, PIPE_THREADS = 128;
 
+// Slots each for K and V: two, so that K_{n+2} and V_{n+1} load while step n
+// multiplies; one for f32 above head_dim 128, where two pass the 227 KB a
+// block may have.
+template <typename T, int D>
+constexpr int kPipeBufs = sizeof(T) == 4 && D > 128 ? 1 : 2;
+
 template <typename T, int D>
 constexpr size_t pipe_smem_bytes() {
-  return sizeof(T) * ((PIPE_BQ + 4 * PIPE_BKV) * (D + kPad<T>) + 4 * 16 * (PIPE_BKV + kPad<T>));
+  return sizeof(T) * ((PIPE_BQ + 2 * kPipeBufs<T, D> * PIPE_BKV) * (D + kPad<T>) +
+                      4 * 16 * (PIPE_BKV + kPad<T>));
 }
 
 template <typename T, int D>
@@ -49,17 +64,20 @@ __global__ void __launch_bounds__(PIPE_THREADS, 2)
 flash_fwd_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       T* __restrict__ out, float* __restrict__ lse, Bhsd sq, Bhsd sk, Bhsd sv,
                       Bhsd so, int H, int Sq, int Skv, int off, int causal, float scale) {
-  constexpr int LD = D + kPad<T>, LDP = PIPE_BKV + kPad<T>, NT = D / 8, NS = PIPE_BKV / 8;
+  constexpr int LD = D + kPad<T>, LDP = PIPE_BKV + kPad<T>, NS = PIPE_BKV / 8;
+  constexpr int DV = kCols<D>, NT = DV / 8, SPLIT = D / DV, NBUF = kPipeBufs<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + PIPE_BQ * LD;          // two K slots
-  T* sV = sK + 2 * PIPE_BKV * LD;     // two V slots
-  T* sP = sV + 2 * PIPE_BKV * LD;     // each warp's 16 rows of p
-  auto k_buf = [&](int n) { return sK + (n & 1) * PIPE_BKV * LD; };
-  auto v_buf = [&](int n) { return sV + (n & 1) * PIPE_BKV * LD; };
+  T* sK = sQ + PIPE_BQ * LD;             // NBUF K slots
+  T* sV = sK + NBUF * PIPE_BKV * LD;     // NBUF V slots
+  T* sP = sV + NBUF * PIPE_BKV * LD;     // each warp's 16 rows of p
+  auto k_buf = [&](int n) { return sK + (n % NBUF) * PIPE_BKV * LD; };
+  auto v_buf = [&](int n) { return sV + (n % NBUF) * PIPE_BKV * LD; };
 
   const int num_q = (Sq + PIPE_BQ - 1) / PIPE_BQ;
-  const int q0 = (num_q - 1 - (int)blockIdx.x) * PIPE_BQ;  // most work first
+  const int q0 = (num_q - 1 - (int)blockIdx.x / SPLIT) * PIPE_BQ;  // most work first
+  // This block's columns of out (block_col); part 0 writes lse.
+  const int part = (int)blockIdx.x % SPLIT, c0 = part * (DV / 2);
   const int h = blockIdx.y, b = blockIdx.z;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
@@ -76,8 +94,9 @@ flash_fwd_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= Sq) continue;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) store_pair<T>(ob + row[i] * so.s + 8 * j + 2 * t, 0.f, 0.f);
-      if (t == 0) lb[row[i]] = NEG_INF + logf(1e-30f);
+      for (int j = 0; j < NT; ++j)
+        store_pair<T>(ob + row[i] * so.s + block_col<D>(j, c0, t), 0.f, 0.f);
+      if (t == 0 && part == 0) lb[row[i]] = NEG_INF + logf(1e-30f);
     }
     return;
   }
@@ -88,14 +107,22 @@ flash_fwd_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   auto issue_v = [&](int n) {
     tile_issue<T, D, PIPE_BKV, PIPE_THREADS>(v_buf(n), LD, vb, (int)sv.s, n * PIPE_BKV, Skv);
   };
-  // Prologue: Q and K_0 in one group, K_1 and V_0 in the next.
+  // Prologue: Q and K_0 in one group, K_1 and V_0 in the next (with one
+  // slot each, once every warp has read K_0).
   tile_issue<T, D, PIPE_BQ, PIPE_THREADS>(sQ, LD, qb, (int)sq.s, q0, Sq);
   issue_k(0);
   cp_async_commit();
-  if (n_tiles > 1) issue_k(1);
-  issue_v(0);
-  cp_async_commit();
-  cp_async_wait<1>();
+  auto issue_next = [&](int n) {  // K_{n+1} and V_n
+    if (n + 1 < n_tiles) issue_k(n + 1);
+    if (n < n_tiles) issue_v(n);
+    cp_async_commit();
+  };
+  if constexpr (NBUF == 2) {
+    issue_next(0);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
   tile_finish<T, D, PIPE_BQ, PIPE_THREADS>(sQ, LD, q0, Sq, nullptr, nullptr, true, scale, off);
   __syncthreads();
 
@@ -122,6 +149,10 @@ flash_fwd_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   float sc[NS][4], nx[NS][4];  // the scores of tile n, and of tile n + 1
   scores(sc, 0);
   mask(sc, 0);
+  if constexpr (NBUF == 1) {
+    __syncthreads();  // every warp is done with K_0's slot
+    issue_next(0);
+  }
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -130,9 +161,7 @@ flash_fwd_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   for (int n = 0; n < n_tiles; ++n) {
     cp_async_wait<0>();  // K_{n+1} and V_n have landed ...
     __syncthreads();     // ... for every thread, and every warp is done with K_n and V_{n-1}
-    if (n + 2 < n_tiles) issue_k(n + 2);  // into K_n's slot
-    if (n + 1 < n_tiles) issue_v(n + 1);  // into V_{n-1}'s slot
-    cp_async_commit();
+    if constexpr (NBUF == 2) issue_next(n + 1);  // into K_n's and V_{n-1}'s slots
     const bool next = n + 1 < n_tiles;
     if (next) scores(nx, n + 1);  // no dependence on the softmax below
 
@@ -166,7 +195,11 @@ flash_fwd_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
     __syncwarp();
-    warp_mma<T, NT, PIPE_BKV, true, false>(acc, myP, LDP, v_buf(n), LD);
+    warp_mma_cols<T, NT, PIPE_BKV, true, D>(acc, myP, LDP, v_buf(n), LD, c0);
+    if constexpr (NBUF == 1) {
+      __syncthreads();  // every warp is done with K_{n+1}'s and V_n's slots
+      issue_next(n + 1);
+    }
 
     if (next) {
       mask(nx, n + 1);
@@ -183,9 +216,9 @@ flash_fwd_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
-      store_pair<T>(ob + row[i] * so.s + 8 * j + 2 * t, acc[j][2 * i] / denom,
+      store_pair<T>(ob + row[i] * so.s + block_col<D>(j, c0, t), acc[j][2 * i] / denom,
                     acc[j][2 * i + 1] / denom);
-    if (t == 0) lb[row[i]] = m[i] + logf(denom);
+    if (t == 0 && part == 0) lb[row[i]] = m[i] + logf(denom);
   }
 }
 
@@ -198,7 +231,7 @@ int launch_fwd_pipe(const void* q, const void* k, const void* v, void* out, void
   if (err != cudaSuccess) return (int)err;
   const Bhsd sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       so{st[9], st[10], st[11]};
-  const dim3 grid((Sq + PIPE_BQ - 1) / PIPE_BQ, H, B);
+  const dim3 grid((Sq + PIPE_BQ - 1) / PIPE_BQ * (D / kCols<D>), H, B);
   flash_fwd_pipe_kernel<T, D><<<grid, PIPE_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), sq, sk, sv, so, H, Sq, Skv, off, causal,
@@ -208,7 +241,8 @@ int launch_fwd_pipe(const void* q, const void* k, const void* v, void* out, void
 
 }  // namespace dtt
 
-// q, out (B, H, Sq, D) and k, v (B, H, Skv, D), bf16|f32, each with its own
+// q, out (B, H, Sq, D) and k, v (B, H, Skv, D), bf16|f32 (head_dim 64 or 128)
+// or f32 (head_dim 256), each with its own
 // (b, h, s) element strides in `strides` (q, k, v, out: 12 values) and a
 // contiguous last dimension; lse (B, H, Sq) f32 contiguous. q_pos_offset is
 // the position of query row 0 (Skv - Sq for end-aligned causal masking).
@@ -227,6 +261,7 @@ extern "C" int dtt_flash_fwd_pipe(const void* q, const void* k, const void* v, v
   if (is_bf16 && D == 128) DTT_FWD_PIPE(bf16, 128);
   if (!is_bf16 && D == 64) DTT_FWD_PIPE(float, 64);
   if (!is_bf16 && D == 128) DTT_FWD_PIPE(float, 128);
+  if (!is_bf16 && D == 256) DTT_FWD_PIPE(float, 256);
 #undef DTT_FWD_PIPE
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,8 @@
 // warpgroup kernel (K9): both tile products are wgmma.
 //
 // Replaces: tools/pipeline_probe.py:_pipe_fwd_kernel, launched by
-// pipe_flash_forward (:169), wherever the call is bf16 at head_dim 64 or 128:
+// pipe_flash_forward (:169), wherever the call is bf16 at head_dim 64, 128 or
+// 256 (the wrapper pads any other head_dim up to 256 to the next of them):
 // the TPU probe that asks whether overlapping the softmax of kv tile n with
 // the matrix-unit product of tile n + 1 speeds the flash forward up. f32
 // calls stay on flash_fwd_pipe.cu, whose C contract this file keeps: q, out
@@ -40,47 +41,72 @@
 // — so K9 against K3 on the same inputs isolates the order. The per-element
 // arithmetic and the order of O's updates are K3's: O = (O·corr_n) +
 // P_n·V_n, tile by tile.
+//
+// Head_dim 256 follows flash_fwd_sm90.cu's instance there: two warpgroups a
+// block, each its own 64-row q tile, sharing the K and V tiles, one block an
+// SM. The order holds two score tiles beside O, and O alone is 64 x 256 f32,
+// 128 registers a thread; flash_fwd_sm90.cu's single 64-key S already
+// reaches 228 at 256, so two 64-key tiles (32 registers each) would spill.
+// At 256 the kv tiles are therefore 32 keys (m64n32k16 for S, 16 registers
+// a score tile, 8 of packed P): the probe tests the issue order, not a tile
+// size. Its out is not bit for bit K3's at 256, as the online softmax
+// rescales at every 32 keys rather than every 64.
 #include "sm90_common.cuh"
 
 namespace dtt {
 
-constexpr int PIPE90_BQ = 64, PIPE90_BKV = 64, PIPE90_THREADS = 128;
+constexpr int PIPE90_BQ = 64;  // rows of a warpgroup's q tile
+
+// Warpgroups a block and keys a kv tile: two and 32 at head_dim 256, one and
+// 64 below.
+template <int D>
+constexpr int kPipe90Wgs = D == 256 ? 2 : 1;
+template <int D>
+constexpr int kPipe90Bkv = D == 256 ? 32 : 64;
 
 template <int D>
 constexpr size_t pipe90_smem_bytes() {
-  // The q tile, two K and two V tiles, and room to align the base to 1024
-  // bytes.
-  return sizeof(bf16) * (PIPE90_BQ + 4 * PIPE90_BKV) * D + 1024;
+  // The warpgroups' q tiles, two K and two V tiles, and room to align the
+  // base to 1024 bytes.
+  return sizeof(bf16) * (kPipe90Wgs<D> * PIPE90_BQ + 4 * kPipe90Bkv<D>) * D + 1024;
 }
 
 template <int D>
-__global__ void __launch_bounds__(PIPE90_THREADS, 2)
+__global__ void __launch_bounds__(128 * kPipe90Wgs<D>, kPipe90Wgs<D> == 1 ? 2 : 1)
 flash_fwd_pipe_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
                            float* __restrict__ lse, Bhsd sq, Bhsd sk, Bhsd sv, Bhsd so, int H,
                            int Sq, int Skv, int off, int causal, float scale) {
-  constexpr int BQ = PIPE90_BQ, BKV = PIPE90_BKV, DB = D / 64;  // DB: 64-column blocks
-  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  // DB: 64-column blocks; BQB: q rows a block, BQ a warpgroup; NS: score
+  // registers a thread, NP: packed P registers.
+  constexpr int BQ = PIPE90_BQ, BKV = kPipe90Bkv<D>, DB = D / 64;
+  constexpr int THREADS = 128 * kPipe90Wgs<D>, BQB = kPipe90Wgs<D> * BQ;
+  constexpr int NS = BKV / 2, NP = BKV / 4;
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_at(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
-  bf16* sK = sQ + BQ * D;       // two tiles
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));  // BQB rows
+  bf16* sK = sQ + BQB * D;      // two tiles
   bf16* sV = sK + 2 * BKV * D;  // two tiles
 
-  const int num_q = (Sq + BQ - 1) / BQ;
-  const int q0 = (num_q - 1 - (int)blockIdx.x) * BQ;  // the tiles with the most keys first
+  const int num_q = (Sq + BQB - 1) / BQB;
+  const int q0 = (num_q - 1 - (int)blockIdx.x) * BQB;  // the tiles with the most keys first
   const int h = blockIdx.y, b = blockIdx.z;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
   bf16* ob = out + b * so.b + h * so.h;
   float* lb = lse + ((size_t)b * H + h) * Sq;
-  const int wi = threadIdx.x >> 5;  // the warp: rows [16wi, +16) of the tile
+  const int wg = threadIdx.x >> 7;        // the warpgroup: rows [64wg, +64) of the block's
+  const int wi = (threadIdx.x >> 5) & 3;  // the warp: rows [16wi, +16) of the warpgroup's
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r_lo = q0 + 16 * wi;  // the warp's first q row
+  const int r_lo = q0 + BQ * wg + 16 * wi;  // the warp's first q row
   const int row[2] = {r_lo + g, r_lo + g + 8};
 
-  const int kv_end = causal ? min(Skv, min(q0 + BQ, Sq) + off) : Skv;
+  // At 256 a block's kv range is that of its later q tile: under causal
+  // masking its earlier warpgroup multiplies tiles wholly masked for it,
+  // which the mask zeroes, as in flash_fwd_sm90.cu.
+  const int kv_end = causal ? min(Skv, min(q0 + BQB, Sq) + off) : Skv;
   const int n_tiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
   if (n_tiles == 0) {  // every row of the tile attends nothing (Sq > Skv, causal)
 #pragma unroll
@@ -99,7 +125,7 @@ flash_fwd_pipe_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   // sw_issue for the K and V tiles with the address arithmetic hoisted out
   // of the kv loop, as in flash_fwd_sm90.cu: this thread copies the 16-byte
   // chunks at rows kr0 + RPR·it, columns kc and kc + D/2.
-  constexpr int CPH = D / 16, RPR = PIPE90_THREADS / CPH, ROUNDS = BKV / RPR;
+  constexpr int CPH = D / 16, RPR = THREADS / CPH, ROUNDS = BKV / RPR;
   const int kr0 = (int)threadIdx.x / CPH, kc = ((int)threadIdx.x % CPH) * 8;
   const int so1 = sw<BKV>(kr0, kc), so2 = sw<BKV>(kr0, kc + D / 2);
   auto load_tile = [&](bf16* dst, const bf16* src, long long ld, int row0) {
@@ -120,21 +146,21 @@ flash_fwd_pipe_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   };
   auto load_k = [&](int n) { load_tile(k_tile(n), kb, sk.s, n * BKV); };
   auto load_v = [&](int n) { load_tile(v_tile(n), vb, sv.s, n * BKV); };
-  float s0[32], s1[32], o[DB][32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
-  uint32_t pf[16];
+  float s0[NS], s1[NS], o[DB][32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pf[NP];
 #pragma unroll
   for (int blk = 0; blk < DB; ++blk)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[blk][i] = 0.f;
 
   // S = (q·s)·K_nᵀ into `s`, one commit group.
-  auto issue_s = [&](float (&s)[32], int n) {
+  auto issue_s = [&](float (&s)[NS], int n) {
     const uint32_t aQ = smem_at(sQ), aK = smem_at(k_tile(n));
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss<0, 0>(s, desc_k(aQ + 2 * sw<BQ>(0, 16 * kk)), desc_k(aK + 2 * sw<BKV>(0, 16 * kk)),
-                   kk > 0);
+      mma_ss<0, 0>(s, desc_k(aQ + 2 * sw<BQB>(BQ * wg, 16 * kk)),
+                   desc_k(aK + 2 * sw<BKV>(0, 16 * kk)), kk > 0);
     wg_commit();
   };
   // O += P·V_n, one commit group: k-step kk takes keys [16kk, +16) from
@@ -152,12 +178,12 @@ flash_fwd_pipe_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   // flash_fwd_sm90.cu's online softmax of S_n in place, causal only: P =
   // exp(S − m) as exp2 of log2e-scaled logits, m and l updated, corr the
   // factor O takes. Tiles wholly inside the causal band skip the mask.
-  auto softmax = [&](float (&s)[32], int n) {
+  auto softmax = [&](float (&s)[NS], int n) {
     const int k0 = n * BKV, p_lo = r_lo + off;  // p_lo: the warp's first row's position
     const bool full = k0 + BKV <= Skv && (!causal || k0 + BKV - 1 <= p_lo);
     float tmax[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (!full && !attends_at(row[e >> 1], k0 + 8 * j + 2 * t + (e & 1), Sq, Skv, off, causal,
@@ -176,7 +202,7 @@ flash_fwd_pipe_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       m[i] = m_safe + (dead ? NEG_INF : 0.f);
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[4 * j + e] = ex2(fmaf(s[4 * j + e], kLog2e, -mb[e >> 1]));
@@ -188,11 +214,11 @@ flash_fwd_pipe_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
   // Prologue: q and K_0 land, q is scale-folded in place, then K_1 and V_0
   // load while S_0 multiplies.
-  sw_issue<D, BQ, PIPE90_THREADS>(sQ, qb, sq.s, q0, Sq);
+  sw_issue<D, BQB, THREADS>(sQ, qb, sq.s, q0, Sq);
   load_k(0);
   cp_async_commit();
   cp_async_wait<0>();
-  sw_finish<D, BQ, PIPE90_THREADS>(sQ, q0, Sq, nullptr, nullptr, true, scale, off);
+  sw_finish<D, BQB, THREADS>(sQ, q0, Sq, nullptr, nullptr, true, scale, off);
   proxy_fence();
   __syncthreads();
   if (n_tiles > 1) load_k(1);
@@ -215,14 +241,14 @@ flash_fwd_pipe_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 #pragma unroll
     for (int blk = 0; blk < DB; ++blk) reg_fence(o[blk]);
   };
-  auto pack_p = [&](float (&s)[32]) {
+  auto pack_p = [&](float (&s)[NS]) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) pf[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+    for (int j = 0; j < NP; ++j) pf[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
   };
   // Step n < n_tiles - 1, S_n finished in `cur`: S_{n+1} multiplies into
   // `nxt` while the softmax of S_n runs; then P_n·V_n. Every wgmma of a step
   // is issued unconditionally.
-  auto step = [&](float (&cur)[32], float (&nxt)[32], int n) {
+  auto step = [&](float (&cur)[NS], float (&nxt)[NS], int n) {
     // K_{n+1} and V_n have landed everywhere; every warp is done with step
     // n - 1, so K_n's and V_{n-1}'s buffers take K_{n+2} and V_{n+1}.
     cp_async_wait<0>();
@@ -239,7 +265,7 @@ flash_fwd_pipe_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     rescale_pv(n);
   };
   // The last step has no next product: the TPU probe's flush step.
-  auto last = [&](float (&cur)[32], int n) {
+  auto last = [&](float (&cur)[NS], int n) {
     cp_async_wait<0>();  // V_n
     proxy_fence();
     __syncthreads();
@@ -282,8 +308,9 @@ int launch_pipe90(const void* q, const void* k, const void* v, void* out, void* 
   if (err != cudaSuccess) return (int)err;
   const Bhsd sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       so{st[9], st[10], st[11]};
-  const dim3 grid((Sq + PIPE90_BQ - 1) / PIPE90_BQ, H, B);
-  flash_fwd_pipe_sm90_kernel<D><<<grid, PIPE90_THREADS, smem, stream>>>(
+  constexpr int BQB = kPipe90Wgs<D> * PIPE90_BQ;
+  const dim3 grid((Sq + BQB - 1) / BQB, H, B);
+  flash_fwd_pipe_sm90_kernel<D><<<grid, 128 * kPipe90Wgs<D>, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), static_cast<float*>(lse), sq, sk, sv, so, H, Sq, Skv, off, causal,
       scale);
@@ -293,8 +320,8 @@ int launch_pipe90(const void* q, const void* k, const void* v, void* out, void* 
 }  // namespace dtt
 
 // dtt_flash_fwd_pipe's contract (flash_fwd_pipe.cu) for bf16 operands at
-// head_dim 64 or 128; any other call returns cudaErrorInvalidValue. Returns a
-// cudaError_t.
+// head_dim 64, 128 or 256; any other call returns cudaErrorInvalidValue.
+// Returns a cudaError_t.
 extern "C" int dtt_flash_fwd_pipe_sm90(const void* q, const void* k, const void* v, void* out,
                                        void* lse, const long long* strides, int B, int H,
                                        int Sq, int Skv, int D, int is_bf16, int causal,
@@ -307,6 +334,9 @@ extern "C" int dtt_flash_fwd_pipe_sm90(const void* q, const void* k, const void*
                              scale, st);
   if (D == 128)
     return launch_pipe90<128>(q, k, v, out, lse, strides, B, H, Sq, Skv, q_pos_offset, causal,
+                              scale, st);
+  if (D == 256)
+    return launch_pipe90<256>(q, k, v, out, lse, strides, B, H, Sq, Skv, q_pos_offset, causal,
                               scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,15 @@
 // Pieces shared by the warpgroup (wgmma) kernels for Hopper
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): the 128-byte-swizzled shared
-// tile layout, its row-tile loader with the split-half rope rotation and
-// q-scale fold, wgmma's shared-memory descriptors, fences and waits, the
-// m64n64k16 bf16 products with both operands in shared memory (mma_ss) or A
-// from registers (mma_rs), exp2 on the special-function unit, bf16 packing,
-// and the pass that rotates k once a call under rope (flash_fwd_rotate_k,
-// for the forward and the two-pass dq kernel). The loaders take the block's
-// thread count: SM90_THREADS, two warpgroups, for the backward; one
-// warpgroup for the forward, the pipelining probe and the two-pass dq.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_dq_sm90.cu,
+// flash_fwd_pipe_sm90.cu, flash_fwd_cols_sm90.cu): the 128-byte-swizzled
+// shared tile layout, its row-tile loader with the split-half rope rotation
+// and q-scale fold, wgmma's shared-memory descriptors, fences and waits, the
+// m64n64k16 bf16 products with both operands in shared memory (mma_ss; also
+// m64n32k16 for 32-key tiles) or A from registers (mma_rs), exp2 on the
+// special-function unit, bf16 packing, and the pass that rotates k once a
+// call under rope (flash_fwd_rotate_k, for the forward and the two-pass dq
+// kernel). The loaders take the block's thread count: SM90_THREADS, two
+// warpgroups, for the backward and the kernels with two warpgroups a block;
+// one warpgroup for the others.
 #pragma once
 
 #include "flash_common.cuh"
@@ -218,6 +220,25 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, i
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DTT_REGS32
       ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : DTT_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+#define DTT_ACC16(d)                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+#define DTT_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// The same at N = 32 (m64n32k16), for 32-key score tiles: the accumulator
+// layout above with j < 4. Overloaded on the accumulator's size, so a kernel
+// templated on its kv tile calls mma_ss either way.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " DTT_REGS16
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : DTT_ACC16(d)
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 

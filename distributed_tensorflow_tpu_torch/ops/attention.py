@@ -38,24 +38,28 @@ backward, K6 included, as a warpgroup kernel, which takes every bf16 call at
 head_dim 64, 128 or 256 (:func:`backward_kernel`; at 256 its two
 warpgroups split dK and dV by columns); ``flash_bwd_dq.cu`` — the two-pass
 dq kernel (K5), and ``flash_bwd_dq_sm90.cu`` the same as a warpgroup kernel
-for bf16 at head_dim 64 or 128 (:func:`backward_dq_kernel`);
-``flash_fwd_pipe.cu`` — the forward of the pipelining probe (K9,
-``tools/pipeline_probe.py``), and ``flash_fwd_pipe_sm90.cu`` the same on
-the warpgroup forward's skeleton for bf16 (:func:`pipe_forward_kernel`).
-So f32, head_dim 32 and K5 at 256 run the plain-design kernels
-(``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_dq.cu``), every other bf16
-call up to 256 a warpgroup kernel. Head dims above 256 run the column-group
-family (``flash_fwd_dstream.cu``, ``flash_bwd_dstream.cu`` with or without
-dq, ``flash_bwd_dq_dstream.cu``; bf16 on mma.sync and f32 on FMAs), which
-takes the head dim at run time: a block owns 128 output columns and streams
-q·kᵀ over D in 64-column chunks, and q and k reach it rotated (and q
-scale-folded) by a pass, as a rope pair spans two column groups. Each has a
-plain PyTorch version (``*_reference``). The kernels are compiled for
-head_dim 32, 64, 128 and 256 (the two-pass dq and pipelining kernels'
-warpgroup versions for 64 and 128 only); any other head_dim up to 256 runs
-zero-padded to the next of those, and one above 256 to the next multiple of
-128 (:func:`pad_head_dim`). A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises — there is no fallback between them.
+for bf16 at head_dim 64, 128 or 256 (:func:`backward_dq_kernel`; at 256 its
+two warpgroups split S and dP, then dq by columns); ``flash_fwd_pipe.cu`` —
+the forward of the pipelining probe (K9, ``tools/pipeline_probe.py``), and
+``flash_fwd_pipe_sm90.cu`` the same on the warpgroup forward's skeleton for
+bf16 (:func:`pipe_forward_kernel`). So f32 and head_dim 32 run the
+plain-design kernels (``flash_fwd.cu``, ``flash_bwd.cu``,
+``flash_bwd_dq.cu``), every other bf16 call up to 256 a warpgroup kernel.
+Head dims above 256 run the column-group family (``flash_fwd_dstream.cu``,
+``flash_bwd_dstream.cu`` with or without dq, ``flash_bwd_dq_dstream.cu``;
+bf16 on mma.sync and f32 on FMAs), which takes the head dim at run time: a
+block owns 128 output columns and streams q·kᵀ over D in 64-column chunks,
+and q and k reach it rotated (and q scale-folded) by a pass, as a rope pair
+spans two column groups — except the bf16 forward at 384 and 512, which
+``flash_fwd_cols_sm90.cu`` runs as a warpgroup kernel on the same pass
+(two warpgroups a block split q·kᵀ's contraction and out's columns, so the
+scores are computed once). Each has a plain PyTorch version
+(``*_reference``). The kernels are compiled for head_dim 32, 64, 128 and
+256 (the pipelining kernels for 64, 128 and 256); any other head_dim up to
+256 runs zero-padded to the next of those, and one above 256 to the next
+multiple of 128 (:func:`pad_head_dim`). A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises — there is no fallback
+between them.
 """
 
 from __future__ import annotations
@@ -86,12 +90,14 @@ KERNEL_LAUNCHES = {
 # (:func:`forward_kernel`), a backward's flash_bwd or flash_bwd_sm90
 # (:func:`backward_kernel`), K5's flash_bwd_dq or flash_bwd_dq_sm90
 # (:func:`backward_dq_kernel`), K9's flash_fwd_pipe or flash_fwd_pipe_sm90
-# (:func:`pipe_forward_kernel`); above head_dim 256 each direction runs its
-# column-group source (*_dstream).
+# (:func:`pipe_forward_kernel`; above head_dim 256 the forward's source);
+# above head_dim 256 each direction runs its column-group source
+# (*_dstream), except the bf16 forward at 384 and 512 (flash_fwd_cols_sm90).
 SOURCE_LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd": 0, "flash_bwd_sm90": 0,
     "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_fwd_pipe": 0, "flash_fwd_pipe_sm90": 0,
     "flash_fwd_dstream": 0, "flash_bwd_dstream": 0, "flash_bwd_dq_dstream": 0,
+    "flash_fwd_cols_sm90": 0,
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -547,8 +553,10 @@ def _dims(q, k):
     return b, h, k.shape[1], sq, k.shape[2], d
 
 
-# The instances the warpgroup forward and fused backward are compiled for.
+# The instances the warpgroup forward, fused backward and two-pass dq kernel
+# are compiled for; above them, the bf16 forward's warpgroup instances.
 _SM90_HEAD_DIMS = (64, 128, 256)
+_COLS90_HEAD_DIMS = (384, 512)
 
 
 def _dstream_scratch(q, k, cos):
@@ -561,12 +569,18 @@ def _dstream_scratch(q, k, cos):
 
 
 def forward_kernel(dtype: torch.dtype, d: int) -> str:
-    """The source of the forward kernel that runs a call: head_dim above 256
-    goes to the column-group kernel ``csrc/flash_fwd_dstream.cu`` in either
-    dtype; bf16 at head_dim 64, 128 or 256 to the warpgroup (wgmma) kernel
-    ``csrc/flash_fwd_sm90.cu`` (two warpgroups a block at 256); f32 and
-    head_dim 32 stay on ``csrc/flash_fwd.cu``. ``d`` is the instance the call
-    runs at (after padding)."""
+    """The source of the forward kernel that runs a call: bf16 at head_dim
+    384 or 512 goes to the warpgroup (wgmma) kernel
+    ``csrc/flash_fwd_cols_sm90.cu`` (two warpgroups a block, each summing
+    half of q·kᵀ's contraction and owning half of out's columns); any other
+    head_dim above 256 to the column-group kernel
+    ``csrc/flash_fwd_dstream.cu`` in either dtype; bf16 at head_dim 64, 128
+    or 256 to the warpgroup kernel ``csrc/flash_fwd_sm90.cu`` (two
+    warpgroups a block at 256); f32 and head_dim 32 stay on
+    ``csrc/flash_fwd.cu``. ``d`` is the instance the call runs at (after
+    padding)."""
+    if dtype == torch.bfloat16 and d in _COLS90_HEAD_DIMS:
+        return "flash_fwd_cols_sm90"
     if d > _KERNEL_HEAD_DIMS[-1]:
         return "flash_fwd_dstream"
     if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
@@ -583,7 +597,9 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
     first rotates k once into ``k_rot``, a contiguous (B, KV, Skv, D) scratch
     (allocated here unless given), and reads k from there. A head dim between
     the kernel's instances runs zero-padded to the next one, at the scale of
-    the real one. The launch counts under ``KERNEL_LAUNCHES[counter]``."""
+    the real one. Above head_dim 256 both sources take the prepare pass's
+    scratches (q rotated and scale-folded, k rotated), allocated here. The
+    launch counts under ``KERNEL_LAUNCHES[counter]``."""
     d, scale = q.shape[-1], _scale(q.shape[-1], scale)
     dp = _instance_dim(d)
     if dp != d:
@@ -599,7 +615,7 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
         if cos is not None and k_rot is None:
             k_rot = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         extra, argtypes = (_ptr(k_rot),), _FWD90_ARGTYPES
-    elif source == "flash_fwd_dstream":
+    elif source in ("flash_fwd_dstream", "flash_fwd_cols_sm90"):
         q_s, k_rot = _dstream_scratch(q, k, cos)  # held until the launch returns
         extra, argtypes = (_ptr(q_s), _ptr(k_rot)), _FWD_DS_ARGTYPES
     fn = _kernel_fn(source, argtypes)
@@ -615,11 +631,29 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
     _check_status(counter, status)
 
 
+# The instances the pipelining probe's kernels are compiled for.
+_PIPE_HEAD_DIMS = (64, 128, 256)
+
+
+def _pipe_instance_dim(d: int) -> int:
+    """The head dim K9 runs head_dim ``d`` at: the next of 64, 128 and 256;
+    above 256 the forward's instance (:func:`_instance_dim`)."""
+    for n in _PIPE_HEAD_DIMS:
+        if d <= n:
+            return n
+    return _instance_dim(d)
+
+
 def pipe_forward_kernel(dtype: torch.dtype, d: int) -> str:
-    """The source of the pipelining probe's kernel (K9) that runs a call:
-    bf16 goes to the warpgroup (wgmma) kernel ``csrc/flash_fwd_pipe_sm90.cu``,
-    f32 stays on ``csrc/flash_fwd_pipe.cu`` (both at head_dim 64 or 128)."""
-    if dtype == torch.bfloat16 and d in (64, 128):
+    """The source of the pipelining probe's kernel (K9) that runs a call at
+    instance ``d`` (after padding): at head_dim 64, 128 and 256 bf16 goes to
+    the warpgroup (wgmma) kernel ``csrc/flash_fwd_pipe_sm90.cu`` (two
+    warpgroups a block and 32-key tiles at 256), f32 to
+    ``csrc/flash_fwd_pipe.cu``; above 256, where the pipelined order is not
+    built, the forward's source (:func:`forward_kernel`)."""
+    if d > _PIPE_HEAD_DIMS[-1]:
+        return forward_kernel(dtype, d)
+    if dtype == torch.bfloat16:
         return "flash_fwd_pipe_sm90"
     return "flash_fwd_pipe"
 
@@ -627,12 +661,24 @@ def pipe_forward_kernel(dtype: torch.dtype, d: int) -> str:
 def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None:
     """Launch K9 on q's stream (:func:`pipe_forward_kernel` picks the
     source): q, out (B, H, Sq, D) and k, v (B, H, Skv, D) views with a
-    contiguous last dimension, lse (B, H, Sq) f32. The launch counts under
-    ``KERNEL_LAUNCHES["pipe_fwd"]``. The probe's kernels are compiled for
-    head_dim 64 and 128 only."""
+    contiguous last dimension, lse (B, H, Sq) f32. Any head_dim up to 256
+    runs zero-padded to the next instance (64, 128 or 256) at the real head
+    dim's scale; the probe has no rope. Above 256 the pipelined order is not
+    built: the call runs the shipped forward (:func:`_launch_forward`) at
+    that head dim. The launch counts under ``KERNEL_LAUNCHES["pipe_fwd"]``
+    and under the source that ran."""
     b, h, sq, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"the pipelining probe's kernel takes head_dim 64 or 128, got {d}")
+    scale = _scale(d, scale)
+    if d > _PIPE_HEAD_DIMS[-1]:
+        _launch_forward("pipe_fwd", q, k, v, out, lse, causal, None, q_pos_offset, scale)
+        return
+    dp = _pipe_instance_dim(d)
+    if dp != d:
+        out_p = torch.empty(b, h, sq, dp, dtype=q.dtype, device=q.device)
+        _launch_pipe_forward(*(pad_head_dim(t, dp) for t in (q, k, v)), out_p, lse, causal,
+                             q_pos_offset, scale)
+        out.copy_(unpad_head_dim(out_p, d))
+        return
     strides = _strides(q, k, v, out)
     source = pipe_forward_kernel(q.dtype, d)
     fn = _kernel_fn(source, _PIPE_FWD_ARGTYPES)
@@ -641,7 +687,7 @@ def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None
         status = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), ctypes.addressof(strides), b, h,
             sq, k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal), q_pos_offset,
-            _scale(d, scale), stream,
+            scale, stream,
         )
         KERNEL_LAUNCHES["pipe_fwd"] += 1
         SOURCE_LAUNCHES[source] += 1
@@ -718,13 +764,14 @@ def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,
 def backward_dq_kernel(dtype: torch.dtype, d: int) -> str:
     """The source of the two-pass dq kernel (K5) that runs a call: head_dim
     above 256 goes to the column-group kernel ``csrc/flash_bwd_dq_dstream.cu``
-    in either dtype; bf16 at head_dim 64 or 128 to the warpgroup (wgmma)
-    kernel ``csrc/flash_bwd_dq_sm90.cu``; f32, head_dim 32 and head_dim 256
+    in either dtype; bf16 at head_dim 64, 128 or 256 to the warpgroup (wgmma)
+    kernel ``csrc/flash_bwd_dq_sm90.cu`` (at 256 two warpgroups a block, S
+    in one and dP in the other, dq split by columns); f32 and head_dim 32
     stay on ``csrc/flash_bwd_dq.cu``. ``d`` is the instance the call runs at
     (after padding)."""
     if d > _KERNEL_HEAD_DIMS[-1]:
         return "flash_bwd_dq_dstream"
-    if dtype == torch.bfloat16 and d in (64, 128):
+    if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
         return "flash_bwd_dq_sm90"
     return "flash_bwd_dq"
 

@@ -7,10 +7,13 @@ Counterpart of the JAX package's ``tools/pipeline_probe.py``. Its
 Q·K_{n+1}ᵀ before the softmax of tile n and keeps K one tile ahead of V —
 ``csrc/flash_fwd_pipe_sm90.cu`` in bf16, the shipped warpgroup forward's
 skeleton with only that issue order changed, and ``csrc/flash_fwd_pipe.cu``
-in f32 (``ops.attention.pipe_forward_kernel``) — and
-:func:`pipe_flash_forward_reference` for CPU ones. The TPU's ``block_q``/``block_kv`` are left out, because the
-CUDA kernels fix their own 64-row tiles, and so is the unused ``out_dtype``:
-out is in q's dtype.
+in f32 (``ops.attention.pipe_forward_kernel``), at head_dim 64, 128 and 256
+(any other head_dim up to 256 zero-padded to the next; above 256, where the
+order is not built, the call runs the shipped forward at that head dim) —
+and :func:`pipe_flash_forward_reference` for CPU ones. Like the JAX
+function it takes any head dim. The TPU's ``block_q``/``block_kv`` are left
+out, because the CUDA kernels fix their own tiles, and so is the unused
+``out_dtype``: out is in q's dtype.
 
     python -m distributed_tensorflow_tpu_torch.tools.pipeline_probe
 
@@ -59,7 +62,8 @@ def pipe_flash_forward_reference(q, k, v, causal: bool = True, scale: float | No
 
 def pipe_flash_forward_kernel(q, k, v, causal: bool = True, scale: float | None = None):
     """Launch K9 on q's stream (``flash_fwd_pipe_sm90.cu`` in bf16,
-    ``flash_fwd_pipe.cu`` in f32). Returns ``out`` (B,
+    ``flash_fwd_pipe.cu`` in f32; above head_dim 256 the shipped forward's
+    source). Returns ``out`` (B,
     H, Sq, D) in q's layout and ``lse`` (B, H, Sq) f32 — the kernel writes
     lse, as the TPU kernel does, so the timed work matches."""
     _check_heads(q, k, v)

@@ -1,7 +1,7 @@
 """The warpgroup forward's dispatch and its rotate-once design, on the CPU.
 
 bf16 calls at head_dim 64, 128 or 256 run ``csrc/flash_fwd_sm90.cu`` on the card
-(:func:`forward_kernel`); under rope that kernel rotates k once a call
+(:func:`forward_kernel`; at 384 and 512 ``csrc/flash_fwd_cols_sm90.cu``); under rope that kernel rotates k once a call
 (``flash_fwd_rotate_k``) and q inside its blocks. What can be checked here,
 with no card: the dispatch table; the plain version of the rotate pass
 against the JAX package's ``ops/rope.py::apply_rope`` on the same numpy
@@ -38,10 +38,12 @@ pytestmark = pytest.mark.torch_port
     ((torch.float32, 32), "flash_fwd"),
     ((torch.bfloat16, 256), "flash_fwd_sm90"),
     ((torch.float32, 256), "flash_fwd"),
-    ((torch.bfloat16, 384), "flash_fwd_dstream"),
-    ((torch.bfloat16, 512), "flash_fwd_dstream"),
+    ((torch.bfloat16, 384), "flash_fwd_cols_sm90"),
+    ((torch.bfloat16, 512), "flash_fwd_cols_sm90"),
     ((torch.float32, 384), "flash_fwd_dstream"),
     ((torch.float32, 512), "flash_fwd_dstream"),
+    ((torch.bfloat16, 640), "flash_fwd_dstream"),
+    ((torch.float32, 640), "flash_fwd_dstream"),
 ])
 def test_forward_kernel_dispatch(case):
     args, want = case

@@ -156,14 +156,15 @@ def test_backward_kernel_dispatch(case):
     ((torch.float32, 128), "flash_bwd_dq"),
     ((torch.float32, 64), "flash_bwd_dq"),
     ((torch.bfloat16, 32), "flash_bwd_dq"),
-    ((torch.bfloat16, 256), "flash_bwd_dq"),
+    ((torch.bfloat16, 256), "flash_bwd_dq_sm90"),
+    ((torch.float32, 256), "flash_bwd_dq"),
     ((torch.bfloat16, 384), "flash_bwd_dq_dstream"),
     ((torch.bfloat16, 512), "flash_bwd_dq_dstream"),
     ((torch.float32, 384), "flash_bwd_dq_dstream"),
     ((torch.float32, 512), "flash_bwd_dq_dstream"),
 ])
 def test_backward_dq_kernel_dispatch(case):
-    """K5: bf16 at 64/128 on the warpgroup kernel; f32, 32 and 256 on the
+    """K5: bf16 at 64/128/256 on the warpgroup kernel; f32 and 32 on the
     plain-design one; above 256 on the column-group kernel in both dtypes."""
     args, want = case
     assert TA.backward_dq_kernel(*args) == want
@@ -174,19 +175,25 @@ def test_backward_dq_kernel_dispatch(case):
     ((torch.bfloat16, 64), "flash_fwd_pipe_sm90"),
     ((torch.float32, 128), "flash_fwd_pipe"),
     ((torch.float32, 64), "flash_fwd_pipe"),
+    ((torch.bfloat16, 256), "flash_fwd_pipe_sm90"),
+    ((torch.float32, 256), "flash_fwd_pipe"),
+    ((torch.bfloat16, TA._pipe_instance_dim(80)), "flash_fwd_pipe_sm90"),
+    ((torch.float32, TA._pipe_instance_dim(200)), "flash_fwd_pipe"),
+    ((torch.bfloat16, TA._pipe_instance_dim(320)), "flash_fwd_cols_sm90"),
 ])
 def test_pipe_forward_kernel_dispatch(case):
-    """K9: bf16 on the warpgroup kernel, f32 on the old one."""
+    """K9: bf16 on the warpgroup kernel, f32 on the old one, at 64, 128 and
+    256 and the head dims padded to them; above 256 the forward's source."""
     args, want = case
     assert TA.pipe_forward_kernel(*args) == want
 
 
 @pytest.mark.parametrize("d", [160, 192, 256])
 def test_head_dims_to_256_keep_the_plain_design_kernels(d):
-    """Head dims 129-256 run the instance 256: in bf16 the warpgroup forward
-    and fused backward (K6 included), in f32 the plain-design kernels; the
-    two-pass dq kernel (K5) keeps the plain design at 256 in both. (The name
-    is the test's from when every call at 256 took the plain design.)"""
+    """Head dims 129-256 run the instance 256: in bf16 the warpgroup forward,
+    fused backward (K6 included) and two-pass dq kernel (K5), in f32 the
+    plain-design kernels. (The name is the test's from when every call at
+    256 took the plain design.)"""
     dp = TA._instance_dim(d)
     assert dp == 256
     assert TA.forward_kernel(torch.bfloat16, dp) == "flash_fwd_sm90"
@@ -195,8 +202,8 @@ def test_head_dims_to_256_keep_the_plain_design_kernels(d):
     assert TA.forward_kernel(torch.float32, dp) == "flash_fwd"
     assert TA.backward_kernel(torch.float32, dp, True) == "flash_bwd"
     assert TA.backward_kernel(torch.float32, dp, False) == "flash_bwd"
-    for dtype in (torch.bfloat16, torch.float32):
-        assert TA.backward_dq_kernel(dtype, dp) == "flash_bwd_dq"
+    assert TA.backward_dq_kernel(torch.bfloat16, dp) == "flash_bwd_dq_sm90"
+    assert TA.backward_dq_kernel(torch.float32, dp) == "flash_bwd_dq"
 
 
 def test_new_sm90_sources_are_built_on_the_shared_header():
