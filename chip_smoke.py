@@ -86,8 +86,14 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  window + rope, on a q segment, with fully masked rows,
                  non-causal, and planted faults (one warpgroup's half of
                  P·V, one D half of q·kᵀ), K10 on head views at 512, and
-                 bf16 at 640 on the column-group forward; every launch on
-                 the source its dtype and head dim name. Then K9 at dh 80
+                 bf16 at 640 on the column-group forward; K6 at 384 and
+                 512 on the warpgroup kernel flash_bwd_cols_sm90.cu with
+                 GQA + window + rope cross-length (384), rope on a q
+                 segment (from 320), a window on a q segment (512), kv
+                 rows no q row sees exactly 0, and planted faults (a
+                 dropped q tile, one warpgroup's columns, one of the two
+                 column blocks, in dK and in dV) at 512 and 384; every
+                 launch on the source its dtype and head dim name. Then K9 at dh 80
                  (padded to 128), 256 and 320 (the shipped forward), bf16
                  and f32, against its plain version and against K3 (bit
                  for bit or not, recorded), with fully masked rows,
@@ -115,7 +121,7 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  of 512 (lr 1e-4, 6 steps, its loss falling): exactly 8 K1,
                  8 K5 and 8 K6 launches a step (the gate's two-pass route at
                  head_dim 512), on flash_fwd_cols_sm90.cu,
-                 flash_bwd_dq_dstream.cu and flash_bwd_dstream.cu;
+                 flash_bwd_dq_dstream.cu and flash_bwd_cols_sm90.cu;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
@@ -158,9 +164,15 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  turns too), with SDPA's kernels' names (it has no flash
                  backend above 256), and K5 at head_dim 256
                  (flash_bwd_dq_sm90.cu against flash_bwd_dq.cu in turns,
-                 Gemma 7B's width); and one layer's backward at the `wide`
+                 Gemma 7B's width), and K6 at 512 and 384
+                 (flash_bwd_cols_sm90.cu against flash_bwd_dstream.cu in
+                 turns); and one layer's backward at the `wide`
                  call through each of the three routes (K2 whole, K8 on
                  eight segments, K6 + K5), forced through the gate's hooks;
+     host_dispatch — the wrappers' host pieces at the CLI's call (K1 and K2
+                 at head_dim 32), before and after the launch plans, each
+                 timed over 1000 calls, beside a whole call's host time,
+                 its back-to-back time and SDPA's;
   7. probes    — the two kernel probes (tools/pipeline_probe.py and
                  tools/bshd_probe.py of the port): K9, the forward in the
                  probe's issue order (flash_fwd_pipe_sm90.cu in bf16),
@@ -183,6 +195,13 @@ Phases, in order; any failed check exits non-zero and no result is printed:
 Then a line with nvidia-smi's name and power limit, a JSON line with the
 kernels' numbers, and last ``{"ok": true, "device": {...}}``. Needs one
 card and no network.
+
+    python3 chip_smoke.py --dispatch [--tree DIR]
+
+times whole calls through the public wrappers (K1/K2 at head_dim 32 beside
+SDPA, K1 at head_dim 320) and the trainer at its defaults for 60 steps, on
+this checkout's package or, with ``--tree``, on checkout DIR's (a parent
+commit unpacked by ``git archive``), so that two trees compare on one card.
 """
 
 import contextlib
@@ -199,6 +218,11 @@ import torch
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device visible to torch")
+# ``--dispatch --tree DIR``: time the package of another checkout (e.g. the
+# parent commit's, unpacked by `git archive`) instead of this one.
+TREE = sys.argv[sys.argv.index("--tree") + 1] if "--tree" in sys.argv else None
+if TREE is not None:
+    sys.path.insert(0, os.path.abspath(TREE))
 
 from distributed_tensorflow_tpu_torch.ops import _build  # noqa: E402
 from distributed_tensorflow_tpu_torch.ops import attention as A  # noqa: E402
@@ -281,7 +305,8 @@ REPLACES["bshd_bwd_d256_wide"] = REPLACES["bshd_bwd"]
 REPLACES.update({"flash_fwd_d512": REPLACES["flash_fwd"], "flash_bwd_d512": REPLACES["flash_bwd"],
                  "bwd_dq_d512": REPLACES["bwd_dq"], "bwd_dkv_d512": REPLACES["bwd_dkv"],
                  "bshd_bwd_d320": REPLACES["bshd_bwd"], "bwd_dq_d256": REPLACES["bwd_dq"],
-                 "flash_fwd_d320": REPLACES["flash_fwd"], "pipe_fwd_d256": REPLACES["pipe_fwd"]})
+                 "flash_fwd_d320": REPLACES["flash_fwd"], "pipe_fwd_d256": REPLACES["pipe_fwd"],
+                 "bwd_dkv_d384": REPLACES["bwd_dkv"]})
 # The wrappers' launch counters and the source each one launches at the
 # main paths' calls (bf16, head_dim 64, 128 or 256): every layout goes
 # through one forward and one fused backward kernel, as the TPU's do — the
@@ -294,7 +319,8 @@ REPLACES.update({"flash_fwd_d512": REPLACES["flash_fwd"], "flash_bwd_d512": REPL
 # (K9) has a kernel of its own, flash_fwd_pipe_sm90.cu in bf16
 # (attention.pipe_forward_kernel; f32 on flash_fwd_pipe.cu). The head_dim 32
 # rows run the plain-design kernels; above 256 the bf16 forward at 384 and
-# 512 runs flash_fwd_cols_sm90.cu, the backward the column-group kernels. A
+# 512 runs flash_fwd_cols_sm90.cu, K6 there flash_bwd_cols_sm90.cu, the rest
+# of the backward the column-group kernels. A
 # main path's launches by source must be exactly what this map makes of its
 # launches by wrapper.
 SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
@@ -307,18 +333,20 @@ SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
            "bshd_bwd_d256_wide": "flash_bwd_sm90", "flash_fwd_d32": "flash_fwd",
            "flash_bwd_d32": "flash_bwd", "flash_fwd_d512": "flash_fwd_cols_sm90",
            "flash_bwd_d512": "flash_bwd_dstream", "bwd_dq_d512": "flash_bwd_dq_dstream",
-           "bwd_dkv_d512": "flash_bwd_dstream", "bshd_bwd_d320": "flash_bwd_dstream",
+           "bwd_dkv_d512": "flash_bwd_cols_sm90", "bwd_dkv_d384": "flash_bwd_cols_sm90",
+           "bshd_bwd_d320": "flash_bwd_dstream",
            "bwd_dq_d256": "flash_bwd_dq_sm90", "flash_fwd_d320": "flash_fwd_cols_sm90",
            "pipe_fwd_d256": "flash_fwd_pipe_sm90"}
 # The sources `wide`'s "was" run forces: the plain-design kernels.
 PLAIN_DESIGN = {"flash_fwd_sm90": "flash_fwd", "flash_bwd_sm90": "flash_bwd"}
 # Where every bf16 launch at head_dim 384 or 512 goes instead: the forward to
-# the warpgroup kernel flash_fwd_cols_sm90.cu, the backward to the
-# column-group kernels. f32 above 256 runs the column-group forward too
-# (DSTREAM_F32).
+# the warpgroup kernel flash_fwd_cols_sm90.cu, K6 (the wrapper bwd_dkv: a
+# wrapper's entry comes before its source's) to the warpgroup kernel
+# flash_bwd_cols_sm90.cu, the fused backward and K5 to the column-group
+# kernels. f32 above 256 runs the column-group kernels in both (DSTREAM_F32).
 DSTREAM = {"flash_fwd_sm90": "flash_fwd_cols_sm90", "flash_bwd_sm90": "flash_bwd_dstream",
-           "flash_bwd_dq_sm90": "flash_bwd_dq_dstream"}
-DSTREAM_F32 = dict(DSTREAM, flash_fwd_sm90="flash_fwd_dstream")
+           "flash_bwd_dq_sm90": "flash_bwd_dq_dstream", "bwd_dkv": "flash_bwd_cols_sm90"}
+DSTREAM_F32 = dict(DSTREAM, flash_fwd_sm90="flash_fwd_dstream", bwd_dkv="flash_bwd_dstream")
 # Each main path: its trainer flags, its launches per layer per step (every
 # other counter must stay at 0) and the map of SOURCES' sources to those its
 # launches run instead (None: SOURCES as it stands). The long path's
@@ -343,11 +371,13 @@ MAIN_PATHS = {
 def expected_sources(launches, forced=None):
     """The launches by source (``attention.SOURCE_LAUNCHES``) that wrapper
     ``launches`` make on the main paths' calls, by :data:`SOURCES`, each
-    source replaced by its entry in ``forced`` where it has one."""
+    source replaced by the wrapper's entry in ``forced`` where it has one,
+    else by the source's."""
+    forced = forced or {}
     out = {src: 0 for src in A.SOURCE_LAUNCHES}
     for name, n in launches.items():
         src = SOURCES[name]
-        out[(forced or {}).get(src, src)] += n
+        out[forced.get(name, forced.get(src, src))] += n
     return out
 
 
@@ -472,13 +502,17 @@ def _check(case, name, dtype, got, ref, tol_key):
 
 
 def compare(case, b, s, h, kv, d, dtype, causal=True, window=None, rope=False, seed=0):
-    """Kernel vs plain version, forward and backward, on the same inputs.
-    Returns the max abs errors of out and dqkv."""
+    """Kernel vs plain version, forward and backward, on the same inputs;
+    ``rope="per_batch"`` gives each batch row its own positions (tables
+    (B, S, d/2)). Returns the max abs errors of out and dqkv."""
     from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
 
     qkv, g = _packed(b, s, h, kv, d, dtype, seed)
     cos = sin = None
-    if rope:
+    if rope == "per_batch":
+        positions = torch.arange(s, device="cuda") + 37 * torch.arange(b, device="cuda")[:, None]
+        cos, sin = rope_tables(d, s, 10000.0, positions=positions)
+    elif rope:
         cos, sin = rope_tables(d, s, 10000.0, device="cuda")
     args = (h, kv, causal, window, cos, sin)
     out, lse = A.flash_forward_qkv_kernel(qkv, *args, None)
@@ -843,6 +877,8 @@ def phase_head_dims():
         if dtype == torch.bfloat16:
             errs["flash_fwd_d32"], errs["flash_bwd_d32"] = d32["out"], d32["dqkv"]
         compare("packed_d80_gqa_rope", 8, 128, 4, 2, 80, dtype, rope=True, seed=61)
+        # a padded head dim with per-batch tables: padded to the instance's width
+        compare("packed_d80_per_batch_rope", 2, 136, 4, 2, 80, dtype, rope="per_batch", seed=59)
         compare_bhsd("bhsd_d32_cross_window", 2, 4, 136, 200, 32, dtype, window=50, seed=62)
         compare_bhsd("bhsd_d80_cross", 2, 4, 136, 200, 80, dtype, seed=63)
     bf = torch.bfloat16
@@ -975,6 +1011,99 @@ def compare_k5(case, b, s, h, kv, d, window=None, rope=False, seed=0, controls=F
     return err
 
 
+def compare_k6(case, b, h, kv, sq, skv, d, window=None, rope=False, q_pos_offset=None, seed=0,
+               controls=False):
+    """K6 at head_dim ``d`` on BHSD bf16 operands (``h`` query heads on ``kv``
+    kv heads, causal, rope θ 10000 tables of ``skv`` rows, q rows placed by
+    ``q_pos_offset``): K3's forward first, then one K6 launch on the source
+    attention.backward_kernel names, dk, dv and delta held against their
+    plain versions on the kernel forward's results; kv rows that no q row
+    sees must give dk and dv exactly 0 (the case must have some). With
+    ``controls`` (Sq == Skv, no window, no rope) the faults the warpgroup
+    dk/dv kernel (flash_bwd_cols_sm90.cu) can make must be caught
+    blockwise (:func:`k6_cols_controls`). Returns the larger of dk's and
+    dv's max abs errors."""
+    from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    make = lambda n, s: torch.randn(b, n, s, d, device="cuda", generator=gen).to(bf)
+    q, k, v, g = make(h, sq), make(kv, skv), make(kv, skv), make(h, sq)
+    cos = sin = None
+    if rope:
+        cos, sin = rope_tables(d, skv, 10000.0, device="cuda")
+    args = (True, window, None, q_pos_offset, cos, sin)
+    out, lse = A.flash_forward_kernel(q, k, v, *args)
+    source = A.backward_kernel(bf, A._instance_dim(d), False)
+    before = A.SOURCE_LAUNCHES[source]
+    dk, dv, delta = A.flash_backward_dkv_kernel(q, k, v, out, lse, g, *args)
+    torch.cuda.synchronize()
+    if A.SOURCE_LAUNCHES[source] != before + 1:
+        fail(f"{case}: K6 did not run {source}.cu")
+    emit(phase="kernels", case=case, k6_source=source)
+    for name, t in (("dk", dk), ("dv", dv), ("delta", delta)):
+        if not torch.isfinite(t).all():
+            fail(f"{case}: non-finite {name}")
+    ref = A.flash_backward_dkv_reference(q, k, v, out, lse, g, *args)
+    if not controls:  # kv rows no q row sees, by the mask
+        off = A._offset(sq, skv, q_pos_offset)
+        unseen = ~A._mask(sq, skv, True, window, q.device, off).any(dim=0)
+        if not unseen.any():
+            fail(f"{case}: the case has no kv row that no q row sees")
+        if any((t[:, :, unseen] != 0).any() for t in (dk, dv)):
+            fail(f"{case}: kv rows no q row sees must give dk and dv exactly 0")
+        emit(phase="kernels", case=case, unseen_kv_rows=int(unseen.sum()), exact_zeros=2)
+    err = max(_check(case, f"k6_{n}", bf, t, r, "dqkv") for n, t, r in zip(("dk", "dv"), (dk, dv),
+                                                                           ref))
+    _check(case, "k6_delta", bf, delta, (g.float() * out.float()).sum(-1), "lse")
+    if controls:
+        k6_cols_controls(case, q, k, v, g, out, lse, dk, dv, *ref)
+    return err
+
+
+def k6_cols_controls(case, q, k, v, g, out, lse, dk, dv, ref_dk, ref_dv):
+    """The faults of the warpgroup dk/dv kernel above head_dim 256
+    (flash_bwd_cols_sm90.cu: two blocks a 64-row kv tile, each owning half
+    of D's columns, split over its two warpgroups; 32-row q tiles), planted
+    into the middle 64-row kv tile of head (0, 0) and required to fail the
+    blockwise check: one 32-row q tile (the last, which sees every key)
+    dropped from dK and from dV; one warpgroup's columns of dK and of dV
+    zeroed (warpgroup 1 of the first block: [64, 128) and [128 + W, 128 +
+    2W), W = 64 at D 512 and 32 at 384); and one of the two column blocks
+    (D's second half) zeroed. Causal, Sq == Skv, no window, no rope."""
+    s, d = q.shape[2], q.shape[3]
+    keys = slice(s // 2, s // 2 + BLOCK_ROWS)
+    rows = slice(s - 32, s)
+    w = d // 4 - 64
+    # P and dS of the dropped tile against those keys (all of them seen),
+    # from the saved lse, as the plain version forms them.
+    qs = (q[0, 0, rows].float() * d ** -0.5).to(q.dtype).float()
+    p = torch.exp(qs @ k[0, 0, keys].float().T - lse[0, 0, rows, None])
+    go = g[0, 0, rows].float()
+    delta = (go * out[0, 0, rows].float()).sum(-1, keepdim=True)
+    ds = p * (go @ v[0, 0, keys].float().T - delta)
+    drops = [("dk: one q tile's dS^T.Q", dk, ref_dk, lambda t: t[0, 0, keys].sub_(ds.T @ qs)),
+             ("dv: one q tile's P^T.dO", dv, ref_dv, lambda t: t[0, 0, keys].sub_(p.T @ go))]
+    for name, t, ref in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        drops += [
+            (f"{name}: one warpgroup's columns", t, ref,
+             lambda x: (x[0, 0, keys, 64:128].zero_(), x[0, 0, keys, 128 + w:128 + 2 * w].zero_())),
+            (f"{name}: one of the two column blocks", t, ref,
+             lambda x: x[0, 0, keys, d // 2:].zero_()),
+        ]
+    for name, got, ref, plant in drops:
+        bad = got.to(torch.float32, copy=True)
+        plant(bad)
+        _, rel = _err(bad, ref)
+        block = _block_err(bad, ref)
+        caught = block > BLOCK_TOL[q.dtype]["dqkv"]
+        emit(phase="kernels", case=case, control=name, rel_err=rel, tol=TOL[q.dtype]["dqkv"],
+             passes_max_rule=rel <= TOL[q.dtype]["dqkv"], block_err=block,
+             block_tol=BLOCK_TOL[q.dtype]["dqkv"], caught=caught)
+        if not caught:
+            fail(f"{case}: the blockwise check misses the planted fault {name}")
+
+
 def check_bshd_probe(case, b, s, h, dh, seed):
     """K10 (tools/bshd_probe.py's bshd_forward on (B, S, H·dh) bf16 views)
     at head_dim ``dh`` against its plain version, on the source
@@ -1013,9 +1142,12 @@ def phase_head_dims_above_256():
     path's own calls at its batch (K1, K6 and K5 at B 12); the warpgroup
     forward's own cases (compare_fwd) with its planted faults (one
     warpgroup's half of P·V, one D half of q·kᵀ), K10 on head views at 512,
-    and bf16 at 640, still on the column-group forward. Every launch must run
-    the source its dtype and head dim name. Returns the errors of the rows:
-    K2 at B 2, K1, K5 and K6 at the path's B 12."""
+    and bf16 at 640, still on the column-group forward; and bf16 K6, which
+    runs the warpgroup kernel flash_bwd_cols_sm90.cu at 384 and 512 (in the
+    families above too), on its own cases (compare_k6) with its planted
+    faults. Every launch must run the source its dtype and head dim name.
+    Returns the errors of the rows: K2 at B 2, K1, K5 and K6 at the path's
+    B 12."""
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         _zero_counts()
@@ -1055,6 +1187,19 @@ def phase_head_dims_above_256():
     _head_dim_sources("d640_bf16", ("flash_fwd_dstream", "flash_bwd_dstream"))
     compare_bhsd("ds_bhsd_d512_controls", 1, 4, 1024, 1024, 512, bf, seed=99, controls=True)
     compare_long("ds_long_d512_controls", 1, 4, 1, 2048, 2048, 512, bf, seed=100, controls=True)
+    # K6 at 384 and 512 on the warpgroup kernel flash_bwd_cols_sm90.cu where
+    # the families above leave it untried: GQA + window + rope cross-length
+    # at 384, rope on a q segment placed by q_pos_offset from dh 320 and at
+    # 512 (each with kv rows no q row sees, which must give exact zeros), and
+    # its own planted faults at 512 and 384.
+    compare_k6("k6_cols_d384_gqa_window_rope_cross", 2, 8, 2, 192, 320, 384, window=100,
+               rope=True, seed=112)
+    compare_k6("k6_cols_d320_gqa_rope_offset", 2, 4, 2, 136, 320, 320, rope=True,
+               q_pos_offset=100, seed=113)
+    compare_k6("k6_cols_d512_window_offset", 1, 4, 4, 200, 400, 512, window=64, q_pos_offset=150,
+               seed=114)
+    compare_k6("k6_cols_d512_controls", 1, 4, 4, 1024, 1024, 512, seed=115, controls=True)
+    compare_k6("k6_cols_d384_controls", 1, 4, 4, 1024, 1024, 384, seed=116, controls=True)
     errs["flash_bwd_d512"] = compare("ds_packed_d512_call", 2, 2048, 4, 4, 512, bf,
                                      seed=101)["dqkv"]
     b, s, h = (D512[key] for key in ("batch_size", "seq_len", "num_heads"))
@@ -1296,7 +1441,7 @@ def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
 def phase_d512(smi):
     """The trainer at the flagship's width over 4 heads of 512 (`d512`, 6
     steps): 8 K1 on the warpgroup forward flash_fwd_cols_sm90.cu, 8 K5 on
-    flash_bwd_dq_dstream.cu and 8 K6 on flash_bwd_dstream.cu a step (at
+    flash_bwd_dq_dstream.cu and 8 K6 on flash_bwd_cols_sm90.cu a step (at
     head_dim 512 the gate leaves the fused backward for the two-pass pair),
     and no other launch, and a falling loss. Returns the path's launches."""
     launches, records = phase_main(smi, "d512")
@@ -1614,7 +1759,8 @@ def kernel_source(direction, name):
 TURNS = {"flash_fwd_sm90": ("forward", "flash_fwd"), "flash_bwd_sm90": ("backward", "flash_bwd"),
          "flash_bwd_dq_sm90": ("backward_dq", "flash_bwd_dq"),
          "flash_fwd_pipe_sm90": ("pipe_forward", "flash_fwd_pipe"),
-         "flash_fwd_cols_sm90": ("forward", "flash_fwd_dstream")}
+         "flash_fwd_cols_sm90": ("forward", "flash_fwd_dstream"),
+         "flash_bwd_cols_sm90": ("backward", "flash_bwd_dstream")}
 
 
 def _turns(name, run, notes, phase="turns"):
@@ -2090,6 +2236,245 @@ def d32_device_times(notes):
         notes.setdefault(name, {}).update(profiler_device_ms=ms, profiler_kernels=kernels)
 
 
+DISPATCH_CALLS = 1000
+
+
+def _host_ns(fn, n=DISPATCH_CALLS):
+    """Host nanoseconds a call of ``fn`` takes, over ``n`` calls back to back
+    (``time.perf_counter_ns``); the card is drained before and after, and
+    what the calls enqueue runs beside the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    ns = (time.perf_counter_ns() - t0) / n
+    torch.cuda.synchronize()
+    return ns
+
+
+def _dispatch_pieces(b, s, h, d):
+    """The host pieces of one K1 and one K2 call at head_dim ``d`` (packed
+    bf16 qkv, causal, no rope), each timed alone by :func:`_host_ns`: as the
+    wrappers made them before their launch plans ("before": checks, two or
+    three allocations, the head views of qkv, out, dO and dqkv, a fresh
+    ctypes strides array, the function lookup with its argtypes set anew,
+    the ``torch.cuda.device`` guard and ``current_stream``, the ctypes call
+    with every pointer read from a view, the two counters) and as they make
+    them now ("after": the plan's key and lookup with the per-call layout
+    check, the allocations, pointer arithmetic on qkv's offsets, the bound
+    function's lookup, the current card's raw stream, the call, the
+    counters; the strides array lives in the plan). The ctypes calls launch
+    the real kernels. Returns {"K1": {"before": ..., "after": ...}, "K2":
+    ...} in ns per call."""
+    import ctypes
+
+    bf = torch.bfloat16
+    qkv, g = _packed(b, s, h, h, d, bf, seed=84)
+    out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None, None)
+    A.flash_backward_qkv_kernel(qkv, out, lse, g, h, h, True, None, None, None, None)
+    torch.cuda.synchronize()
+    dev, scale = qkv.get_device(), d ** -0.5
+    counts = {"n": 0}
+
+    def count():
+        counts["n"] += 1
+        counts["n"] += 1
+
+    result = {}
+    for kernel in ("K1", "K2"):
+        fwd = kernel == "K1"
+        source = A.forward_kernel(bf, d) if fwd else A.backward_kernel(bf, d, True)
+        lib, fn = _build.load(source), A._kernel_fn(source)
+        argtypes = A._SOURCE_ARGTYPES[source]
+        qkv_views = A._packed_heads(qkv, h, h, d)
+        if fwd:
+            views = (*qkv_views, A._heads(out, d))
+            ints = (b, h, h, s, s, d, 1, 1, 0, 0, 0, scale)
+            check = lambda: A._check_kernel_operands(qkv, h, h, True, None, None, None)
+            allocs = lambda: (torch.empty(b, s, h * d, dtype=bf, device=dev),
+                              torch.empty(b, h, s, dtype=torch.float32, device=dev))
+            make_views = lambda: (A._packed_heads(qkv, h, h, d), A._heads(out, d))
+            old_ptrs = lambda: (views[0].data_ptr(), views[1].data_ptr(), views[2].data_ptr(),
+                                views[3].data_ptr(), lse.data_ptr(), None, None)
+            key = A._qkv_key(qkv, h, h, True, None, None, None, None)
+        else:
+            dqkv = torch.empty_like(qkv)
+            dq_acc = torch.empty(b, h, s, d, dtype=torch.float32, device=dev)
+            delta = torch.empty(b, h, s, dtype=torch.float32, device=dev)
+            dviews = A._packed_heads(dqkv, h, h, d)
+            views = (*qkv_views, A._heads(out, d), A._heads(g, d), *dviews)
+            ints = (b, h, h, s, s, d, 1, 1, 0, 0, 0, scale)
+
+            def check():
+                A._check_kernel_operands(qkv, h, h, True, None, None, None, out, lse, g)
+                if out.dtype != qkv.dtype or g.dtype != qkv.dtype or lse.dtype != torch.float32:
+                    raise ValueError("dtypes")
+                if tuple(out.shape) != (b, s, h * d) or tuple(g.shape) != (b, s, h * d) \
+                        or tuple(lse.shape) != (b, h, s):
+                    raise ValueError("shapes")
+
+            allocs = lambda: (torch.empty(b, s, 3 * h * d, dtype=bf, device=dev),
+                              torch.empty(b, h, s, d, dtype=torch.float32, device=dev),
+                              torch.empty(b, h, s, dtype=torch.float32, device=dev))
+            make_views = lambda: (A._packed_heads(qkv, h, h, d), A._heads(out, d),
+                                  A._heads(g, d), A._packed_heads(dqkv, h, h, d))
+            old_ptrs = lambda: (views[0].data_ptr(), views[1].data_ptr(), views[2].data_ptr(),
+                                views[3].data_ptr(), views[4].data_ptr(), lse.data_ptr(), None,
+                                None, views[5].data_ptr(), views[6].data_ptr(),
+                                views[7].data_ptr(), dq_acc.data_ptr(), delta.data_ptr())
+            key = A._qkv_key(qkv, h, h, True, None, None, None, None, out, lse, g)
+        plan = A._PLANS.get(key)
+        if plan is None:
+            fail(f"host_dispatch: no launch plan under the {kernel} call's key")
+        arr = (ctypes.c_longlong * (3 * len(views)))(*A._strides(*views))
+        q0 = qkv.data_ptr()
+
+        def strides():
+            vals = [st for t in views for st in t.stride()[:3]]
+            return (ctypes.c_longlong * len(vals))(*vals)
+
+        def lookup():
+            f = getattr(lib, f"dtt_{source}")
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+
+        def guard_stream():
+            with torch.cuda.device(qkv.device):
+                return torch.cuda.current_stream(qkv.device).cuda_stream
+
+        stream = guard_stream()
+        old_call = lambda: fn(*old_ptrs(), ctypes.addressof(arr), *ints, stream)
+
+        def plan_check():  # the key built from the live tensors, its lookup, the layout check
+            if fwd:
+                A._PLANS.get(A._qkv_key(qkv, h, h, True, None, None, None, None))
+                A._check_layout(qkv)
+            else:
+                A._PLANS.get(A._qkv_key(qkv, h, h, True, None, None, None, None, out, lse, g))
+                A._check_layout(qkv, out, lse, g)
+
+        offsets = plan.offsets
+        if fwd:
+            new_ptrs = lambda: (q0 + offsets[0], q0 + offsets[1], q0 + offsets[2],
+                                out.data_ptr(), lse.data_ptr(), None, None)
+        else:
+            d0 = dqkv.data_ptr()
+            new_ptrs = lambda: (q0 + offsets[0], q0 + offsets[1], q0 + offsets[2],
+                                out.data_ptr(), g.data_ptr(), lse.data_ptr(), None, None,
+                                d0 + offsets[0], d0 + offsets[1], d0 + offsets[2],
+                                dq_acc.data_ptr(), delta.data_ptr())
+        new_stream = lambda: (dev == torch.cuda.current_device(),
+                              torch._C._cuda_getCurrentRawStream(dev))
+        new_call = lambda: fn(*new_ptrs(), *plan.args, stream)
+        before = {"checks": check, "allocations": allocs, "views": make_views,
+                  "strides": strides, "function_lookup": lookup,
+                  "device_guard_and_stream": guard_stream, "ctypes_call": old_call,
+                  "counters": count}
+        after = {"checks": plan_check, "allocations": allocs, "views": new_ptrs,
+                 "function_lookup": lambda: A._kernel_fn(source),
+                 "device_guard_and_stream": new_stream, "ctypes_call": new_call,
+                 "counters": count}
+        result[kernel] = {}
+        for label, pieces in (("before", before), ("after", after)):
+            ns = {name: _host_ns(piece) for name, piece in pieces.items()}
+            if label == "after":
+                ns["strides"] = 0.0  # built once, in the plan
+            ns["sum"] = sum(ns.values())
+            result[kernel][label] = ns
+    return result
+
+
+def phase_host_dispatch(notes):
+    """The wrappers' host dispatch at the CLI's call (K1/K2 at head_dim 32,
+    B 8, S 128, 4 heads, bf16): each piece before and after the launch
+    plans (:func:`_dispatch_pieces`), beside one whole call's host time,
+    its back-to-back time on the card and SDPA's on the same inputs; and
+    K1 at head_dim 320 (padded in the launch) back to back. The readings go
+    into the D 32 rows' notes."""
+    pieces = _dispatch_pieces(8, 128, 4, 32)
+    whole = dispatch_times()
+    for kernel, row in (("K1", "flash_fwd_d32"), ("K2", "flash_bwd_d32")):
+        emit(phase="host_dispatch", kernel=kernel, ns_per_piece=pieces[kernel],
+             whole_call_host_ns=whole[row]["host_ns"], back_to_back_ms=whole[row]["ms"],
+             sdpa_ms=whole[row]["sdpa_ms"])
+        # The rows' ms (and K1's library_ms) are these readings: at this size
+        # a call is mostly host time, whose spread ten readings of 200 calls
+        # in turns average out better than one of 10.
+        notes.setdefault(row, {}).update(
+            host_ns_per_piece=pieces[kernel], whole_call_host_ns=whole[row]["host_ns"],
+            ms=whole[row]["ms"], ms_how=f"median of {2 * DISPATCH_ROUNDS} readings of 200 "
+                                         "calls back to back, in turns with SDPA's call")
+    notes["flash_fwd_d32"]["library_ms"] = whole["flash_fwd_d32"]["sdpa_ms"]
+    notes["flash_bwd_d32"]["library_bwd_only_in_turns_ms"] = whole["flash_bwd_d32"]["sdpa_ms"]
+    emit(phase="host_dispatch", kernel="K1 D 320", back_to_back_ms=whole["flash_fwd_d320"]["ms"])
+
+
+DISPATCH_ROUNDS = 5
+
+
+def _in_turns(fn, other, iters=200):
+    """``fn`` and ``other`` back to back on the card (ms a call, CUDA events
+    over ``iters`` calls) in DISPATCH_ROUNDS rounds of turns (fn, other,
+    other, fn): the median of each, as the card's host is shared and its
+    readings spread."""
+    import statistics
+
+    mine, theirs = [], []
+    for _ in range(DISPATCH_ROUNDS):
+        mine.append(cuda_ms(fn, iters))
+        theirs += [cuda_ms(other, iters), cuda_ms(other, iters)]
+        mine.append(cuda_ms(fn, iters))
+    return statistics.median(mine), statistics.median(theirs)
+
+
+def dispatch_times():
+    """Whole calls through the public wrappers only (so that another
+    checkout's package can be timed the same way, ``--dispatch --tree``):
+    K1 and K2 at the CLI's call (head_dim 32, B 8, S 128, 4 heads, packed
+    bf16 qkv, causal) — host ns a call over DISPATCH_CALLS calls, and ms a
+    call back to back on the card in turns with SDPA's forward (K1) and
+    backward alone (K2) on the same inputs (:func:`_in_turns`) — and K1 at
+    head_dim 320 (B 2, S 2048, 4 heads) back to back."""
+    b, s, h, d = 8, 128, 4, 32
+    qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=84)
+    args = (h, h, True, None, None, None)
+    out, lse = A.flash_forward_qkv_kernel(qkv, *args, None)
+    fwd = lambda: A.flash_forward_qkv_kernel(qkv, *args, None)
+    bwd = lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g, *args, None)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1))
+    lib = _sdpa(q, k, v, g.reshape(b, s, h, d).transpose(1, 2))
+    times = {}
+    for row, fn, other in (("flash_fwd_d32", fwd, lib[0]), ("flash_bwd_d32", bwd, lib[2])):
+        ms, sdpa_ms = _in_turns(fn, other)
+        times[row] = dict(host_ns=_host_ns(fn), ms=ms, sdpa_ms=sdpa_ms)
+    qkv320, _ = _packed(2, 2048, 4, 4, 320, torch.bfloat16, seed=118)
+    times["flash_fwd_d320"] = dict(ms=cuda_ms(
+        lambda: A.flash_forward_qkv_kernel(qkv320, 4, 4, True, None, None, None, None), 20))
+    return times
+
+
+def dispatch_main(tree):
+    """``chip_smoke.py --dispatch [--tree DIR]``: the package's host dispatch
+    by whole calls (:func:`dispatch_times`) and the trainer at its own
+    defaults (head_dim 32) for 400 steps, its steps/s over the windows of
+    100 steps after the first; with ``--tree`` the package of checkout DIR
+    (e.g. the parent commit's), so that two trees are compared on one card
+    in one call."""
+    from distributed_tensorflow_tpu_torch.cli import train_lm
+
+    smi = nvidia_smi()
+    times = dispatch_times()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_lm.main(["--attention", "flash", "--device", "cuda", "--training_steps", "400",
+                       "--eval_step_interval", "100"])
+    records = [json.loads(line) for line in buf.getvalue().splitlines()]
+    emit(phase="dispatch", tree=tree or ".", card=smi, times=times,
+         cli_defaults_d32_steps_per_sec=[r.get("steps_per_sec") for r in records],
+         losses=[r["loss"] for r in records])
+
+
 def phase_timing_dstream(launches, errs, notes):
     """The kernels above head_dim 256 at head_dim 512 — K1 (on
     flash_fwd_cols_sm90.cu, against flash_fwd_dstream.cu in turns) and K2
@@ -2148,8 +2533,30 @@ def phase_timing_dstream(launches, errs, notes):
     }
     shape = dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True,
                  layout="packed qkv head views")
+    # K6 on flash_bwd_cols_sm90.cu against flash_bwd_dstream.cu, in turns.
+    _turns("bwd_dkv_d512", runs["bwd_dkv_d512"][1], notes)
     kernels += _time_kernels(runs, launches, errs, peak, bw, shape, notes)
     del q, k, v, go, lse, o4, delta, lib
+    torch.cuda.empty_cache()
+    # K6 at head_dim 384, the same call otherwise: held against its plain
+    # version, then timed in turns and beside its bound and SDPA's backward.
+    d = 384
+    errs384, (q, k, v, o4, lse, go, _) = compare_two_pass("ds_packed_d384_call two-pass", b, s,
+                                                          h, d, seed=117)
+    errs["bwd_dkv_d384"] = errs384["dkv"]
+    lib = _sdpa(q, k, v, go)
+    notes.setdefault("bwd_dkv_d384", {}).update(
+        library_call="SDPA backward alone (all three gradients)",
+        library_kernels=_device_ms(lib[2], 3)[1])
+    fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)
+    qb = q.numel() * q.element_size()
+    runs = {"bwd_dkv_d384": ((fwd_flops * 2, 7 * qb + 2 * sb),
+                             lambda: A.flash_backward_dkv_kernel(q, k, v, o4, lse, go, True),
+                             lambda: A.flash_backward_dkv_reference(q, k, v, o4, lse, go, True),
+                             lib[2], None)}
+    _turns("bwd_dkv_d384", runs["bwd_dkv_d384"][1], notes)
+    kernels += _time_kernels(runs, launches, errs, peak, bw, dict(shape, D=d), notes)
+    del q, k, v, go, lse, o4, lib
     torch.cuda.empty_cache()
 
     # K8 at head_dim 320 (padded to 384 in the launch) on its last q segment.
@@ -2569,8 +2976,8 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
 # dtt::flash_bwd_sm90_kernel (wide: dtt::flash_bwd_sm90_cols_kernel). The
 # d512 step runs attn_fwd as K1 on dtt::flash_fwd_cols_sm90_kernel (its
 # prepare pass, dtt::dstream_prep_kernel, under other), attn_bwd_dq K5 on
-# dtt::flash_bwd_dq_dstream_kernel and attn_bwd K6 (and its delta pre-pass)
-# on dtt::flash_bwd_dstream_kernel.
+# dtt::flash_bwd_dq_dstream_kernel and attn_bwd K6 (and its delta pre-pass
+# and dk rotate-back) on dtt::flash_bwd_cols_sm90_kernel.
 KERNEL_CLASSES = (
     ("attn_fwd", ("dtt::flash_fwd",)),
     ("attn_bwd_dq", ("dtt::two_pass_dq", "dtt::flash_bwd_dq_sm90",
@@ -2703,6 +3110,8 @@ def main():
                         ("bshd_bwd_d320", "K8 at head_dim 320: the gate's route at seq 2048 "
                                           "and 8192"),
                         ("bwd_dq_d256", "K5 at head_dim 256: the two-pass route only"),
+                        ("bwd_dkv_d384", "K6 at head_dim 384: the two-pass route only, where "
+                                         "the gate finds no q segmentation"),
                         ("flash_fwd_d320", "K1 at head_dim 320 (padded to 384): the trainer "
                                            "at --d_model 1280 --num_heads 4")):
         launches[name] = 0
@@ -2717,6 +3126,7 @@ def main():
     phase_parity_wide()
     phase_turns(notes)
     d32_device_times(notes)
+    phase_host_dispatch(notes)
     kernels = phase_timing(launches, errs, notes) + phase_timing_long(launches, errs, notes)
     kernels += phase_timing_wide(launches, errs, notes)
     kernels += phase_timing_dstream(launches, errs, notes)
@@ -2732,4 +3142,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--dispatch" in sys.argv:
+        dispatch_main(TREE)
+    else:
+        main()

@@ -53,13 +53,22 @@ and q and k reach it rotated (and q scale-folded) by a pass, as a rope pair
 spans two column groups — except the bf16 forward at 384 and 512, which
 ``flash_fwd_cols_sm90.cu`` runs as a warpgroup kernel on the same pass
 (two warpgroups a block split q·kᵀ's contraction and out's columns, so the
-scores are computed once). Each has a plain PyTorch version
+scores are computed once), and bf16 K6 at 384 and 512, which
+``flash_bwd_cols_sm90.cu`` runs as a warpgroup kernel (two blocks a kv
+tile, each computing the scores once for half of dK's and dV's columns).
+Each has a plain PyTorch version
 (``*_reference``). The kernels are compiled for head_dim 32, 64, 128 and
 256 (the pipelining kernels for 64, 128 and 256); any other head_dim up to
 256 runs zero-padded to the next of those, and one above 256 to the next
 multiple of 128 (:func:`pad_head_dim`). A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises — there is no fallback
 between them.
+
+A launch goes through a plan cached per call signature (:class:`_Plan`:
+the source, its C function with argtypes set once, the strides array, the
+constant arguments and, for packed qkv, the byte offsets of q, k and v), so
+a call builds no head views and no ctypes array; the packed wrappers read
+q, k and v at their offsets inside qkv.
 """
 
 from __future__ import annotations
@@ -92,12 +101,13 @@ KERNEL_LAUNCHES = {
 # (:func:`backward_dq_kernel`), K9's flash_fwd_pipe or flash_fwd_pipe_sm90
 # (:func:`pipe_forward_kernel`; above head_dim 256 the forward's source);
 # above head_dim 256 each direction runs its column-group source
-# (*_dstream), except the bf16 forward at 384 and 512 (flash_fwd_cols_sm90).
+# (*_dstream), except the bf16 forward and bf16 K6 at 384 and 512
+# (flash_fwd_cols_sm90, flash_bwd_cols_sm90).
 SOURCE_LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd": 0, "flash_bwd_sm90": 0,
     "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_fwd_pipe": 0, "flash_fwd_pipe_sm90": 0,
     "flash_fwd_dstream": 0, "flash_bwd_dstream": 0, "flash_bwd_dq_dstream": 0,
-    "flash_fwd_cols_sm90": 0,
+    "flash_fwd_cols_sm90": 0, "flash_bwd_cols_sm90": 0,
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -485,7 +495,7 @@ def flash_backward_qkv_reference(qkv, out, lse, g, num_heads, num_kv_heads=None,
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernels' launches.
+# The CUDA kernels' launches: one cached plan per call signature.
 # ---------------------------------------------------------------------------
 
 _FWD_ARGTYPES = (
@@ -518,33 +528,42 @@ _BWD_DQ90_ARGTYPES = _BWD_DQ_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p] 
 _FWD_DS_ARGTYPES = _FWD_ARGTYPES[:-1] + [ctypes.c_void_p] * 3
 _BWD_DS_ARGTYPES = _BWD_ARGTYPES[:-1] + [ctypes.c_void_p] * 4
 _BWD_DQ_DS_ARGTYPES = _BWD_DQ_ARGTYPES[:-1] + [ctypes.c_void_p] * 4
+# Each source's C signature.
+_SOURCE_ARGTYPES = {
+    "flash_fwd": _FWD_ARGTYPES, "flash_fwd_sm90": _FWD90_ARGTYPES,
+    "flash_fwd_dstream": _FWD_DS_ARGTYPES, "flash_fwd_cols_sm90": _FWD_DS_ARGTYPES,
+    "flash_fwd_pipe": _PIPE_FWD_ARGTYPES, "flash_fwd_pipe_sm90": _PIPE_FWD_ARGTYPES,
+    "flash_bwd": _BWD_ARGTYPES, "flash_bwd_sm90": _BWD_ARGTYPES,
+    "flash_bwd_dstream": _BWD_DS_ARGTYPES, "flash_bwd_cols_sm90": _BWD_DS_ARGTYPES,
+    "flash_bwd_dq": _BWD_DQ_ARGTYPES, "flash_bwd_dq_sm90": _BWD_DQ90_ARGTYPES,
+    "flash_bwd_dq_dstream": _BWD_DQ_DS_ARGTYPES,
+}
+# The sources that take the column-group prepare pass's scratches.
+_PREP_SOURCES = ("flash_fwd_dstream", "flash_fwd_cols_sm90", "flash_bwd_dstream",
+                 "flash_bwd_cols_sm90", "flash_bwd_dq_dstream")
+
+_FNS: dict = {}
 
 
-def _kernel_fn(name: str, argtypes):
-    fn = getattr(_build.load(name), f"dtt_{name}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+def _kernel_fn(source: str):
+    """``dtt_<source>`` of ``csrc/<source>.cu``: the library is built and
+    loaded at the first call, and its argtypes are set then, once."""
+    fn = _FNS.get(source)
+    if fn is None:
+        fn = getattr(_build.load(source), f"dtt_{source}")
+        fn.argtypes = _SOURCE_ARGTYPES[source]
+        fn.restype = ctypes.c_int
+        _FNS[source] = fn
     return fn
-
-
-def _check_status(name: str, status: int) -> None:
-    if status != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def _table_stride(cos) -> int:
     return 0 if cos is None or cos.shape[0] == 1 else cos.shape[1] * cos.shape[2]
 
 
-def _strides(*tensors) -> ctypes.Array:
-    """The (b, h, s) element strides of each 4-D operand, as the kernels'
-    host array."""
-    vals = [st for t in tensors for st in t.stride()[:3]]
-    return (ctypes.c_longlong * len(vals))(*vals)
+def _strides(*tensors) -> list[int]:
+    """The (b, h, s) element strides of each 4-D operand, in order."""
+    return [st for t in tensors for st in t.stride()[:3]]
 
 
 def _dims(q, k):
@@ -553,19 +572,114 @@ def _dims(q, k):
     return b, h, k.shape[1], sq, k.shape[2], d
 
 
+class _Plan:
+    """The launch of one call signature: the source that runs it; the (b, h,
+    s) element strides of its strided operands (``stride_values``) and the
+    same as the kernels' host array; the byte offsets of operands read
+    inside one packed tensor (q, k and v in qkv, and dq, dk and dv in dqkv
+    alike); the arguments between the strides and the scratch pointers;
+    the scratch the source takes, each as (shape, dtype) or None; and for a
+    packed call at a head dim between the instances, (d, instance). Built
+    from shapes alone: no card is needed until the launch, which builds and
+    loads the library."""
+
+    __slots__ = ("source", "stride_values", "strides", "offsets", "args", "scratch", "pad")
+
+    def __init__(self, source, stride_values, args, scratch=(), offsets=(), pad=None):
+        self.source = source
+        self.stride_values = tuple(stride_values)
+        self.strides = (ctypes.c_longlong * len(self.stride_values))(*self.stride_values)
+        self.args = (ctypes.addressof(self.strides), *args)
+        self.scratch = scratch
+        self.offsets = tuple(offsets)
+        self.pad = pad
+
+
+# At most this many plans are kept; the oldest goes first.
+PLAN_CACHE_SIZE = 256
+_PLANS: dict = {}
+
+
+def _cached_plan(key, build) -> _Plan:
+    """The plan of call signature ``key``, made by ``build()`` on a miss."""
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = build()
+        while len(_PLANS) >= PLAN_CACHE_SIZE:
+            del _PLANS[next(iter(_PLANS))]
+        _PLANS[key] = plan
+    return plan
+
+
+def _scratch_specs(source, dtype, b, h, kv, sq, skv, d, rope):
+    """The scratch ``source`` takes before the stream, as (shape, dtype) or
+    None: the warpgroup forward's (and K5's) k rotated under rope; the
+    column-group sources' q rotated and scale-folded, k rotated under rope,
+    and the fused backward's (or K5's) f32 dk (dq) sum."""
+    k_rot = ((b, kv, skv, d), dtype) if rope else None
+    if source in ("flash_fwd_sm90", "flash_bwd_dq_sm90"):
+        return (k_rot,)
+    if source in _PREP_SOURCES:
+        specs = (((b, h, sq, d), dtype), k_rot)
+        if source.startswith("flash_bwd_dq"):
+            return specs + (((b, h, sq, d), torch.float32),)
+        if source.startswith("flash_bwd"):
+            return specs + (((b, kv, skv, d), torch.float32),)
+        return specs
+    return ()
+
+
+def _common_args(dtype, b, h, kv, sq, skv, d, causal, window, off, tstride, scale):
+    return (b, h, kv, sq, skv, d, int(dtype == torch.bfloat16), int(causal), window or 0, off,
+            tstride, scale)
+
+
+def _view_plan(source, q, k, operands, causal, window, off, scale, cos):
+    """The plan of a launch on (B, H, S, D) views: ``operands`` are the
+    strided operands in the order of the source's strides array."""
+    dims = _dims(q, k)
+    return _Plan(source, _strides(*operands),
+                 _common_args(q.dtype, *dims, causal, window, off, _table_stride(cos), scale),
+                 _scratch_specs(source, q.dtype, *dims, cos is not None))
+
+
+def _view_key(kind, source, q, k, operands, causal, window, off, scale, cos):
+    return (kind, source, q.dtype, q.shape, k.shape, *(t.stride() for t in operands), causal,
+            window, off, scale, None if cos is None else cos.shape[0])
+
+
+def _alloc(specs, device):
+    return [None if s is None else torch.empty(s[0], dtype=s[1], device=device) for s in specs]
+
+
+def _run(plan, counter, device, ptrs, scratch=()) -> None:
+    """Launch ``plan``'s kernel on the current stream of card ``device`` (its
+    index) with operand pointers ``ptrs`` and the ``scratch`` tensors (held
+    until the launch returns), counting the launch under
+    ``KERNEL_LAUNCHES[counter]`` and its source; raises if it failed. The
+    card is made current only where it is not."""
+    fn = _kernel_fn(plan.source)
+    extra = [None if t is None else t.data_ptr() for t in scratch]
+    if device == torch.cuda.current_device():
+        status = fn(*ptrs, *plan.args, *extra, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            status = fn(*ptrs, *plan.args, *extra, torch._C._cuda_getCurrentRawStream(device))
+    KERNEL_LAUNCHES[counter] += 1
+    SOURCE_LAUNCHES[plan.source] += 1
+    if status != 0:
+        raise RuntimeError(f"{counter} kernel launch failed: CUDA error {status}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 # The instances the warpgroup forward, fused backward and two-pass dq kernel
-# are compiled for; above them, the bf16 forward's warpgroup instances.
+# are compiled for; above them, the bf16 forward's and K6's warpgroup
+# instances.
 _SM90_HEAD_DIMS = (64, 128, 256)
 _COLS90_HEAD_DIMS = (384, 512)
-
-
-def _dstream_scratch(q, k, cos):
-    """The column-group kernels' prepare-pass outputs: q rotated and
-    scale-folded, contiguous (B, H, Sq, D), and under rope k rotated,
-    contiguous (B, KV, Skv, D) (else None)."""
-    q_s = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    k_rot = None if cos is None else torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    return q_s, k_rot
 
 
 def forward_kernel(dtype: torch.dtype, d: int) -> str:
@@ -608,27 +722,17 @@ def _launch_forward(counter, q, k, v, out, lse, causal, window, q_pos_offset, sc
                         window, q_pos_offset, scale, *pad_rope_tables(cos, sin, dp))
         out.copy_(unpad_head_dim(out_p, d))
         return
-    strides = _strides(q, k, v, out)
-    source = forward_kernel(q.dtype, d)
-    extra, argtypes = (), _FWD_ARGTYPES
-    if source == "flash_fwd_sm90":
-        if cos is not None and k_rot is None:
-            k_rot = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-        extra, argtypes = (_ptr(k_rot),), _FWD90_ARGTYPES
-    elif source in ("flash_fwd_dstream", "flash_fwd_cols_sm90"):
-        q_s, k_rot = _dstream_scratch(q, k, cos)  # held until the launch returns
-        extra, argtypes = (_ptr(q_s), _ptr(k_rot)), _FWD_DS_ARGTYPES
-    fn = _kernel_fn(source, argtypes)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(cos), _ptr(sin),
-            ctypes.addressof(strides), *_dims(q, k), int(q.dtype == torch.bfloat16),
-            int(causal), window or 0, q_pos_offset, _table_stride(cos), scale, *extra, stream,
-        )
-        KERNEL_LAUNCHES[counter] += 1
-        SOURCE_LAUNCHES[source] += 1
-    _check_status(counter, status)
+    source, device = forward_kernel(q.dtype, d), q.get_device()
+    operands = (q, k, v, out)
+    plan = _cached_plan(
+        _view_key("fwd", source, q, k, operands, causal, window, q_pos_offset, scale, cos),
+        lambda: _view_plan(source, q, k, operands, causal, window, q_pos_offset, scale, cos))
+    scratch = _alloc(plan.scratch, device)
+    if k_rot is not None and source == "flash_fwd_sm90":
+        scratch[0] = k_rot
+    _run(plan, counter, device,
+         (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(cos),
+          _ptr(sin)), scratch)
 
 
 # The instances the pipelining probe's kernels are compiled for.
@@ -679,31 +783,32 @@ def _launch_pipe_forward(q, k, v, out, lse, causal, q_pos_offset, scale) -> None
                              q_pos_offset, scale)
         out.copy_(unpad_head_dim(out_p, d))
         return
-    strides = _strides(q, k, v, out)
-    source = pipe_forward_kernel(q.dtype, d)
-    fn = _kernel_fn(source, _PIPE_FWD_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), ctypes.addressof(strides), b, h,
-            sq, k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal), q_pos_offset,
-            scale, stream,
-        )
-        KERNEL_LAUNCHES["pipe_fwd"] += 1
-        SOURCE_LAUNCHES[source] += 1
-    _check_status("pipe_fwd", status)
+    source, device = pipe_forward_kernel(q.dtype, d), q.get_device()
+    operands = (q, k, v, out)
+    plan = _cached_plan(
+        _view_key("pipe", source, q, k, operands, causal, None, q_pos_offset, scale, None),
+        lambda: _Plan(source, _strides(*operands),
+                      (b, h, sq, k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal),
+                       q_pos_offset, scale)))
+    _run(plan, "pipe_fwd", device,
+         (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr()))
 
 
 def backward_kernel(dtype: torch.dtype, d: int, want_dq: bool) -> str:
-    """The source of the fused backward kernel that runs a call: head_dim
-    above 256 goes to the column-group kernel ``csrc/flash_bwd_dstream.cu``
-    in either dtype, with dq or without (K6); bf16 at head_dim 64, 128 or
-    256 to the warpgroup (wgmma) kernel
-    ``csrc/flash_bwd_sm90.cu`` (at 256 a 64-row kv tile a block, dK and dV
-    split by columns over its two warpgroups), with dq (K2/K4/K8) or without
-    (the two-pass pair's dk/dv half, K6, which compiles the dQ product out);
-    f32 and head_dim 32 stay on ``csrc/flash_bwd.cu``. ``d`` is the instance
-    the call runs at (after padding)."""
+    """The source of the fused backward kernel that runs a call: bf16 at
+    head_dim 384 or 512 without dq (the two-pass pair's dk/dv half, K6) goes
+    to the warpgroup (wgmma) kernel ``csrc/flash_bwd_cols_sm90.cu`` (two
+    blocks a 64-row kv tile, each owning half of dK's and dV's columns and
+    computing the scores once for them); any other call above head_dim 256
+    to the column-group kernel ``csrc/flash_bwd_dstream.cu`` in either
+    dtype, with dq (K2/K4/K8) or without; bf16 at head_dim 64, 128 or 256 to
+    the warpgroup kernel ``csrc/flash_bwd_sm90.cu`` (at 256 a 64-row kv tile
+    a block, dK and dV split by columns over its two warpgroups), with dq or
+    without (K6, which compiles the dQ product out); f32 and head_dim 32
+    stay on ``csrc/flash_bwd.cu``. ``d`` is the instance the call runs at
+    (after padding)."""
+    if dtype == torch.bfloat16 and d in _COLS90_HEAD_DIMS and not want_dq:
+        return "flash_bwd_cols_sm90"
     if d > _KERNEL_HEAD_DIMS[-1]:
         return "flash_bwd_dstream"
     if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
@@ -735,30 +840,20 @@ def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,
             if t is not None:
                 t.copy_(unpad_head_dim(t_p, d))
         return
+    source, device = backward_kernel(q.dtype, d, dq is not None), q.get_device()
+    operands = (q, k, v, out, g, dk if dq is None else dq, dk, dv)
+    plan = _cached_plan(
+        _view_key("bwd", source, q, k, operands, causal, window, q_pos_offset, scale, cos),
+        lambda: _view_plan(source, q, k, operands, causal, window, q_pos_offset, scale, cos))
     dq_acc = None
     if dq is not None:
-        dq_acc = torch.empty(b, h, sq, d, dtype=torch.float32, device=q.device)
+        dq_acc = torch.empty(b, h, sq, d, dtype=torch.float32, device=device)
     if delta is None:
-        delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    strides = _strides(q, k, v, out, g, dk if dq is None else dq, dk, dv)
-    source = backward_kernel(q.dtype, d, dq is not None)
-    extra, argtypes = (), _BWD_ARGTYPES
-    if source == "flash_bwd_dstream":
-        q_s, k_rot = _dstream_scratch(q, k, cos)
-        dk_acc = torch.empty(dk.shape, dtype=torch.float32, device=q.device)
-        extra, argtypes = (_ptr(q_s), _ptr(k_rot), _ptr(dk_acc)), _BWD_DS_ARGTYPES
-    fn = _kernel_fn(source, argtypes)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(g), _ptr(lse), _ptr(cos), _ptr(sin),
-            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_acc), _ptr(delta), ctypes.addressof(strides),
-            *_dims(q, k), int(q.dtype == torch.bfloat16), int(causal), window or 0,
-            q_pos_offset, _table_stride(cos), scale, *extra, stream,
-        )
-        KERNEL_LAUNCHES[counter] += 1
-        SOURCE_LAUNCHES[source] += 1
-    _check_status(counter, status)
+        delta = torch.empty(b, h, sq, dtype=torch.float32, device=device)
+    _run(plan, counter, device,
+         (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+          lse.data_ptr(), _ptr(cos), _ptr(sin), _ptr(dq), dk.data_ptr(), dv.data_ptr(),
+          _ptr(dq_acc), delta.data_ptr()), _alloc(plan.scratch, device))
 
 
 def backward_dq_kernel(dtype: torch.dtype, d: int) -> str:
@@ -792,27 +887,14 @@ def _launch_backward_dq(q, k, v, g, lse, delta, dq, causal, window, q_pos_offset
                             causal, window, q_pos_offset, scale, *pad_rope_tables(cos, sin, dp))
         dq.copy_(unpad_head_dim(dq_p, d))
         return
-    strides = _strides(q, k, v, g, dq)
-    source = backward_dq_kernel(q.dtype, d)
-    extra, argtypes = (), _BWD_DQ_ARGTYPES
-    if source == "flash_bwd_dq_sm90":
-        k_rot = None if cos is None else torch.empty(k.shape, dtype=k.dtype, device=k.device)
-        extra, argtypes = (_ptr(k_rot),), _BWD_DQ90_ARGTYPES
-    elif source == "flash_bwd_dq_dstream":
-        q_s, k_rot = _dstream_scratch(q, k, cos)
-        dq_acc = torch.empty(dq.shape, dtype=torch.float32, device=q.device)
-        extra, argtypes = (_ptr(q_s), _ptr(k_rot), _ptr(dq_acc)), _BWD_DQ_DS_ARGTYPES
-    fn = _kernel_fn(source, argtypes)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(cos), _ptr(sin),
-            _ptr(dq), ctypes.addressof(strides), *_dims(q, k), int(q.dtype == torch.bfloat16),
-            int(causal), window or 0, q_pos_offset, _table_stride(cos), scale, *extra, stream,
-        )
-        KERNEL_LAUNCHES["bwd_dq"] += 1
-        SOURCE_LAUNCHES[source] += 1
-    _check_status("bwd_dq", status)
+    source, device = backward_dq_kernel(q.dtype, d), q.get_device()
+    operands = (q, k, v, g, dq)
+    plan = _cached_plan(
+        _view_key("bwd_dq", source, q, k, operands, causal, window, q_pos_offset, scale, cos),
+        lambda: _view_plan(source, q, k, operands, causal, window, q_pos_offset, scale, cos))
+    _run(plan, "bwd_dq", device,
+         (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+          delta.data_ptr(), _ptr(cos), _ptr(sin), dq.data_ptr()), _alloc(plan.scratch, device))
 
 
 # ---------------------------------------------------------------------------
@@ -898,46 +980,168 @@ def _check_kernel_operands(qkv, h, kv, causal, window, cos, sin, *others):
     for t in (qkv, *others, *(() if cos is None else (cos, sin))):
         if t.device != qkv.device:
             raise ValueError(f"operand on {t.device}, qkv on {qkv.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("the flash kernels take contiguous, 16-byte aligned operands")
+        _check_layout(t)
     if cos is not None and (cos.dtype != torch.float32 or sin.dtype != torch.float32):
         raise ValueError("rope tables reach the kernels as f32")
     return b, sq, width, d
 
 
+def _check_layout(*tensors) -> None:
+    """The per-call check of a packed launch: contiguous, 16-byte aligned."""
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the flash kernels take contiguous, 16-byte aligned operands")
+
+
+def _pad_packed(t, n, d, dp):
+    """``t`` (B, S, n·d), heads of width d, with each head padded to dp as
+    :func:`pad_head_dim` pads it, in one copy: (B, S, n·dp)."""
+    b, s = t.shape[:2]
+    if d % 2:
+        return torch.nn.functional.pad(t.view(b, s, n, d), (0, dp - d)).view(b, s, n * dp)
+    halves = t.view(b, s, n, 2, d // 2)
+    return torch.nn.functional.pad(halves, (0, (dp - d) // 2)).view(b, s, n * dp)
+
+
+def _unpad_packed(t, n, d, dp):
+    """The real columns of each head of a :func:`_pad_packed` layout, in one
+    copy: (B, S, n·dp) -> (B, S, n·d)."""
+    b, s = t.shape[:2]
+    if d % 2:
+        return t.view(b, s, n, dp)[..., :d].reshape(b, s, n * d)
+    return t.view(b, s, n, 2, dp // 2)[..., :d // 2].reshape(b, s, n * d)
+
+
+def _packed_offsets(h, kv, d, elt):
+    """Byte offsets of q, k and v (and of dq, dk, dv) in a packed row."""
+    return 0, h * d * elt, (h + kv) * d * elt
+
+
+def _qkv_plan(direction, source, dtype, b, s, h, kv, d, causal, window, scale, table_batch,
+              pad=None):
+    """The plan of a packed launch (``direction`` "fwd": K1; "bwd": K2) on
+    qkv (B, S, (H + 2·KV)·d) at instance ``d``: q, k and v (and dq, dk, dv
+    of dqkv) read in place at :func:`_packed_offsets` with (b, h, s) strides
+    (S·W, d, W), out (and dO) at (S·H·d, d, H·d). ``table_batch``: the rope
+    tables' leading dim (1 or B), None without rope; the tables the kernel
+    reads are (table_batch, S, d/2) at the instance. ``pad`` (real d,
+    instance) when the call pads its head dim."""
+    width = (h + 2 * kv) * d
+    packed, heads = (s * width, d, width), (s * h * d, d, h * d)
+    operands = (packed,) * 3 + ((heads,) if direction == "fwd" else (heads, heads) + (packed,) * 3)
+    tstride = 0 if table_batch in (None, 1) else s * (d // 2)
+    return _Plan(source, [st for op in operands for st in op],
+                 _common_args(dtype, b, h, kv, s, s, d, causal, window, 0, tstride, scale),
+                 _scratch_specs(source, dtype, b, h, kv, s, s, d, table_batch is not None),
+                 _packed_offsets(h, kv, d, dtype.itemsize), pad)
+
+
+def _qkv_key(qkv, h, kv, causal, window, cos, sin, scale, out=None, lse=None, g=None):
+    """The call signature of a packed launch: K1's, or with ``out``, ``lse``
+    and ``g`` K2's. It holds every shape, dtype and card the plan's checks
+    read, and the source picker in force (:func:`forward_kernel`,
+    :func:`backward_kernel`; a caller may swap them)."""
+    tables = None if cos is None else (cos.shape, sin.shape, cos.dtype, sin.dtype,
+                                       cos.get_device(), sin.get_device())
+    if out is None:
+        return ("qkv_fwd", forward_kernel, qkv.dtype, qkv.shape, qkv.get_device(), h, kv, causal,
+                window, scale, tables)
+    return ("qkv_bwd", backward_kernel, qkv.dtype, qkv.shape, qkv.get_device(), out.shape,
+            out.dtype, out.get_device(), lse.shape, lse.dtype, lse.get_device(), g.shape,
+            g.dtype, g.get_device(), h, kv, causal, window, scale, tables)
+
+
+def _build_qkv_plan(direction, qkv, h, kv, causal, window, cos, sin, scale, out=None,
+                    lse=None, g=None):
+    """Check a packed call's operands (once per call signature: the plan's
+    key holds every shape, dtype and card they were checked at) and plan it
+    at the head dim's instance."""
+    others = () if direction == "fwd" else (out, lse, g)
+    b, sq, _, d = _check_kernel_operands(qkv, h, kv, causal, window, cos, sin, *others)
+    if direction == "bwd":
+        if out.dtype != qkv.dtype or g.dtype != qkv.dtype or lse.dtype != torch.float32:
+            raise ValueError("out and g must match qkv's dtype and lse must be f32")
+        if tuple(out.shape) != (b, sq, h * d) or tuple(g.shape) != (b, sq, h * d) \
+                or tuple(lse.shape) != (b, h, sq):
+            raise ValueError("out/g must be (B, S, H*dh) and lse (B, H, S)")
+    dp = _instance_dim(d)
+    source = forward_kernel(qkv.dtype, dp) if direction == "fwd" else \
+        backward_kernel(qkv.dtype, dp, True)
+    return _qkv_plan(direction, source, qkv.dtype, b, sq, h, kv, dp, causal, window,
+                     _scale(d, scale), None if cos is None else cos.shape[0],
+                     None if dp == d else (d, dp))
+
+
 def flash_forward_qkv_kernel(qkv, num_heads, num_kv_heads, causal, window,
                              cos, sin, scale):
     """Launch the forward (:func:`forward_kernel`) on qkv's stream, reading
-    q, k and v in place through head views of qkv. ``cos``/``sin`` are the
-    f32 tables from :func:`rope_operands` or None. Returns ``out`` (B, S,
-    H·dh) and ``lse`` (B, H, S) f32, like the plain version."""
+    q, k and v in place inside qkv through a cached launch plan (no head
+    views are built). ``cos``/``sin`` are the f32 tables from
+    :func:`rope_operands` or None. A head dim between the instances runs on
+    qkv padded in one copy. Returns ``out`` (B, S, H·dh) and ``lse`` (B, H,
+    S) f32, like the plain version."""
     h, kv = num_heads, num_kv_heads
-    b, sq, _, d = _check_kernel_operands(qkv, h, kv, causal, window, cos, sin)
-    out = torch.empty(b, sq, h * d, dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty(b, h, sq, dtype=torch.float32, device=qkv.device)
-    _launch_forward("flash_fwd", *_packed_heads(qkv, h, kv, d), _heads(out, d), lse,
-                    causal, window, 0, scale, cos, sin)
+    device = qkv.get_device()
+    plan = _cached_plan(_qkv_key(qkv, h, kv, causal, window, cos, sin, scale),
+                        lambda: _build_qkv_plan("fwd", qkv, h, kv, causal, window, cos, sin, scale))
+    _check_layout(qkv)
+    if cos is not None:
+        _check_layout(cos, sin)
+    b, sq = qkv.shape[:2]
+    if plan.pad is not None:
+        d, dp = plan.pad
+        qkv = _pad_packed(qkv, h + 2 * kv, d, dp)
+        cos, sin = pad_rope_tables(cos, sin, dp)
+    d = plan.stride_values[1]
+    out = torch.empty(b, sq, h * d, dtype=qkv.dtype, device=device)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=device)
+    base = qkv.data_ptr()
+    q_off, k_off, v_off = plan.offsets
+    _run(plan, "flash_fwd", device,
+         (base + q_off, base + k_off, base + v_off, out.data_ptr(), lse.data_ptr(), _ptr(cos),
+          _ptr(sin)), _alloc(plan.scratch, device))
+    if plan.pad is not None:
+        out = _unpad_packed(out, h, *plan.pad)
     return out, lse
+
+
+def _qkv_backward(qkv, out, lse, g, h, kv, causal, window, cos, sin, scale):
+    """The fused backward in one launch (K2) on packed operands through a
+    cached launch plan: dq, dk and dv written in place inside one dqkv."""
+    device = qkv.get_device()
+    plan = _cached_plan(_qkv_key(qkv, h, kv, causal, window, cos, sin, scale, out, lse, g),
+                        lambda: _build_qkv_plan("bwd", qkv, h, kv, causal, window, cos, sin, scale,
+                                                out, lse, g))
+    _check_layout(qkv, out, lse, g)
+    if cos is not None:
+        _check_layout(cos, sin)
+    b, sq = qkv.shape[:2]
+    if plan.pad is not None:
+        d, dp = plan.pad
+        qkv, out, g = (_pad_packed(t, n, d, dp) for t, n in ((qkv, h + 2 * kv), (out, h), (g, h)))
+        cos, sin = pad_rope_tables(cos, sin, dp)
+    d = plan.stride_values[1]
+    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=device)
+    dq_acc = torch.empty(b, h, sq, d, dtype=torch.float32, device=device)
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=device)
+    base, dbase = qkv.data_ptr(), dqkv.data_ptr()
+    q_off, k_off, v_off = plan.offsets
+    _run(plan, "flash_bwd", device,
+         (base + q_off, base + k_off, base + v_off, out.data_ptr(), g.data_ptr(),
+          lse.data_ptr(), _ptr(cos), _ptr(sin), dbase + q_off, dbase + k_off, dbase + v_off,
+          dq_acc.data_ptr(), delta.data_ptr()), _alloc(plan.scratch, device))
+    if plan.pad is not None:
+        dqkv = _unpad_packed(dqkv, h + 2 * kv, *plan.pad)
+    return dqkv
 
 
 def flash_backward_qkv_kernel(qkv, out, lse, g, num_heads, num_kv_heads, causal,
                               window, cos, sin, scale):
     """Launch the fused backward once on qkv's stream (K2, whatever the
-    length), writing dq, dk and dv through head views of one dqkv. Returns
-    dqkv."""
-    h, kv = num_heads, num_kv_heads
-    b, sq, width, d = _check_kernel_operands(
-        qkv, h, kv, causal, window, cos, sin, out, lse, g
-    )
-    if out.dtype != qkv.dtype or g.dtype != qkv.dtype or lse.dtype != torch.float32:
-        raise ValueError("out and g must match qkv's dtype and lse must be f32")
-    if tuple(out.shape) != (b, sq, h * d) or tuple(g.shape) != (b, sq, h * d) \
-            or tuple(lse.shape) != (b, h, sq):
-        raise ValueError("out/g must be (B, S, H*dh) and lse (B, H, S)")
-    dqkv = torch.empty(b, sq, width, dtype=qkv.dtype, device=qkv.device)
-    _launch_backward("flash_bwd", *_packed_heads(qkv, h, kv, d), _heads(out, d), _heads(g, d),
-                     lse, *_packed_heads(dqkv, h, kv, d), causal, window, 0, scale, cos, sin)
-    return dqkv
+    length), writing dq, dk and dv in place inside one dqkv through a cached
+    launch plan. Returns dqkv."""
+    return _qkv_backward(qkv, out, lse, g, num_heads, num_kv_heads, causal, window, cos, sin,
+                         scale)
 
 
 def _on(t: torch.Tensor) -> str:
@@ -949,11 +1153,12 @@ def _on(t: torch.Tensor) -> str:
 class FlashAttentionQKV(torch.autograd.Function):
     """Flash self-attention on packed qkv with a kernel in each direction:
     CUDA tensors go through the forward kernel and, backward, the
-    route the JAX package's ``_flash_backward_qkv`` takes — K2 in one call,
-    else K8 per q segment on head views of qkv (GQA through the kernel's
-    head-group divisor, rope at each segment's positions), else the two-pass
-    K5/K6 — CPU tensors through the plain versions of the same route. The
-    f32 rope tables are constants (integer positions) and get no gradient."""
+    route the JAX package's ``_flash_backward_qkv`` takes — K2 in one call
+    on the packed operands, else K8 per q segment on head views of qkv (GQA
+    through the kernel's head-group divisor, rope at each segment's
+    positions), else the two-pass K5/K6 — CPU tensors through the plain
+    versions of the same route. The f32 rope tables are constants (integer
+    positions) and get no gradient."""
 
     @staticmethod
     def forward(ctx, qkv, cos, sin, h, kv, causal, window, scale):
@@ -972,11 +1177,16 @@ class FlashAttentionQKV(torch.autograd.Function):
         qkv, out, lse, cos, sin = ctx.saved_tensors
         h, kv, causal, window, scale = ctx.args
         g = g.contiguous()
-        d = qkv.shape[-1] // (h + 2 * kv)
-        dqkv = torch.empty_like(qkv)
-        _backward_by_route("flash_bwd", "bshd_bwd", *_packed_heads(qkv, h, kv, d),
-                           _heads(out, d), _heads(g, d), lse, *_packed_heads(dqkv, h, kv, d),
-                           causal, window, 0, scale, cos, sin)
+        b, sq, width = qkv.shape
+        d = width // (h + 2 * kv)
+        if _on(qkv) == "cuda" and _segment_rows(sq, d) == sq:
+            dqkv = _qkv_backward(qkv, out, lse, g, h, kv, causal, window, cos, sin, scale)
+        else:
+            dqkv = torch.empty_like(qkv)
+            _backward_by_route("flash_bwd", "bshd_bwd", *_packed_heads(qkv, h, kv, d),
+                               _heads(out, d), _heads(g, d), lse,
+                               *_packed_heads(dqkv, h, kv, d), causal, window, 0, scale, cos,
+                               sin)
         return dqkv, None, None, None, None, None, None, None
 
 

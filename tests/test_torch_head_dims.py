@@ -142,7 +142,7 @@ def test_kernel_wrappers_reject_head_dims_above_128():
     ((torch.bfloat16, 512, True), "flash_bwd_dstream"),
     ((torch.float32, 384, True), "flash_bwd_dstream"),
     ((torch.float32, 512, True), "flash_bwd_dstream"),
-    ((torch.bfloat16, 512, False), "flash_bwd_dstream"),
+    ((torch.bfloat16, 512, False), "flash_bwd_cols_sm90"),
     ((torch.float32, 384, False), "flash_bwd_dstream"),
 ])
 def test_backward_kernel_dispatch(case):
