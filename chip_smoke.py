@@ -170,9 +170,9 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  call through each of the three routes (K2 whole, K8 on
                  eight segments, K6 + K5), forced through the gate's hooks;
      host_dispatch — the wrappers' host pieces at the CLI's call (K1 and K2
-                 at head_dim 32), before and after the launch plans, each
-                 timed over 1000 calls, beside a whole call's host time,
-                 its back-to-back time and SDPA's;
+                 at head_dim 32), each timed over 1000 calls, beside a
+                 whole call's host time, its back-to-back time and SDPA's
+                 (in turns, and one reading of 10 calls each);
   7. probes    — the two kernel probes (tools/pipeline_probe.py and
                  tools/bshd_probe.py of the port): K9, the forward in the
                  probe's issue order (flash_fwd_pipe_sm90.cu in bf16),
@@ -199,7 +199,7 @@ card and no network.
     python3 chip_smoke.py --dispatch [--tree DIR]
 
 times whole calls through the public wrappers (K1/K2 at head_dim 32 beside
-SDPA, K1 at head_dim 320) and the trainer at its defaults for 60 steps, on
+SDPA, K1 at head_dim 320) and the trainer at its defaults for 400 steps, on
 this checkout's package or, with ``--tree``, on checkout DIR's (a parent
 commit unpacked by ``git archive``), so that two trees compare on one card.
 """
@@ -2255,158 +2255,81 @@ def _host_ns(fn, n=DISPATCH_CALLS):
 
 def _dispatch_pieces(b, s, h, d):
     """The host pieces of one K1 and one K2 call at head_dim ``d`` (packed
-    bf16 qkv, causal, no rope), each timed alone by :func:`_host_ns`: as the
-    wrappers made them before their launch plans ("before": checks, two or
-    three allocations, the head views of qkv, out, dO and dqkv, a fresh
-    ctypes strides array, the function lookup with its argtypes set anew,
-    the ``torch.cuda.device`` guard and ``current_stream``, the ctypes call
-    with every pointer read from a view, the two counters) and as they make
-    them now ("after": the plan's key and lookup with the per-call layout
-    check, the allocations, pointer arithmetic on qkv's offsets, the bound
-    function's lookup, the current card's raw stream, the call, the
-    counters; the strides array lives in the plan). The ctypes calls launch
-    the real kernels. Returns {"K1": {"before": ..., "after": ...}, "K2":
-    ...} in ns per call."""
-    import ctypes
-
+    bf16 qkv, causal, no rope) as the wrappers make them, each timed alone
+    by :func:`_host_ns`: the plan (source pick, key, cached lookup and the
+    per-call layout check, ``_packed_plan``), the allocations, the pointers
+    (qkv's base plus the plan's offsets), the bound function's lookup, the
+    current card's check and raw stream, and the ctypes call, which
+    launches the real kernel. Returns {"K1": ..., "K2": ...} in ns per
+    call, with their sum."""
     bf = torch.bfloat16
     qkv, g = _packed(b, s, h, h, d, bf, seed=84)
     out, lse = A.flash_forward_qkv_kernel(qkv, h, h, True, None, None, None, None)
-    A.flash_backward_qkv_kernel(qkv, out, lse, g, h, h, True, None, None, None, None)
+    dqkv = A.flash_backward_qkv_kernel(qkv, out, lse, g, h, h, True, None, None, None, None)
     torch.cuda.synchronize()
-    dev, scale = qkv.get_device(), d ** -0.5
-    counts = {"n": 0}
-
-    def count():
-        counts["n"] += 1
-        counts["n"] += 1
-
+    dev = qkv.get_device()
+    q0, d0 = qkv.data_ptr(), dqkv.data_ptr()
+    dq_acc = torch.empty(b, h, s, d, dtype=torch.float32, device=dev)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
     result = {}
     for kernel in ("K1", "K2"):
-        fwd = kernel == "K1"
-        source = A.forward_kernel(bf, d) if fwd else A.backward_kernel(bf, d, True)
-        lib, fn = _build.load(source), A._kernel_fn(source)
-        argtypes = A._SOURCE_ARGTYPES[source]
-        qkv_views = A._packed_heads(qkv, h, h, d)
-        if fwd:
-            views = (*qkv_views, A._heads(out, d))
-            ints = (b, h, h, s, s, d, 1, 1, 0, 0, 0, scale)
-            check = lambda: A._check_kernel_operands(qkv, h, h, True, None, None, None)
+        if kernel == "K1":
+            others = ()
             allocs = lambda: (torch.empty(b, s, h * d, dtype=bf, device=dev),
                               torch.empty(b, h, s, dtype=torch.float32, device=dev))
-            make_views = lambda: (A._packed_heads(qkv, h, h, d), A._heads(out, d))
-            old_ptrs = lambda: (views[0].data_ptr(), views[1].data_ptr(), views[2].data_ptr(),
-                                views[3].data_ptr(), lse.data_ptr(), None, None)
-            key = A._qkv_key(qkv, h, h, True, None, None, None, None)
         else:
-            dqkv = torch.empty_like(qkv)
-            dq_acc = torch.empty(b, h, s, d, dtype=torch.float32, device=dev)
-            delta = torch.empty(b, h, s, dtype=torch.float32, device=dev)
-            dviews = A._packed_heads(dqkv, h, h, d)
-            views = (*qkv_views, A._heads(out, d), A._heads(g, d), *dviews)
-            ints = (b, h, h, s, s, d, 1, 1, 0, 0, 0, scale)
-
-            def check():
-                A._check_kernel_operands(qkv, h, h, True, None, None, None, out, lse, g)
-                if out.dtype != qkv.dtype or g.dtype != qkv.dtype or lse.dtype != torch.float32:
-                    raise ValueError("dtypes")
-                if tuple(out.shape) != (b, s, h * d) or tuple(g.shape) != (b, s, h * d) \
-                        or tuple(lse.shape) != (b, h, s):
-                    raise ValueError("shapes")
-
-            allocs = lambda: (torch.empty(b, s, 3 * h * d, dtype=bf, device=dev),
+            others = (out, lse, g)
+            allocs = lambda: (torch.empty(qkv.shape, dtype=bf, device=dev),
                               torch.empty(b, h, s, d, dtype=torch.float32, device=dev),
                               torch.empty(b, h, s, dtype=torch.float32, device=dev))
-            make_views = lambda: (A._packed_heads(qkv, h, h, d), A._heads(out, d),
-                                  A._heads(g, d), A._packed_heads(dqkv, h, h, d))
-            old_ptrs = lambda: (views[0].data_ptr(), views[1].data_ptr(), views[2].data_ptr(),
-                                views[3].data_ptr(), views[4].data_ptr(), lse.data_ptr(), None,
-                                None, views[5].data_ptr(), views[6].data_ptr(),
-                                views[7].data_ptr(), dq_acc.data_ptr(), delta.data_ptr())
-            key = A._qkv_key(qkv, h, h, True, None, None, None, None, out, lse, g)
-        plan = A._PLANS.get(key)
-        if plan is None:
-            fail(f"host_dispatch: no launch plan under the {kernel} call's key")
-        arr = (ctypes.c_longlong * (3 * len(views)))(*A._strides(*views))
-        q0 = qkv.data_ptr()
-
-        def strides():
-            vals = [st for t in views for st in t.stride()[:3]]
-            return (ctypes.c_longlong * len(vals))(*vals)
-
-        def lookup():
-            f = getattr(lib, f"dtt_{source}")
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-
-        def guard_stream():
-            with torch.cuda.device(qkv.device):
-                return torch.cuda.current_stream(qkv.device).cuda_stream
-
-        stream = guard_stream()
-        old_call = lambda: fn(*old_ptrs(), ctypes.addressof(arr), *ints, stream)
-
-        def plan_check():  # the key built from the live tensors, its lookup, the layout check
-            if fwd:
-                A._PLANS.get(A._qkv_key(qkv, h, h, True, None, None, None, None))
-                A._check_layout(qkv)
-            else:
-                A._PLANS.get(A._qkv_key(qkv, h, h, True, None, None, None, None, out, lse, g))
-                A._check_layout(qkv, out, lse, g)
-
-        offsets = plan.offsets
-        if fwd:
-            new_ptrs = lambda: (q0 + offsets[0], q0 + offsets[1], q0 + offsets[2],
-                                out.data_ptr(), lse.data_ptr(), None, None)
+        direction = "fwd" if kernel == "K1" else "bwd"
+        plan = A._packed_plan(direction, qkv, h, h, True, None, None, None, None, *others)
+        offsets, fn = plan.offsets, A._kernel_fn(plan.source)
+        if kernel == "K1":
+            ptrs = lambda: (q0 + offsets[0], q0 + offsets[1], q0 + offsets[2], out.data_ptr(),
+                            lse.data_ptr(), None, None)
         else:
-            d0 = dqkv.data_ptr()
-            new_ptrs = lambda: (q0 + offsets[0], q0 + offsets[1], q0 + offsets[2],
-                                out.data_ptr(), g.data_ptr(), lse.data_ptr(), None, None,
-                                d0 + offsets[0], d0 + offsets[1], d0 + offsets[2],
-                                dq_acc.data_ptr(), delta.data_ptr())
-        new_stream = lambda: (dev == torch.cuda.current_device(),
-                              torch._C._cuda_getCurrentRawStream(dev))
-        new_call = lambda: fn(*new_ptrs(), *plan.args, stream)
-        before = {"checks": check, "allocations": allocs, "views": make_views,
-                  "strides": strides, "function_lookup": lookup,
-                  "device_guard_and_stream": guard_stream, "ctypes_call": old_call,
-                  "counters": count}
-        after = {"checks": plan_check, "allocations": allocs, "views": new_ptrs,
-                 "function_lookup": lambda: A._kernel_fn(source),
-                 "device_guard_and_stream": new_stream, "ctypes_call": new_call,
-                 "counters": count}
-        result[kernel] = {}
-        for label, pieces in (("before", before), ("after", after)):
-            ns = {name: _host_ns(piece) for name, piece in pieces.items()}
-            if label == "after":
-                ns["strides"] = 0.0  # built once, in the plan
-            ns["sum"] = sum(ns.values())
-            result[kernel][label] = ns
+            ptrs = lambda: (q0 + offsets[0], q0 + offsets[1], q0 + offsets[2], out.data_ptr(),
+                            g.data_ptr(), lse.data_ptr(), None, None, d0 + offsets[0],
+                            d0 + offsets[1], d0 + offsets[2], dq_acc.data_ptr(),
+                            delta.data_ptr())
+        pieces = {
+            "plan": lambda: A._packed_plan(direction, qkv, h, h, True, None, None, None, None,
+                                           *others),
+            "allocations": allocs,
+            "pointers": ptrs,
+            "function_lookup": lambda: A._kernel_fn(plan.source),
+            "device_check_and_stream": lambda: (dev == torch.cuda.current_device(),
+                                                torch._C._cuda_getCurrentRawStream(dev)),
+            "ctypes_call": lambda: fn(*ptrs(), *plan.args, stream),
+        }
+        ns = {name: _host_ns(piece) for name, piece in pieces.items()}
+        ns["sum"] = sum(ns.values())
+        result[kernel] = ns
     return result
 
 
 def phase_host_dispatch(notes):
     """The wrappers' host dispatch at the CLI's call (K1/K2 at head_dim 32,
-    B 8, S 128, 4 heads, bf16): each piece before and after the launch
-    plans (:func:`_dispatch_pieces`), beside one whole call's host time,
-    its back-to-back time on the card and SDPA's on the same inputs; and
-    K1 at head_dim 320 (padded in the launch) back to back. The readings go
-    into the D 32 rows' notes."""
+    B 8, S 128, 4 heads, bf16): each piece of a call
+    (:func:`_dispatch_pieces`) beside one whole call's host time, and its
+    back-to-back time on the card in turns with SDPA's on the same inputs;
+    and K1 at head_dim 320 (padded in the launch) back to back. The readings
+    go into the D 32 rows' notes as fields of their own; the rows' ``ms``
+    and ``library_ms`` stay :func:`_time_kernels`' readings."""
     pieces = _dispatch_pieces(8, 128, 4, 32)
     whole = dispatch_times()
     for kernel, row in (("K1", "flash_fwd_d32"), ("K2", "flash_bwd_d32")):
-        emit(phase="host_dispatch", kernel=kernel, ns_per_piece=pieces[kernel],
-             whole_call_host_ns=whole[row]["host_ns"], back_to_back_ms=whole[row]["ms"],
-             sdpa_ms=whole[row]["sdpa_ms"])
-        # The rows' ms (and K1's library_ms) are these readings: at this size
-        # a call is mostly host time, whose spread ten readings of 200 calls
-        # in turns average out better than one of 10.
+        emit(phase="host_dispatch", kernel=kernel, ns_per_piece=pieces[kernel], **whole[row])
         notes.setdefault(row, {}).update(
             host_ns_per_piece=pieces[kernel], whole_call_host_ns=whole[row]["host_ns"],
-            ms=whole[row]["ms"], ms_how=f"median of {2 * DISPATCH_ROUNDS} readings of 200 "
-                                         "calls back to back, in turns with SDPA's call")
-    notes["flash_fwd_d32"]["library_ms"] = whole["flash_fwd_d32"]["sdpa_ms"]
-    notes["flash_bwd_d32"]["library_bwd_only_in_turns_ms"] = whole["flash_bwd_d32"]["sdpa_ms"]
+            ms_turns_median=whole[row]["ms"],
+            turns_how=f"median of {2 * DISPATCH_ROUNDS} readings of 200 calls back to back, "
+                      "in turns with SDPA's call")
+    notes["flash_fwd_d32"]["library_ms_turns_median"] = whole["flash_fwd_d32"]["sdpa_ms"]
+    notes["flash_bwd_d32"]["library_bwd_only_ms_turns_median"] = \
+        whole["flash_bwd_d32"]["sdpa_ms"]
     emit(phase="host_dispatch", kernel="K1 D 320", back_to_back_ms=whole["flash_fwd_d320"]["ms"])
 
 
@@ -2432,10 +2355,12 @@ def dispatch_times():
     """Whole calls through the public wrappers only (so that another
     checkout's package can be timed the same way, ``--dispatch --tree``):
     K1 and K2 at the CLI's call (head_dim 32, B 8, S 128, 4 heads, packed
-    bf16 qkv, causal) — host ns a call over DISPATCH_CALLS calls, and ms a
-    call back to back on the card in turns with SDPA's forward (K1) and
-    backward alone (K2) on the same inputs (:func:`_in_turns`) — and K1 at
-    head_dim 320 (B 2, S 2048, 4 heads) back to back."""
+    bf16 qkv, causal) — host ns a call over DISPATCH_CALLS calls; ms a call
+    back to back on the card in turns with SDPA's forward (K1) and backward
+    alone (K2) on the same inputs (:func:`_in_turns`), and one reading of
+    10 calls of each as :func:`_time_kernels` takes a row's (``ms_10``,
+    ``sdpa_ms_10``) — and K1 at head_dim 320 (B 2, S 2048, 4 heads) back to
+    back."""
     b, s, h, d = 8, 128, 4, 32
     qkv, g = _packed(b, s, h, h, d, torch.bfloat16, seed=84)
     args = (h, h, True, None, None, None)
@@ -2447,7 +2372,8 @@ def dispatch_times():
     times = {}
     for row, fn, other in (("flash_fwd_d32", fwd, lib[0]), ("flash_bwd_d32", bwd, lib[2])):
         ms, sdpa_ms = _in_turns(fn, other)
-        times[row] = dict(host_ns=_host_ns(fn), ms=ms, sdpa_ms=sdpa_ms)
+        times[row] = dict(host_ns=_host_ns(fn), ms=ms, sdpa_ms=sdpa_ms,
+                          ms_10=cuda_ms(fn, 10), sdpa_ms_10=cuda_ms(other, 10))
     qkv320, _ = _packed(2, 2048, 4, 4, 320, torch.bfloat16, seed=118)
     times["flash_fwd_d320"] = dict(ms=cuda_ms(
         lambda: A.flash_forward_qkv_kernel(qkv320, 4, 4, True, None, None, None, None), 20))

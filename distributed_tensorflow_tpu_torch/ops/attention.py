@@ -406,9 +406,14 @@ def flash_backward_dkv_reference(q, k, v, out, lse, g, causal=False, window=None
 
 
 def _qkv_dims(qkv: torch.Tensor, h: int, kv: int) -> tuple[int, int, int, int]:
-    if qkv.dim() != 3:
-        raise ValueError(f"qkv must be (B, S, (H + 2*KV)*head_dim), got {tuple(qkv.shape)}")
-    b, sq, width = qkv.shape
+    return _packed_dims(qkv.shape, h, kv)
+
+
+def _packed_dims(shape, h: int, kv: int) -> tuple[int, int, int, int]:
+    """B, S, width and head_dim of packed qkv of ``shape``."""
+    if len(shape) != 3:
+        raise ValueError(f"qkv must be (B, S, (H + 2*KV)*head_dim), got {tuple(shape)}")
+    b, sq, width = shape
     if kv < 1 or h % kv:
         raise ValueError(f"num_heads {h} must be a positive multiple of num_kv_heads {kv}")
     if width % (h + 2 * kv):
@@ -932,21 +937,23 @@ def _backward_two_pass(q, k, v, out, g, lse, dq, dk, dv, causal, window, off, sc
         t.copy_(r)
 
 
-def _backward_by_route(whole, segment, q, k, v, out, g, lse, dq, dk, dv, causal, window, off,
-                       scale, cos=None, sin=None) -> None:
-    """The JAX package's backward dispatch (``_flash_backward`` and
-    ``_flash_backward_bshd``): one fused call (counted under ``whole``)
-    while :func:`_segment_rows` allows it, else one fused call per q
-    segment (counted under ``segment``), placed by ``off + a``, else the
-    two-pass pair. Segment dq rows land in their rows of dq; the segments'
-    dk/dv shares, each rounded to the operand dtype by its kernel, are
-    summed in f32 and rounded once (the JAX package sums them in the
-    operand dtype)."""
-    sq, d = q.shape[2], q.shape[3]
+def _route_backward(whole, segment, sq, d, views, causal, window, off, scale, cos=None,
+                    sin=None) -> None:
+    """The JAX package's backward dispatch (``_flash_backward``,
+    ``_flash_backward_bshd`` and ``_flash_backward_qkv``) for ``sq`` q rows
+    of head dim ``d``: ``whole()``, one fused call on the caller's own
+    layout, while :func:`_segment_rows` allows it; else, on ``views()`` —
+    q, k, v, out, g, lse, dq, dk, dv as (B, H, S, D) views, built only for
+    these two routes — one fused call per q segment (counted under
+    ``segment``), placed by ``off + a``, else the two-pass pair. Segment dq
+    rows land in their rows of dq; the segments' dk/dv shares, each rounded
+    to the operand dtype by its kernel, are summed in f32 and rounded once
+    (the JAX package sums them in the operand dtype)."""
     seg = _segment_rows(sq, d)
     if seg == sq:
-        _backward(whole, q, k, v, out, g, lse, dq, dk, dv, causal, window, off, scale, cos, sin)
+        whole()
         return
+    q, k, v, out, g, lse, dq, dk, dv = views()
     if seg is None:
         _backward_two_pass(q, k, v, out, g, lse, dq, dk, dv, causal, window, off, scale, cos,
                            sin)
@@ -963,6 +970,16 @@ def _backward_by_route(whole, segment, q, k, v, out, g, lse, dq, dk, dv, causal,
         dv_sum += dv_s
     dk.copy_(dk_sum)
     dv.copy_(dv_sum)
+
+
+def _backward_by_route(whole, segment, q, k, v, out, g, lse, dq, dk, dv, causal, window, off,
+                       scale, cos=None, sin=None) -> None:
+    """:func:`_route_backward` on (B, H, S, D) views, its one fused call on
+    them too (counted under ``whole``)."""
+    ops = (q, k, v, out, g, lse, dq, dk, dv)
+    _route_backward(
+        lambda: _backward(whole, *ops, causal, window, off, scale, cos, sin), segment,
+        q.shape[2], q.shape[3], lambda: ops, causal, window, off, scale, cos, sin)
 
 
 # ---------------------------------------------------------------------------
@@ -1003,13 +1020,17 @@ def _pad_packed(t, n, d, dp):
     return torch.nn.functional.pad(halves, (0, (dp - d) // 2)).view(b, s, n * dp)
 
 
-def _unpad_packed(t, n, d, dp):
+def _unpad_packed(t, n, d, dp, out=None):
     """The real columns of each head of a :func:`_pad_packed` layout, in one
-    copy: (B, S, n·dp) -> (B, S, n·d)."""
+    copy: (B, S, n·dp) -> (B, S, n·d), into ``out`` where it is given."""
     b, s = t.shape[:2]
+    if out is None:
+        out = torch.empty(b, s, n * d, dtype=t.dtype, device=t.device)
     if d % 2:
-        return t.view(b, s, n, dp)[..., :d].reshape(b, s, n * d)
-    return t.view(b, s, n, 2, dp // 2)[..., :d // 2].reshape(b, s, n * d)
+        out.view(b, s, n, d).copy_(t.view(b, s, n, dp)[..., :d])
+    else:
+        out.view(b, s, n, 2, d // 2).copy_(t.view(b, s, n, 2, dp // 2)[..., :d // 2])
+    return out
 
 
 def _packed_offsets(h, kv, d, elt):
@@ -1036,26 +1057,42 @@ def _qkv_plan(direction, source, dtype, b, s, h, kv, d, causal, window, scale, t
                  _packed_offsets(h, kv, d, dtype.itemsize), pad)
 
 
-def _qkv_key(qkv, h, kv, causal, window, cos, sin, scale, out=None, lse=None, g=None):
-    """The call signature of a packed launch: K1's, or with ``out``, ``lse``
-    and ``g`` K2's. It holds every shape, dtype and card the plan's checks
-    read, and the source picker in force (:func:`forward_kernel`,
-    :func:`backward_kernel`; a caller may swap them)."""
-    tables = None if cos is None else (cos.shape, sin.shape, cos.dtype, sin.dtype,
-                                       cos.get_device(), sin.get_device())
-    if out is None:
-        return ("qkv_fwd", forward_kernel, qkv.dtype, qkv.shape, qkv.get_device(), h, kv, causal,
-                window, scale, tables)
-    return ("qkv_bwd", backward_kernel, qkv.dtype, qkv.shape, qkv.get_device(), out.shape,
-            out.dtype, out.get_device(), lse.shape, lse.dtype, lse.get_device(), g.shape,
-            g.dtype, g.get_device(), h, kv, causal, window, scale, tables)
+def _signature(t):
+    """What a packed call's checks read of an operand, besides its layout:
+    its shape, dtype and card."""
+    return t.shape, t.dtype, t.get_device()
 
 
-def _build_qkv_plan(direction, qkv, h, kv, causal, window, cos, sin, scale, out=None,
+def _qkv_key(direction, qkv, h, kv, causal, window, scale, *operands):
+    """The call signature of a packed launch: first the source it runs on
+    (:func:`forward_kernel` for "fwd", :func:`backward_kernel` with dq for
+    "bwd", at its head dim's instance), then its arguments and the
+    :func:`_signature` of qkv and of every other operand its checks read
+    (``operands``: K2's out, lse and g, then the rope tables), so that the
+    checks a plan was built under hold for every call with its key."""
+    sig = _signature(qkv)
+    dp = _instance_dim(_packed_dims(sig[0], h, kv)[3])
+    source = forward_kernel(sig[1], dp) if direction == "fwd" else \
+        backward_kernel(sig[1], dp, True)
+    return (source, h, kv, causal, window, scale, sig, *map(_signature, operands))
+
+
+def _packed_plan(direction, qkv, h, kv, causal, window, cos, sin, scale, *others):
+    """The cached launch plan of a packed call (``others``: K2's out, lse
+    and g), its operands' layout checked on every call; the other checks run
+    when the plan is built, once per :func:`_qkv_key`."""
+    tables = () if cos is None else (cos, sin)
+    key = _qkv_key(direction, qkv, h, kv, causal, window, scale, *others, *tables)
+    plan = _cached_plan(key, lambda: _build_qkv_plan(direction, key[0], qkv, h, kv, causal,
+                                                     window, cos, sin, scale, *others))
+    _check_layout(qkv, *others, *tables)
+    return plan
+
+
+def _build_qkv_plan(direction, source, qkv, h, kv, causal, window, cos, sin, scale, out=None,
                     lse=None, g=None):
-    """Check a packed call's operands (once per call signature: the plan's
-    key holds every shape, dtype and card they were checked at) and plan it
-    at the head dim's instance."""
+    """Check a packed call's operands and plan it on ``source`` at the head
+    dim's instance."""
     others = () if direction == "fwd" else (out, lse, g)
     b, sq, _, d = _check_kernel_operands(qkv, h, kv, causal, window, cos, sin, *others)
     if direction == "bwd":
@@ -1065,8 +1102,6 @@ def _build_qkv_plan(direction, qkv, h, kv, causal, window, cos, sin, scale, out=
                 or tuple(lse.shape) != (b, h, sq):
             raise ValueError("out/g must be (B, S, H*dh) and lse (B, H, S)")
     dp = _instance_dim(d)
-    source = forward_kernel(qkv.dtype, dp) if direction == "fwd" else \
-        backward_kernel(qkv.dtype, dp, True)
     return _qkv_plan(direction, source, qkv.dtype, b, sq, h, kv, dp, causal, window,
                      _scale(d, scale), None if cos is None else cos.shape[0],
                      None if dp == d else (d, dp))
@@ -1082,11 +1117,7 @@ def flash_forward_qkv_kernel(qkv, num_heads, num_kv_heads, causal, window,
     S) f32, like the plain version."""
     h, kv = num_heads, num_kv_heads
     device = qkv.get_device()
-    plan = _cached_plan(_qkv_key(qkv, h, kv, causal, window, cos, sin, scale),
-                        lambda: _build_qkv_plan("fwd", qkv, h, kv, causal, window, cos, sin, scale))
-    _check_layout(qkv)
-    if cos is not None:
-        _check_layout(cos, sin)
+    plan = _packed_plan("fwd", qkv, h, kv, causal, window, cos, sin, scale)
     b, sq = qkv.shape[:2]
     if plan.pad is not None:
         d, dp = plan.pad
@@ -1105,34 +1136,30 @@ def flash_forward_qkv_kernel(qkv, num_heads, num_kv_heads, causal, window,
     return out, lse
 
 
-def _qkv_backward(qkv, out, lse, g, h, kv, causal, window, cos, sin, scale):
+def _qkv_backward(qkv, out, lse, g, dqkv, h, kv, causal, window, cos, sin, scale):
     """The fused backward in one launch (K2) on packed operands through a
-    cached launch plan: dq, dk and dv written in place inside one dqkv."""
+    cached launch plan: dq, dk and dv written in place inside ``dqkv``
+    (qkv's shape, contiguous)."""
     device = qkv.get_device()
-    plan = _cached_plan(_qkv_key(qkv, h, kv, causal, window, cos, sin, scale, out, lse, g),
-                        lambda: _build_qkv_plan("bwd", qkv, h, kv, causal, window, cos, sin, scale,
-                                                out, lse, g))
-    _check_layout(qkv, out, lse, g)
-    if cos is not None:
-        _check_layout(cos, sin)
+    plan = _packed_plan("bwd", qkv, h, kv, causal, window, cos, sin, scale, out, lse, g)
     b, sq = qkv.shape[:2]
+    grads = dqkv
     if plan.pad is not None:
         d, dp = plan.pad
         qkv, out, g = (_pad_packed(t, n, d, dp) for t, n in ((qkv, h + 2 * kv), (out, h), (g, h)))
         cos, sin = pad_rope_tables(cos, sin, dp)
+        grads = torch.empty(qkv.shape, dtype=qkv.dtype, device=device)
     d = plan.stride_values[1]
-    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=device)
     dq_acc = torch.empty(b, h, sq, d, dtype=torch.float32, device=device)
     delta = torch.empty(b, h, sq, dtype=torch.float32, device=device)
-    base, dbase = qkv.data_ptr(), dqkv.data_ptr()
+    base, dbase = qkv.data_ptr(), grads.data_ptr()
     q_off, k_off, v_off = plan.offsets
     _run(plan, "flash_bwd", device,
          (base + q_off, base + k_off, base + v_off, out.data_ptr(), g.data_ptr(),
           lse.data_ptr(), _ptr(cos), _ptr(sin), dbase + q_off, dbase + k_off, dbase + v_off,
           dq_acc.data_ptr(), delta.data_ptr()), _alloc(plan.scratch, device))
     if plan.pad is not None:
-        dqkv = _unpad_packed(dqkv, h + 2 * kv, *plan.pad)
-    return dqkv
+        _unpad_packed(grads, h + 2 * kv, *plan.pad, out=dqkv)
 
 
 def flash_backward_qkv_kernel(qkv, out, lse, g, num_heads, num_kv_heads, causal,
@@ -1140,8 +1167,10 @@ def flash_backward_qkv_kernel(qkv, out, lse, g, num_heads, num_kv_heads, causal,
     """Launch the fused backward once on qkv's stream (K2, whatever the
     length), writing dq, dk and dv in place inside one dqkv through a cached
     launch plan. Returns dqkv."""
-    return _qkv_backward(qkv, out, lse, g, num_heads, num_kv_heads, causal, window, cos, sin,
-                         scale)
+    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+    _qkv_backward(qkv, out, lse, g, dqkv, num_heads, num_kv_heads, causal, window, cos, sin,
+                  scale)
+    return dqkv
 
 
 def _on(t: torch.Tensor) -> str:
@@ -1177,16 +1206,19 @@ class FlashAttentionQKV(torch.autograd.Function):
         qkv, out, lse, cos, sin = ctx.saved_tensors
         h, kv, causal, window, scale = ctx.args
         g = g.contiguous()
-        b, sq, width = qkv.shape
-        d = width // (h + 2 * kv)
-        if _on(qkv) == "cuda" and _segment_rows(sq, d) == sq:
-            dqkv = _qkv_backward(qkv, out, lse, g, h, kv, causal, window, cos, sin, scale)
+        sq, d = qkv.shape[1], qkv.shape[2] // (h + 2 * kv)
+        dqkv = torch.empty_like(qkv)
+
+        def views():
+            return (*_packed_heads(qkv, h, kv, d), _heads(out, d), _heads(g, d), lse,
+                    *_packed_heads(dqkv, h, kv, d))
+
+        if _on(qkv) == "cuda":
+            whole = lambda: _qkv_backward(qkv, out, lse, g, dqkv, h, kv, causal, window, cos,
+                                          sin, scale)
         else:
-            dqkv = torch.empty_like(qkv)
-            _backward_by_route("flash_bwd", "bshd_bwd", *_packed_heads(qkv, h, kv, d),
-                               _heads(out, d), _heads(g, d), lse,
-                               *_packed_heads(dqkv, h, kv, d), causal, window, 0, scale, cos,
-                               sin)
+            whole = lambda: _backward("flash_bwd", *views(), causal, window, 0, scale, cos, sin)
+        _route_backward(whole, "bshd_bwd", sq, d, views, causal, window, 0, scale, cos, sin)
         return dqkv, None, None, None, None, None, None, None
 
 

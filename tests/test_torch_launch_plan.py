@@ -106,16 +106,18 @@ def test_plan_cache_stays_bounded(monkeypatch):
 
 def test_plan_cache_keys_on_dtype_and_shape(monkeypatch):
     """Packed calls that differ in dtype or shape get their own plans; equal
-    signatures share one, and a swapped source picker makes a new one."""
+    signatures share one, and a swapped source picker makes a new one. The
+    key holds the shape, dtype and card of every operand the checks read."""
     monkeypatch.setattr(TA, "_PLANS", {})
     built = []
 
     def plan_of(qkv, dtype):
-        key = TA._qkv_key(qkv, 4, 2, True, None, None, None, None)
+        key = TA._qkv_key("fwd", qkv, 4, 2, True, None, None)
+        source = key[0]
         b, s, width = qkv.shape
         d = width // 8
         return TA._cached_plan(key, lambda: built.append(key) or TA._qkv_plan(
-            "fwd", TA.forward_kernel(dtype, d), dtype, b, s, 4, 2, d, True, None, None, None))
+            "fwd", source, dtype, b, s, 4, 2, d, True, None, None, None))
 
     bf = torch.zeros(2, 16, 8 * 64, dtype=torch.bfloat16)
     f32 = torch.zeros(2, 16, 8 * 64)
@@ -130,7 +132,9 @@ def test_plan_cache_keys_on_dtype_and_shape(monkeypatch):
     assert plan_of(torch.ones_like(bf), torch.bfloat16) is p_bf and len(built) == 3
     g = torch.zeros(2, 16, 4 * 64, dtype=torch.bfloat16)
     lse = torch.zeros(2, 4, 16)
-    assert TA._qkv_key(bf, 4, 2, True, None, None, None, None, g, lse, g) != \
-        TA._qkv_key(bf, 4, 2, True, None, None, None, None)
+    bwd = TA._qkv_key("bwd", bf, 4, 2, True, None, None, g, lse, g)
+    assert bwd[0] == "flash_bwd_sm90"
+    assert bwd != TA._qkv_key("fwd", bf, 4, 2, True, None, None)
+    assert bwd != TA._qkv_key("bwd", bf, 4, 2, True, None, None, g, lse.double(), g)
     monkeypatch.setattr(TA, "forward_kernel", lambda *a: "flash_fwd")
     assert plan_of(bf, torch.bfloat16) is not p_bf and len(built) == 4
