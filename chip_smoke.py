@@ -92,7 +92,14 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  segment (from 320), a window on a q segment (512), kv
                  rows no q row sees exactly 0, and planted faults (a
                  dropped q tile, one warpgroup's columns, one of the two
-                 column blocks, in dK and in dV) at 512 and 384; every
+                 column blocks, in dK and in dV) at 512 and 384; K5 at
+                 384 and 512 on the warpgroup kernel
+                 flash_bwd_dq_cols_sm90.cu with GQA + window + rope (from
+                 320), rope on a cross-length q segment (512), rows that
+                 attend nothing exactly 0, non-causal cross-length (384),
+                 and planted faults (a dropped
+                 32-key tile in dS·K, one warpgroup's column half of dq)
+                 at 512 and 384; every
                  launch on the source its dtype and head dim name. Then K9 at dh 80
                  (padded to 128), 256 and 320 (the shipped forward), bf16
                  and f32, against its plain version and against K3 (bit
@@ -121,7 +128,7 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  of 512 (lr 1e-4, 6 steps, its loss falling): exactly 8 K1,
                  8 K5 and 8 K6 launches a step (the gate's two-pass route at
                  head_dim 512), on flash_fwd_cols_sm90.cu,
-                 flash_bwd_dq_dstream.cu and flash_bwd_cols_sm90.cu;
+                 flash_bwd_dq_cols_sm90.cu and flash_bwd_cols_sm90.cu;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
@@ -164,9 +171,10 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  turns too), with SDPA's kernels' names (it has no flash
                  backend above 256), and K5 at head_dim 256
                  (flash_bwd_dq_sm90.cu against flash_bwd_dq.cu in turns,
-                 Gemma 7B's width), and K6 at 512 and 384
-                 (flash_bwd_cols_sm90.cu against flash_bwd_dstream.cu in
-                 turns); and one layer's backward at the `wide`
+                 Gemma 7B's width), and K6 and K5 at 512 and 384
+                 (flash_bwd_cols_sm90.cu against flash_bwd_dstream.cu and
+                 flash_bwd_dq_cols_sm90.cu against flash_bwd_dq_dstream.cu
+                 in turns); and one layer's backward at the `wide`
                  call through each of the three routes (K2 whole, K8 on
                  eight segments, K6 + K5), forced through the gate's hooks;
      host_dispatch — the wrappers' host pieces at the CLI's call (K1 and K2
@@ -299,14 +307,14 @@ REPLACES.update({row: REPLACES["flash_fwd"] for row in (
 REPLACES.update({row: REPLACES["flash_bwd"] for row in ("flash_bwd_d256", "flash_bwd_d32")})
 REPLACES["bshd_bwd_d256_wide"] = REPLACES["bshd_bwd"]
 # The rows above head_dim 256: K1 at 512 and 320 (padded to 384) on the
-# warpgroup forward flash_fwd_cols_sm90.cu, K2, K5 and K6 at 512 and K8 at
-# 320 on the column-group kernels; K5 at 256 on the warpgroup dq kernel; K9
-# at 256.
+# warpgroup forward flash_fwd_cols_sm90.cu, K5 and K6 at 512 and 384 on
+# their warpgroup kernels, K2 at 512 and K8 at 320 on the column-group
+# kernels; K5 at 256 on the warpgroup dq kernel; K9 at 256.
 REPLACES.update({"flash_fwd_d512": REPLACES["flash_fwd"], "flash_bwd_d512": REPLACES["flash_bwd"],
                  "bwd_dq_d512": REPLACES["bwd_dq"], "bwd_dkv_d512": REPLACES["bwd_dkv"],
                  "bshd_bwd_d320": REPLACES["bshd_bwd"], "bwd_dq_d256": REPLACES["bwd_dq"],
                  "flash_fwd_d320": REPLACES["flash_fwd"], "pipe_fwd_d256": REPLACES["pipe_fwd"],
-                 "bwd_dkv_d384": REPLACES["bwd_dkv"]})
+                 "bwd_dkv_d384": REPLACES["bwd_dkv"], "bwd_dq_d384": REPLACES["bwd_dq"]})
 # The wrappers' launch counters and the source each one launches at the
 # main paths' calls (bf16, head_dim 64, 128 or 256): every layout goes
 # through one forward and one fused backward kernel, as the TPU's do — the
@@ -319,8 +327,8 @@ REPLACES.update({"flash_fwd_d512": REPLACES["flash_fwd"], "flash_bwd_d512": REPL
 # (K9) has a kernel of its own, flash_fwd_pipe_sm90.cu in bf16
 # (attention.pipe_forward_kernel; f32 on flash_fwd_pipe.cu). The head_dim 32
 # rows run the plain-design kernels; above 256 the bf16 forward at 384 and
-# 512 runs flash_fwd_cols_sm90.cu, K6 there flash_bwd_cols_sm90.cu, the rest
-# of the backward the column-group kernels. A
+# 512 runs flash_fwd_cols_sm90.cu, K6 there flash_bwd_cols_sm90.cu, K5
+# flash_bwd_dq_cols_sm90.cu, the fused backward the column-group kernel. A
 # main path's launches by source must be exactly what this map makes of its
 # launches by wrapper.
 SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
@@ -332,7 +340,8 @@ SOURCES = {"flash_fwd": "flash_fwd_sm90", "bhsd_fwd": "flash_fwd_sm90",
            "flash_bwd_d256": "flash_bwd_sm90", "flash_fwd_rope_d256_wide": "flash_fwd_sm90",
            "bshd_bwd_d256_wide": "flash_bwd_sm90", "flash_fwd_d32": "flash_fwd",
            "flash_bwd_d32": "flash_bwd", "flash_fwd_d512": "flash_fwd_cols_sm90",
-           "flash_bwd_d512": "flash_bwd_dstream", "bwd_dq_d512": "flash_bwd_dq_dstream",
+           "flash_bwd_d512": "flash_bwd_dstream", "bwd_dq_d512": "flash_bwd_dq_cols_sm90",
+           "bwd_dq_d384": "flash_bwd_dq_cols_sm90",
            "bwd_dkv_d512": "flash_bwd_cols_sm90", "bwd_dkv_d384": "flash_bwd_cols_sm90",
            "bshd_bwd_d320": "flash_bwd_dstream",
            "bwd_dq_d256": "flash_bwd_dq_sm90", "flash_fwd_d320": "flash_fwd_cols_sm90",
@@ -342,11 +351,13 @@ PLAIN_DESIGN = {"flash_fwd_sm90": "flash_fwd", "flash_bwd_sm90": "flash_bwd"}
 # Where every bf16 launch at head_dim 384 or 512 goes instead: the forward to
 # the warpgroup kernel flash_fwd_cols_sm90.cu, K6 (the wrapper bwd_dkv: a
 # wrapper's entry comes before its source's) to the warpgroup kernel
-# flash_bwd_cols_sm90.cu, the fused backward and K5 to the column-group
-# kernels. f32 above 256 runs the column-group kernels in both (DSTREAM_F32).
+# flash_bwd_cols_sm90.cu, K5 to the warpgroup kernel
+# flash_bwd_dq_cols_sm90.cu, the fused backward to the column-group kernel.
+# f32 above 256 runs the column-group kernels in all three (DSTREAM_F32).
 DSTREAM = {"flash_fwd_sm90": "flash_fwd_cols_sm90", "flash_bwd_sm90": "flash_bwd_dstream",
-           "flash_bwd_dq_sm90": "flash_bwd_dq_dstream", "bwd_dkv": "flash_bwd_cols_sm90"}
-DSTREAM_F32 = dict(DSTREAM, flash_fwd_sm90="flash_fwd_dstream", bwd_dkv="flash_bwd_dstream")
+           "flash_bwd_dq_sm90": "flash_bwd_dq_cols_sm90", "bwd_dkv": "flash_bwd_cols_sm90"}
+DSTREAM_F32 = dict(DSTREAM, flash_fwd_sm90="flash_fwd_dstream",
+                   flash_bwd_dq_sm90="flash_bwd_dq_dstream", bwd_dkv="flash_bwd_dstream")
 # Each main path: its trainer flags, its launches per layer per step (every
 # other counter must stay at 0) and the map of SOURCES' sources to those its
 # launches run instead (None: SOURCES as it stands). The long path's
@@ -629,12 +640,13 @@ def column_group_controls(case, q, k, v, out, ref_out):
 def column_half_control(case, dk, ref_dk, name="dk"):
     """The fault a column split can make: the second warpgroup's half of a
     gradient (``name``: dK of the fused backward, dq of K5; columns [64, 128)
-    and [192, 256) at head_dim 256) zeroed for one 64-row tile, the middle
-    one of head (0, 0), which the blockwise check must catch."""
+    and [192, 256) at head_dim 256, [D/2, D) for K5 at 384 and 512) zeroed
+    for one 64-row tile, the middle one of head (0, 0), which the blockwise
+    check must catch."""
     bad = dk.to(torch.float32, copy=True)
-    rows = slice(dk.shape[2] // 2, dk.shape[2] // 2 + BLOCK_ROWS)
-    bad[0, 0, rows, 64:128] = 0
-    bad[0, 0, rows, 192:256] = 0
+    rows, d = slice(dk.shape[2] // 2, dk.shape[2] // 2 + BLOCK_ROWS), dk.shape[3]
+    for cols in ((slice(64, 128), slice(192, 256)) if d == 256 else (slice(d // 2, d),)):
+        bad[0, 0, rows, cols] = 0
     _, rel = _err(bad, ref_dk)
     block = _block_err(bad, ref_dk)
     caught = block > BLOCK_TOL[dk.dtype]["dqkv"]
@@ -917,12 +929,10 @@ def phase_head_dims():
     # faults; the long family's cases below run it with GQA + window + rope
     # cross-length and with fully masked rows, and compare_long's controls
     # with its dropped tile and column half.
-    compare_k5("k5_d256_gemma_width_rope", gm["batch_size"], gm["seq_len"], gm["num_heads"],
-               gm["num_heads"], 256, rope=True, seed=85)
-    compare_k5("k5_d256_gemma_width_gqa_window", gm["batch_size"], gm["seq_len"], gm["num_heads"],
-               4, 256, window=1024, seed=86)
-    compare_k5("k5_d256_gemma_width_controls", gm["batch_size"], gm["seq_len"], gm["num_heads"],
-               gm["num_heads"], 256, seed=87, controls=True)
+    gb, gs, gh = gm["batch_size"], gm["seq_len"], gm["num_heads"]
+    compare_k5("k5_d256_gemma_width_rope", gb, gh, gh, gs, gs, 256, rope=True, seed=85)
+    compare_k5("k5_d256_gemma_width_gqa_window", gb, gh, 4, gs, gs, 256, window=1024, seed=86)
+    compare_k5("k5_d256_gemma_width_controls", gb, gh, gh, gs, gs, 256, seed=87, controls=True)
     compare_long("long_d256_controls", 1, 4, 1, 2048, 2048, 256, bf, seed=88, controls=True)
     torch.cuda.empty_cache()
 
@@ -970,25 +980,28 @@ def compare_two_pass(case, b, s, h, d, seed):
     return errs, (q, k, v, o4, lse, go, delta)
 
 
-def compare_k5(case, b, s, h, kv, d, window=None, rope=False, seed=0, controls=False):
+def compare_k5(case, b, h, kv, sq, skv, d, causal=True, window=None, rope=False,
+               q_pos_offset=None, seed=0, controls=False, masked=False):
     """K5 at head_dim ``d`` on BHSD bf16 operands (``h`` query heads on ``kv``
-    kv heads, causal, rope θ 10000 tables of ``s`` rows): K3's forward and
-    K6's delta first, then one K5 launch on the source
-    attention.backward_dq_kernel names, held against its plain version on
-    the kernel forward's results; rows that attend nothing give exact zeros.
-    With ``controls`` (no window, no rope) a dropped kv tile in dS·K and one
-    warpgroup's column half of dq must be caught. Returns dq's max abs
-    error."""
+    kv heads, rope θ 10000 tables of ``skv`` rows, q rows placed by
+    ``q_pos_offset``): K3's forward and K6's delta first, then one K5 launch
+    on the source attention.backward_dq_kernel names, held against its plain
+    version on the kernel forward's results; rows that attend nothing give
+    exact zeros (with ``masked`` the case must have some). With ``controls``
+    (Sq == Skv, no window, no rope) a dropped kv tile in dS·K (the kernel's
+    own: 64 keys, 32 for the warpgroup kernel above 256) and one
+    warpgroup's column half of dq (:func:`column_half_control`) must be
+    caught. Returns dq's max abs error."""
     from distributed_tensorflow_tpu_torch.ops.rope import rope_tables
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    make = lambda n: torch.randn(b, n, s, d, device="cuda", generator=gen).to(bf)
-    q, k, v, g = make(h), make(kv), make(kv), make(h)
+    make = lambda n, s: torch.randn(b, n, s, d, device="cuda", generator=gen).to(bf)
+    q, k, v, g = make(h, sq), make(kv, skv), make(kv, skv), make(h, sq)
     cos = sin = None
     if rope:
-        cos, sin = rope_tables(d, s, 10000.0, device="cuda")
-    args = (True, window, None, None, cos, sin)
+        cos, sin = rope_tables(d, skv, 10000.0, device="cuda")
+    args = (causal, window, None, q_pos_offset, cos, sin)
     out, lse = A.flash_forward_kernel(q, k, v, *args)
     _, _, delta = A.flash_backward_dkv_kernel(q, k, v, out, lse, g, *args)
     source = A.backward_dq_kernel(bf, A._instance_dim(d))
@@ -1001,12 +1014,15 @@ def compare_k5(case, b, s, h, kv, d, window=None, rope=False, seed=0, controls=F
     if not torch.isfinite(dq).all():
         fail(f"{case}: non-finite dq")
     ref_out, ref_lse = A.flash_forward_reference(q, k, v, *args)
-    _masked_rows(case, lse, ref_lse, dq)
+    if not _masked_rows(case, lse, ref_lse, dq).any() and masked:
+        fail(f"{case}: the case has no row that attends nothing")
     ref = A.flash_backward_reference(q, k, v, out, lse, g, *args)
     err = _check(case, "k5_dq", bf, dq, ref[0], "dqkv")
     if controls:
+        # the warpgroup kernel above 256 walks 32-key tiles
+        keys = slice(sq // 2, sq // 2 + 32) if d > 256 else None
         fault_controls(case, q, k, v, g, None, lse, (dq, None, None), ref_out, ref,
-                       products=("dq: dS.K",))
+                       products=("dq: dS.K",), keys=keys)
         column_half_control(case, dq, ref[0], "dq")
     return err
 
@@ -1145,7 +1161,9 @@ def phase_head_dims_above_256():
     and bf16 at 640, still on the column-group forward; and bf16 K6, which
     runs the warpgroup kernel flash_bwd_cols_sm90.cu at 384 and 512 (in the
     families above too), on its own cases (compare_k6) with its planted
-    faults. Every launch must run the source its dtype and head dim name.
+    faults, and bf16 K5, which runs the warpgroup kernel
+    flash_bwd_dq_cols_sm90.cu there, on its own (compare_k5). Every launch
+    must run the source its dtype and head dim name.
     Returns the errors of the rows: K2 at B 2, K1, K5 and K6 at the path's
     B 12."""
     errs = {}
@@ -1200,6 +1218,21 @@ def phase_head_dims_above_256():
                seed=114)
     compare_k6("k6_cols_d512_controls", 1, 4, 4, 1024, 1024, 512, seed=115, controls=True)
     compare_k6("k6_cols_d384_controls", 1, 4, 4, 1024, 1024, 384, seed=116, controls=True)
+    # K5 at 384 and 512 on the warpgroup kernel flash_bwd_dq_cols_sm90.cu
+    # where the families above leave it untried: GQA + window + rope from dh
+    # 320, rope at 512 on a cross-length q segment placed by q_pos_offset,
+    # rows that attend nothing (exact zeros), non-causal cross-length with
+    # GQA at 384, and its planted faults (a dropped 32-key tile in dS·K, one
+    # warpgroup's column half of dq) at 512 and 384.
+    compare_k5("k5_cols_d320_gqa_window_rope", 2, 8, 2, 300, 300, 320, window=100, rope=True,
+               seed=130)
+    compare_k5("k5_cols_d512_rope_cross_offset", 2, 4, 2, 136, 320, 512, rope=True,
+               q_pos_offset=100, seed=131)
+    compare_k5("k5_cols_d512_fully_masked_rows", 2, 4, 2, 200, 72, 512, seed=132, masked=True)
+    compare_k5("k5_cols_d384_noncausal_gqa_cross", 2, 8, 2, 200, 136, 384, causal=False,
+               seed=135)
+    compare_k5("k5_cols_d512_controls", 1, 4, 4, 1024, 1024, 512, seed=133, controls=True)
+    compare_k5("k5_cols_d384_controls", 1, 4, 4, 1024, 1024, 384, seed=134, controls=True)
     errs["flash_bwd_d512"] = compare("ds_packed_d512_call", 2, 2048, 4, 4, 512, bf,
                                      seed=101)["dqkv"]
     b, s, h = (D512[key] for key in ("batch_size", "seq_len", "num_heads"))
@@ -1340,7 +1373,8 @@ def compare_long(case, b, h, kv, sq, skv, d, dtype, causal=True, window=None, ro
                        products=("dq: dS.K",))
         fault_controls(f"{case} K6", qh, kh, vh, gh, None, lse, (None, dk6, dv6), ref_out, ref,
                        products=("dk: dS^T.Q", "dv: P^T.dO"))
-        if d == 256:  # K5's warpgroups split dq by columns at 256
+        if d == 256 or k5_source == "flash_bwd_dq_cols_sm90":
+            # K5 splits dq by columns at 256, and over its warpgroups at 384/512
             column_half_control(f"{case} K5", dq5, ref[0], "dq")
     return errs
 
@@ -1441,7 +1475,7 @@ def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
 def phase_d512(smi):
     """The trainer at the flagship's width over 4 heads of 512 (`d512`, 6
     steps): 8 K1 on the warpgroup forward flash_fwd_cols_sm90.cu, 8 K5 on
-    flash_bwd_dq_dstream.cu and 8 K6 on flash_bwd_cols_sm90.cu a step (at
+    flash_bwd_dq_cols_sm90.cu and 8 K6 on flash_bwd_cols_sm90.cu a step (at
     head_dim 512 the gate leaves the fused backward for the two-pass pair),
     and no other launch, and a falling loss. Returns the path's launches."""
     launches, records = phase_main(smi, "d512")
@@ -1760,7 +1794,8 @@ TURNS = {"flash_fwd_sm90": ("forward", "flash_fwd"), "flash_bwd_sm90": ("backwar
          "flash_bwd_dq_sm90": ("backward_dq", "flash_bwd_dq"),
          "flash_fwd_pipe_sm90": ("pipe_forward", "flash_fwd_pipe"),
          "flash_fwd_cols_sm90": ("forward", "flash_fwd_dstream"),
-         "flash_bwd_cols_sm90": ("backward", "flash_bwd_dstream")}
+         "flash_bwd_cols_sm90": ("backward", "flash_bwd_dstream"),
+         "flash_bwd_dq_cols_sm90": ("backward_dq", "flash_bwd_dq_dstream")}
 
 
 def _turns(name, run, notes, phase="turns"):
@@ -2201,9 +2236,9 @@ def phase_timing_long(launches, errs, notes):
 def _device_ms(fn, n=20):
     """One call of ``fn`` as torch.profiler sees it over ``n`` calls: the
     summed device time of its kernels (memsets and copies included) per
-    call, in ms, and the kernels' names. Unlike cuda_ms's events, which time
-    the calls back to back, this leaves out the host's dispatch between
-    them."""
+    call, in ms, and each kernel's device ms per call, by name. Unlike
+    cuda_ms's events, which time the calls back to back, this leaves out the
+    host's dispatch between them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2215,8 +2250,20 @@ def _device_ms(fn, n=20):
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         fail("profiler: no device events")
-    busy = sum(e.time_range.end - e.time_range.start for e in events)
-    return busy / 1e3 / n, sorted({e.name for e in events})
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    return (sum(by_name.values()) / 1e3 / n,
+            {name: by_name[name] / 1e3 / n for name in sorted(by_name)})
+
+
+def _profile_row(name, run, notes, n=20):
+    """A call of timing row ``name`` by the profiler (:func:`_device_ms`):
+    its device ms and each kernel's (the main kernel and its passes), into
+    its notes."""
+    ms, kernels = _device_ms(run, n)
+    emit(phase="timing_device", kernel=name, profiler_device_ms=ms, kernels=kernels)
+    notes.setdefault(name, {}).update(profiler_device_ms=ms, profiler_kernels=kernels)
 
 
 def d32_device_times(notes):
@@ -2231,9 +2278,7 @@ def d32_device_times(notes):
     for name, fn in (("flash_fwd_d32", lambda: A.flash_forward_qkv_kernel(qkv, *args, None)),
                      ("flash_bwd_d32", lambda: A.flash_backward_qkv_kernel(qkv, out, lse, g,
                                                                            *args, None))):
-        ms, kernels = _device_ms(fn)
-        emit(phase="timing_device", kernel=name, profiler_device_ms=ms, kernels=kernels)
-        notes.setdefault(name, {}).update(profiler_device_ms=ms, profiler_kernels=kernels)
+        _profile_row(name, fn, notes)
 
 
 DISPATCH_CALLS = 1000
@@ -2406,7 +2451,9 @@ def phase_timing_dstream(launches, errs, notes):
     flash_fwd_cols_sm90.cu, against flash_fwd_dstream.cu in turns) and K2
     (packed qkv, B 2, S 2048, 4 heads of 512, bf16, causal: phase 3's
     ds_packed_d512_call inputs), K5 and K6 on the same call's head views —
-    K8 at head_dim 320 (padded to 384) on the last of its two q segments
+    K5 on flash_bwd_dq_cols_sm90.cu and K6 on flash_bwd_cols_sm90.cu
+    against the column-group kernels in turns, and both again at head_dim
+    384; K8 at head_dim 320 (padded to 384) on the last of its two q segments
     (1024 rows against 2048 keys), K1 at head_dim 320 (time_k1_d320); then
     K5 at head_dim 256 (Gemma 7B's width, on flash_bwd_dq_sm90.cu, against
     flash_bwd_dq.cu in turns). Each beside its plain version, its bound (the
@@ -2459,30 +2506,41 @@ def phase_timing_dstream(launches, errs, notes):
     }
     shape = dict(B=b, S=s, H=h, KV=h, D=d, dtype="bf16", causal=True,
                  layout="packed qkv head views")
-    # K6 on flash_bwd_cols_sm90.cu against flash_bwd_dstream.cu, in turns.
+    # K6 on flash_bwd_cols_sm90.cu against flash_bwd_dstream.cu and K5 on
+    # flash_bwd_dq_cols_sm90.cu against flash_bwd_dq_dstream.cu, in turns.
     _turns("bwd_dkv_d512", runs["bwd_dkv_d512"][1], notes)
+    _turns("bwd_dq_d512", runs["bwd_dq_d512"][1], notes)
+    _profile_row("bwd_dq_d512", runs["bwd_dq_d512"][1], notes)
     kernels += _time_kernels(runs, launches, errs, peak, bw, shape, notes)
     del q, k, v, go, lse, o4, delta, lib
     torch.cuda.empty_cache()
-    # K6 at head_dim 384, the same call otherwise: held against its plain
-    # version, then timed in turns and beside its bound and SDPA's backward.
+    # K6 and K5 at head_dim 384, the same call otherwise: held against their
+    # plain versions, then timed in turns and beside their bounds and SDPA's
+    # backward.
     d = 384
-    errs384, (q, k, v, o4, lse, go, _) = compare_two_pass("ds_packed_d384_call two-pass", b, s,
-                                                          h, d, seed=117)
-    errs["bwd_dkv_d384"] = errs384["dkv"]
+    errs384, (q, k, v, o4, lse, go, delta) = compare_two_pass("ds_packed_d384_call two-pass", b,
+                                                              s, h, d, seed=117)
+    errs["bwd_dkv_d384"], errs["bwd_dq_d384"] = errs384["dkv"], errs384["dq"]
     lib = _sdpa(q, k, v, go)
-    notes.setdefault("bwd_dkv_d384", {}).update(
-        library_call="SDPA backward alone (all three gradients)",
-        library_kernels=_device_ms(lib[2], 3)[1])
+    bwd_kernels = _device_ms(lib[2], 3)[1]
+    for name in ("bwd_dq_d384", "bwd_dkv_d384"):
+        notes.setdefault(name, {}).update(library_call="SDPA backward alone (all three gradients)",
+                                          library_kernels=bwd_kernels)
     fwd_flops = 4 * b * h * d * (s * (s + 1) // 2)
     qb = q.numel() * q.element_size()
-    runs = {"bwd_dkv_d384": ((fwd_flops * 2, 7 * qb + 2 * sb),
+    runs = {"bwd_dq_d384": ((fwd_flops * 3 // 2, 5 * qb + 2 * sb),
+                            lambda: A.flash_backward_dq_kernel(q, k, v, lse, go, delta, True),
+                            lambda: A.flash_backward_dq_reference(q, k, v, o4, lse, go, True),
+                            lib[2], None),
+            "bwd_dkv_d384": ((fwd_flops * 2, 7 * qb + 2 * sb),
                              lambda: A.flash_backward_dkv_kernel(q, k, v, o4, lse, go, True),
                              lambda: A.flash_backward_dkv_reference(q, k, v, o4, lse, go, True),
                              lib[2], None)}
-    _turns("bwd_dkv_d384", runs["bwd_dkv_d384"][1], notes)
+    for name in runs:
+        _turns(name, runs[name][1], notes)
+    _profile_row("bwd_dq_d384", runs["bwd_dq_d384"][1], notes)
     kernels += _time_kernels(runs, launches, errs, peak, bw, dict(shape, D=d), notes)
-    del q, k, v, go, lse, o4, lib
+    del q, k, v, go, lse, o4, delta, lib
     torch.cuda.empty_cache()
 
     # K8 at head_dim 320 (padded to 384 in the launch) on its last q segment.
@@ -2902,12 +2960,13 @@ def _time_kernels(runs, launches, errs, peak, bw, shape, notes=None):
 # dtt::flash_bwd_sm90_kernel (wide: dtt::flash_bwd_sm90_cols_kernel). The
 # d512 step runs attn_fwd as K1 on dtt::flash_fwd_cols_sm90_kernel (its
 # prepare pass, dtt::dstream_prep_kernel, under other), attn_bwd_dq K5 on
-# dtt::flash_bwd_dq_dstream_kernel and attn_bwd K6 (and its delta pre-pass
-# and dk rotate-back) on dtt::flash_bwd_cols_sm90_kernel.
+# dtt::flash_bwd_dq_cols_sm90_kernel (its prepare pass under other, its dq
+# rotate-back under attn_bwd) and attn_bwd K6 (and its delta pre-pass and
+# dk rotate-back) on dtt::flash_bwd_cols_sm90_kernel.
 KERNEL_CLASSES = (
     ("attn_fwd", ("dtt::flash_fwd",)),
     ("attn_bwd_dq", ("dtt::two_pass_dq", "dtt::flash_bwd_dq_sm90",
-                     "dtt::flash_bwd_dq_dstream")),  # K5
+                     "dtt::flash_bwd_dq_dstream", "dtt::flash_bwd_dq_cols_sm90")),  # K5
     ("attn_bwd", ("dtt::flash_bwd",)),  # delta pre-pass, main kernel, dq pass
     ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
     ("layer_norm", ("layer_norm",)),
@@ -3038,6 +3097,8 @@ def main():
                         ("bwd_dq_d256", "K5 at head_dim 256: the two-pass route only"),
                         ("bwd_dkv_d384", "K6 at head_dim 384: the two-pass route only, where "
                                          "the gate finds no q segmentation"),
+                        ("bwd_dq_d384", "K5 at head_dim 384: the two-pass route only, where "
+                                        "the gate finds no q segmentation"),
                         ("flash_fwd_d320", "K1 at head_dim 320 (padded to 384): the trainer "
                                            "at --d_model 1280 --num_heads 4")):
         launches[name] = 0

@@ -4,7 +4,7 @@
 //
 // Replaces: distributed_tensorflow_tpu/ops/attention.py:_flash_bwd_dkv_kernel
 // (:592, launched at :1140 by _flash_backward: K6, the dk/dv half of the
-// two-pass pair, whose dq half is flash_bwd_dq_dstream.cu) wherever the call
+// two-pass pair, whose dq half is flash_bwd_dq_cols_sm90.cu) wherever the call
 // is bf16 at head_dim 384 or 512 (the wrapper pads 257-383 to 384 and
 // 385-511 to 512). The fused backward above 256 (K2/K4/K8, dq wanted), f32,
 // and bf16 above 512 stay on the column-group kernel flash_bwd_dstream.cu,
@@ -73,27 +73,6 @@ constexpr size_t bc90_smem_bytes() {
          sizeof(float) * (BC90_BKV * BC90_BQ + 4 * BC90_BQ) + 1024;
 }
 static_assert(bc90_smem_bytes<512>() <= 232448, "a block's shared memory");
-
-// Columns [c0, c0 + W) of rows [row0, +R) of a (S, D) bf16 source whose rows
-// lie `ld` elements apart, by 16-byte cp.async into a swizzled sw<R> tile
-// (absolute columns); rows past S are zeros. THREADS threads starting at
-// thread `tid`.
-template <int R, int W, int THREADS>
-__device__ __forceinline__ void sw_issue_cols(bf16* dst, const bf16* src, long long ld, int row0,
-                                              int S, int c0, int tid) {
-  constexpr int CPR = W / 8, N = R * CPR;
-  static_assert(N % THREADS == 0, "whole rounds of copies");
-#pragma unroll
-  for (int it = 0; it < N / THREADS; ++it) {
-    const int idx = it * THREADS + tid, r = idx / CPR, c = c0 + (idx % CPR) * 8;
-    bf16* d = dst + sw<R>(r, c);
-    if (row0 + r < S) {
-      cp_async16(d, src + (long long)(row0 + r) * ld + c);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
@@ -359,7 +338,7 @@ int launch_bwd_cols90(const void* q, const void* k, const void* v, const void* o
 // pair's dk/dv half (dq null) in bf16 at head_dim 384 or 512: q_s (B, H, Sq,
 // D) receives q rotated and scale-folded, k_rot (B, KV, Skv, D), with
 // tables, k rotated (null without), dk_acc (B, KV, Skv, D) f32 the dk sum
-// before its rotate-back; delta is left for flash_bwd_dq_dstream.cu (K5).
+// before its rotate-back; delta is left for K5 (flash_bwd_dq_cols_sm90.cu).
 // Any other call (dq wanted, f32, another head dim) returns
 // cudaErrorInvalidValue. Returns a cudaError_t.
 extern "C" int dtt_flash_bwd_cols_sm90(const void* q, const void* k, const void* v,

@@ -3,7 +3,9 @@
 // flash_bwd_dq_dstream.cu), which take the head dim D at run time (a
 // multiple of 128): the chunk loader, the prepare pass that gives the kernels
 // q rotated and scale-folded (and k rotated) once a call, and the launch
-// helpers of those passes.
+// helpers of those passes. The warpgroup kernels at 384 and 512
+// (flash_fwd_cols_sm90.cu, flash_bwd_cols_sm90.cu,
+// flash_bwd_dq_cols_sm90.cu) take the same passes.
 //
 // Why a pass: the split-half rope pairs column i with i + D/2, which lie in
 // two different 128-column groups, so no block of these kernels holds both

@@ -1,8 +1,10 @@
 // Pieces shared by the warpgroup (wgmma) kernels for Hopper
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_dq_sm90.cu,
-// flash_fwd_pipe_sm90.cu, flash_fwd_cols_sm90.cu): the 128-byte-swizzled
-// shared tile layout, its row-tile loader with the split-half rope rotation
-// and q-scale fold, wgmma's shared-memory descriptors, fences and waits, the
+// flash_fwd_pipe_sm90.cu, flash_fwd_cols_sm90.cu, flash_bwd_cols_sm90.cu,
+// flash_bwd_dq_cols_sm90.cu): the 128-byte-swizzled shared tile layout, its
+// row-tile loader with the split-half rope rotation and q-scale fold, a
+// loader of a column range of a row tile (sw_issue_cols), wgmma's
+// shared-memory descriptors, fences and waits, the
 // m64n64k16 bf16 products with both operands in shared memory (mma_ss; also
 // m64n32k16 for 32-key tiles) or A from registers (mma_rs), exp2 on the
 // special-function unit, bf16 packing, and the pass that rotates k once a
@@ -96,6 +98,27 @@ __device__ __forceinline__ void sw_finish(bf16* dst, int row0, int S, const floa
     }
     *reinterpret_cast<uint4*>(d1) = *reinterpret_cast<uint4*>(x1);
     *reinterpret_cast<uint4*>(d2) = *reinterpret_cast<uint4*>(x2);
+  }
+}
+
+// Columns [c0, c0 + W) of rows [row0, +R) of a (S, D) bf16 source whose rows
+// lie `ld` elements apart, by 16-byte cp.async into a swizzled sw<R> tile
+// (absolute columns); rows past S are zeros. THREADS threads starting at
+// thread `tid`.
+template <int R, int W, int THREADS>
+__device__ __forceinline__ void sw_issue_cols(bf16* dst, const bf16* src, long long ld, int row0,
+                                              int S, int c0, int tid) {
+  constexpr int CPR = W / 8, N = R * CPR;
+  static_assert(N % THREADS == 0, "whole rounds of copies");
+#pragma unroll
+  for (int it = 0; it < N / THREADS; ++it) {
+    const int idx = it * THREADS + tid, r = idx / CPR, c = c0 + (idx % CPR) * 8;
+    bf16* d = dst + sw<R>(r, c);
+    if (row0 + r < S) {
+      cp_async16(d, src + (long long)(row0 + r) * ld + c);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
   }
 }
 

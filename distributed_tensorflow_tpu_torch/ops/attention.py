@@ -55,8 +55,10 @@ spans two column groups — except the bf16 forward at 384 and 512, which
 (two warpgroups a block split q·kᵀ's contraction and out's columns, so the
 scores are computed once), and bf16 K6 at 384 and 512, which
 ``flash_bwd_cols_sm90.cu`` runs as a warpgroup kernel (two blocks a kv
-tile, each computing the scores once for half of dK's and dV's columns).
-Each has a plain PyTorch version
+tile, each computing the scores once for half of dK's and dV's columns),
+and bf16 K5 at 384 and 512, which ``flash_bwd_dq_cols_sm90.cu`` runs as a
+warpgroup kernel (a block a q tile computes the scores once, and its two
+warpgroups split dq's columns). Each has a plain PyTorch version
 (``*_reference``). The kernels are compiled for head_dim 32, 64, 128 and
 256 (the pipelining kernels for 64, 128 and 256); any other head_dim up to
 256 runs zero-padded to the next of those, and one above 256 to the next
@@ -101,13 +103,13 @@ KERNEL_LAUNCHES = {
 # (:func:`backward_dq_kernel`), K9's flash_fwd_pipe or flash_fwd_pipe_sm90
 # (:func:`pipe_forward_kernel`; above head_dim 256 the forward's source);
 # above head_dim 256 each direction runs its column-group source
-# (*_dstream), except the bf16 forward and bf16 K6 at 384 and 512
-# (flash_fwd_cols_sm90, flash_bwd_cols_sm90).
+# (*_dstream), except the bf16 forward, K6 and K5 at 384 and 512
+# (flash_fwd_cols_sm90, flash_bwd_cols_sm90, flash_bwd_dq_cols_sm90).
 SOURCE_LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_sm90": 0, "flash_bwd": 0, "flash_bwd_sm90": 0,
     "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_fwd_pipe": 0, "flash_fwd_pipe_sm90": 0,
     "flash_fwd_dstream": 0, "flash_bwd_dstream": 0, "flash_bwd_dq_dstream": 0,
-    "flash_fwd_cols_sm90": 0, "flash_bwd_cols_sm90": 0,
+    "flash_fwd_cols_sm90": 0, "flash_bwd_cols_sm90": 0, "flash_bwd_dq_cols_sm90": 0,
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -541,11 +543,11 @@ _SOURCE_ARGTYPES = {
     "flash_bwd": _BWD_ARGTYPES, "flash_bwd_sm90": _BWD_ARGTYPES,
     "flash_bwd_dstream": _BWD_DS_ARGTYPES, "flash_bwd_cols_sm90": _BWD_DS_ARGTYPES,
     "flash_bwd_dq": _BWD_DQ_ARGTYPES, "flash_bwd_dq_sm90": _BWD_DQ90_ARGTYPES,
-    "flash_bwd_dq_dstream": _BWD_DQ_DS_ARGTYPES,
+    "flash_bwd_dq_dstream": _BWD_DQ_DS_ARGTYPES, "flash_bwd_dq_cols_sm90": _BWD_DQ_DS_ARGTYPES,
 }
 # The sources that take the column-group prepare pass's scratches.
 _PREP_SOURCES = ("flash_fwd_dstream", "flash_fwd_cols_sm90", "flash_bwd_dstream",
-                 "flash_bwd_cols_sm90", "flash_bwd_dq_dstream")
+                 "flash_bwd_cols_sm90", "flash_bwd_dq_dstream", "flash_bwd_dq_cols_sm90")
 
 _FNS: dict = {}
 
@@ -862,13 +864,19 @@ def _launch_backward(counter, q, k, v, out, g, lse, dq, dk, dv, causal, window,
 
 
 def backward_dq_kernel(dtype: torch.dtype, d: int) -> str:
-    """The source of the two-pass dq kernel (K5) that runs a call: head_dim
-    above 256 goes to the column-group kernel ``csrc/flash_bwd_dq_dstream.cu``
-    in either dtype; bf16 at head_dim 64, 128 or 256 to the warpgroup (wgmma)
-    kernel ``csrc/flash_bwd_dq_sm90.cu`` (at 256 two warpgroups a block, S
-    in one and dP in the other, dq split by columns); f32 and head_dim 32
-    stay on ``csrc/flash_bwd_dq.cu``. ``d`` is the instance the call runs at
-    (after padding)."""
+    """The source of the two-pass dq kernel (K5) that runs a call: bf16 at
+    head_dim 384 or 512 goes to the warpgroup (wgmma) kernel
+    ``csrc/flash_bwd_dq_cols_sm90.cu`` (a block a 64-row q tile, S in one
+    warpgroup and dP in the other, computed once for all of dq's columns,
+    which the two split); any other call above head_dim 256 to the
+    column-group kernel ``csrc/flash_bwd_dq_dstream.cu`` in either dtype;
+    bf16 at head_dim 64, 128 or 256 to the warpgroup kernel
+    ``csrc/flash_bwd_dq_sm90.cu`` (at 256 two warpgroups a block, S in one
+    and dP in the other, dq split by columns); f32 and head_dim 32 stay on
+    ``csrc/flash_bwd_dq.cu``. ``d`` is the instance the call runs at (after
+    padding)."""
+    if dtype == torch.bfloat16 and d in _COLS90_HEAD_DIMS:
+        return "flash_bwd_dq_cols_sm90"
     if d > _KERNEL_HEAD_DIMS[-1]:
         return "flash_bwd_dq_dstream"
     if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:

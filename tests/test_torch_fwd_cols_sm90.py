@@ -47,11 +47,13 @@ def test_warpgroup_forward_above_256_source_is_built():
 def test_forward_above_256_dispatch_at_the_instance(dh, dtype, want):
     """Head dims 257-384 run the instance 384 and 385-512 the instance 512,
     in bf16 on the warpgroup kernel; bf16 above 512 and f32 above 256 stay
-    on the column-group forward; the backward stays column-group."""
+    on the column-group forward; the fused backward stays column-group, and
+    K5 goes with the forward (bf16 at 384/512 on its warpgroup kernel)."""
     dp = TA._instance_dim(dh)
     assert TA.forward_kernel(dtype, dp) == want
     assert TA.backward_kernel(dtype, dp, True) == "flash_bwd_dstream"
-    assert TA.backward_dq_kernel(dtype, dp) == "flash_bwd_dq_dstream"
+    k5 = "flash_bwd_dq_cols_sm90" if want == "flash_fwd_cols_sm90" else "flash_bwd_dq_dstream"
+    assert TA.backward_dq_kernel(dtype, dp) == k5
 
 
 def _tables(s, half, seed):

@@ -158,14 +158,15 @@ def test_backward_kernel_dispatch(case):
     ((torch.bfloat16, 32), "flash_bwd_dq"),
     ((torch.bfloat16, 256), "flash_bwd_dq_sm90"),
     ((torch.float32, 256), "flash_bwd_dq"),
-    ((torch.bfloat16, 384), "flash_bwd_dq_dstream"),
-    ((torch.bfloat16, 512), "flash_bwd_dq_dstream"),
+    ((torch.bfloat16, 384), "flash_bwd_dq_cols_sm90"),
+    ((torch.bfloat16, 512), "flash_bwd_dq_cols_sm90"),
     ((torch.float32, 384), "flash_bwd_dq_dstream"),
     ((torch.float32, 512), "flash_bwd_dq_dstream"),
 ])
 def test_backward_dq_kernel_dispatch(case):
     """K5: bf16 at 64/128/256 on the warpgroup kernel; f32 and 32 on the
-    plain-design one; above 256 on the column-group kernel in both dtypes."""
+    plain-design one; bf16 at 384/512 on the warpgroup kernel above 256, f32
+    above 256 on the column-group kernel."""
     args, want = case
     assert TA.backward_dq_kernel(*args) == want
 
