@@ -129,6 +129,20 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  8 K5 and 8 K6 launches a step (the gate's two-pass route at
                  head_dim 512), on flash_fwd_cols_sm90.cu,
                  flash_bwd_dq_cols_sm90.cu and flash_bwd_cols_sm90.cu;
+     train_dir — checkpoints, resume, export and eval at the flagship's
+                 full width, byte-level on a file of the repo's own text:
+                 run A trains 8 steps with --train_dir (only the forced
+                 final save fires) and commits step 8; run B, the same
+                 command to step 12 with --output, restores step 8, makes
+                 exactly 4 steps x 8 layers of K1 and K2 launches on
+                 flash_fwd_sm90.cu and flash_bwd_sm90.cu, commits step 12
+                 and writes the bundle; run C trains 12 steps straight, its
+                 loss within 1e-2 of B's; a flagship model and its fused
+                 Adam saved through CheckpointManager and restored into
+                 fresh objects bitwise (parameters, moments, step, the
+                 schedule's count), with the save, restore and export
+                 seconds and bytes; cli/eval_lm.py on the bundle on the card
+                 and on the CPU (two holdout windows, nll within 2e-2);
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
@@ -218,6 +232,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3042,6 +3057,219 @@ def phase_profile(path):
     torch.cuda.empty_cache()
 
 
+# phase_train_dir: the flagship (batch 12, seq 2048) trained byte-level on a
+# file of the repo's own text, checkpointed (run A, 8 steps), resumed and
+# exported (run B, to step 12), against an uninterrupted run (C).
+TRAIN_DIR_STEPS, TRAIN_DIR_RESUMED = 8, 12
+TRAIN_DIR_TOL = 1e-2  # B's step-12 loss against C's, relative (dq's atomics)
+EVAL_TOL = 2e-2  # eval_lm's nll on the card (bf16) against the CPU's (f32), relative
+
+
+def _repo_text(path):
+    """The repo's Markdown and the port's Python sources, concatenated in
+    name order, as one byte file at ``path``; returns its size."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(f for f in os.listdir(root) if f.endswith(".md"))
+    pkg = os.path.join(root, "distributed_tensorflow_tpu_torch")
+    for d, _, names in sorted(os.walk(pkg)):
+        files += sorted(os.path.relpath(os.path.join(d, n), root) for n in names
+                        if n.endswith(".py"))
+    with open(path, "wb") as out:
+        for f in files:
+            with open(os.path.join(root, f), "rb") as fh:
+                out.write(fh.read())
+    return os.path.getsize(path)
+
+
+def _run_cli(module, argv):
+    """``module.main(argv)`` with stdout captured: (return value, JSON
+    records, other lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = module.main(argv)
+    lines = buf.getvalue().splitlines()
+    return (ret, [json.loads(x) for x in lines if x.startswith("{")],
+            [x for x in lines if not x.startswith("{")])
+
+
+def _manager_round_trip(smi, work, tokens):
+    """A flagship model and its fused Adam, one step in, saved through
+    CheckpointManager and restored into fresh objects: every parameter,
+    every moment, ``step`` and the schedule's count bitwise equal. Then the
+    restored model exported as a bundle. Returns the timings."""
+    from distributed_tensorflow_tpu_torch.models.convert import transformer_params_to_jax
+    from distributed_tensorflow_tpu_torch.models.transformer import TransformerLM
+    from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_train_step
+    from distributed_tensorflow_tpu_torch.train import checkpoint as ck
+    from distributed_tensorflow_tpu_torch.train.optimizers import make_optimizer
+
+    def build(seed):
+        model = TransformerLM(_cfg(), seed=seed, device="cuda")
+        return model, make_optimizer("adam", model.parameters(), 3e-3, total_steps=10)
+
+    model, opt = build(0)
+    build_lm_train_step(model, opt)(tokens)
+    torch.cuda.synchronize()
+    mngr = ck.CheckpointManager(os.path.join(work, "manager"), save_interval_secs=0)
+    mngr.save(1, ck.train_state(model, opt, 1))
+    fresh, fresh_opt = build(1)
+    step, tree = mngr.restore_latest()
+    t0 = time.perf_counter()
+    global_step = ck.restore_train_state(step, tree, fresh, fresh_opt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del tree
+    if (step, global_step, fresh_opt.scheduler.last_epoch) != (1, 1, opt.scheduler.last_epoch):
+        fail(f"train_dir: restored step {step}, global step {global_step}, schedule count "
+             f"{fresh_opt.scheduler.last_epoch} (saved 1, 1, {opt.scheduler.last_epoch})")
+    moments = 0
+    for (name, p), q in zip(model.named_parameters(), fresh.parameters()):
+        if not torch.equal(p, q):
+            fail(f"train_dir: parameter {name} differs after the round trip")
+        saved, got = opt.optimizer.state[p], fresh_opt.optimizer.state[q]
+        if sorted(saved) != sorted(got) or not all(torch.equal(saved[k], got[k]) for k in saved):
+            fail(f"train_dir: optimizer state of {name} differs after the round trip")
+        moments += len(saved)
+    if fresh_opt.optimizer.param_groups[0]["lr"] != opt.optimizer.param_groups[0]["lr"]:
+        fail("train_dir: the restored learning rate differs")
+    bundle = os.path.join(work, "manager.msgpack")
+    t0 = time.perf_counter()
+    bundle_bytes = ck.export_inference_bundle(bundle, transformer_params_to_jax(fresh))
+    export_s = time.perf_counter() - t0
+    out = dict(save_s=round(mngr.last_save_seconds, 3), save_bytes=mngr.last_save_bytes,
+               restore_read_s=round(mngr.last_restore_seconds, 3), restore_load_s=round(load_s, 3),
+               stall_s=round(mngr.stall_seconds, 3), export_s=round(export_s, 3),
+               bundle_bytes=bundle_bytes, state_entries_checked=moments, card=smi)
+    emit(phase="train_dir", check="manager_round_trip_bitwise", **out)
+    del model, opt, fresh, fresh_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_dir(smi):
+    """Checkpoints, resume and export on the card, through the trainer's
+    flags, at the flagship's full width with --text_file: run A trains 8
+    steps with --train_dir (only the forced final save fires); run B, the
+    same command to step 12 with --output, restores step 8 and launches
+    exactly 4 steps x 8 layers of K1 and K2 on the warpgroup kernels, then
+    commits step 12 and writes the bundle; run C trains 12 steps straight,
+    its loss within TRAIN_DIR_TOL of B's. Then the manager's round trip
+    (bitwise) with its save, restore and export timings, and
+    cli/eval_lm.py on the bundle on the card and on the CPU (two holdout
+    windows each, nll within EVAL_TOL). Removes what it wrote."""
+    from distributed_tensorflow_tpu_torch.cli import eval_lm, train_lm
+    from distributed_tensorflow_tpu_torch.train.checkpoint import list_committed_steps
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".scratch", "chip_smoke_train_dir")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        text, d, bundle = (os.path.join(work, n) for n in ("text.bin", "train", "lm.msgpack"))
+        size = _repo_text(text)
+        shape = FLAGSHIP
+        argv = [
+            "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
+            "--num_layers", str(shape["num_layers"]), "--d_ff", str(shape["d_ff"]),
+            "--seq_len", str(shape["seq_len"]), "--batch_size", str(shape["batch_size"]),
+            "--use_bias", "0", "--attention", "flash", "--device", "cuda",
+            "--text_file", text, "--eval_step_interval", "4",
+        ]
+        ckpt = ["--train_dir", d, "--save_secs", "1000000"]
+        _zero_counts()
+        t0 = time.perf_counter()
+        _, rec_a, _ = _run_cli(train_lm, [*argv, *ckpt, "--training_steps",
+                                          str(TRAIN_DIR_STEPS)])
+        wall_a = time.perf_counter() - t0
+        if list_committed_steps(d) != [TRAIN_DIR_STEPS]:
+            fail(f"train_dir: run A committed {list_committed_steps(d)}, expected "
+                 f"[{TRAIN_DIR_STEPS}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        loss_b, rec_b, lines_b = _run_cli(train_lm, [
+            *argv, *ckpt, "--training_steps", str(TRAIN_DIR_RESUMED), "--output", bundle])
+        wall_b = time.perf_counter() - t0
+        launches, sources = dict(A.KERNEL_LAUNCHES), dict(A.SOURCE_LAUNCHES)
+        n = (TRAIN_DIR_RESUMED - TRAIN_DIR_STEPS) * shape["num_layers"]
+        want = {k: n if k in ("flash_fwd", "flash_bwd") else 0 for k in A.KERNEL_LAUNCHES}
+        want_sources = expected_sources(want)
+        emit(phase="train_dir", run="B", records=rec_b, lines=lines_b, launches=launches,
+             expected=want, source_launches=sources, expected_sources=want_sources)
+        if lines_b != [f"restored checkpoint at step {TRAIN_DIR_STEPS} from {d}",
+                       f"exported {bundle}"]:
+            fail(f"train_dir: run B printed {lines_b}")
+        if [r["step"] for r in rec_b] != [TRAIN_DIR_RESUMED]:
+            fail(f"train_dir: run B's records {rec_b}")
+        if launches != want or sources != want_sources:
+            fail(f"train_dir: run B launched {launches} by source {sources}, expected {want} "
+                 f"by source {want_sources}")
+        if list_committed_steps(d) != [TRAIN_DIR_STEPS, TRAIN_DIR_RESUMED]:
+            fail(f"train_dir: run B left committed steps {list_committed_steps(d)}")
+        if not os.path.getsize(bundle) > 0:
+            fail("train_dir: no bundle")
+        train_dir_bytes = sum(os.path.getsize(os.path.join(p, f))
+                              for p, _, fs in os.walk(os.path.join(d, str(TRAIN_DIR_RESUMED)))
+                              for f in fs)
+        shutil.rmtree(d)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _zero_counts()
+        loss_c, rec_c, _ = _run_cli(train_lm, [*argv, "--training_steps",
+                                               str(TRAIN_DIR_RESUMED)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = abs(loss_b - loss_c) / abs(loss_c)
+        emit(phase="train_dir", run="A", records=rec_a, wall_s=round(wall_a, 2))
+        emit(phase="train_dir", check="resume_vs_uninterrupted", loss_resumed=loss_b,
+             loss_uninterrupted=loss_c, rel=rel, tol=TRAIN_DIR_TOL, wall_b_s=round(wall_b, 2),
+             step_dir_bytes=train_dir_bytes, text_bytes=size, card=smi)
+        if not rel <= TRAIN_DIR_TOL:
+            fail(f"train_dir: resumed loss {loss_b} against uninterrupted {loss_c}")
+
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        tokens = torch.randint(0, 256, (shape["batch_size"], shape["seq_len"]), device="cuda",
+                               generator=gen)
+        timings = _manager_round_trip(smi, work, tokens)
+        _zero_counts()
+
+        # Two holdout windows: the tail that int(size * (1 - f)) leaves is
+        # between 2 and 3 windows long.
+        seq = shape["seq_len"]
+        fraction = (2.5 * seq) / size
+        tail = size - int(size * (1 - fraction))
+        if not 2 * seq <= tail < 3 * seq:
+            fail(f"train_dir: holdout of {tail} bytes is not two windows")
+        evals = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            _, (rec,), _ = _run_cli(eval_lm, ["--model", bundle, "--text_file", text,
+                                             "--holdout_fraction", repr(fraction),
+                                             "--batch_size", "1", "--device", device])
+            evals[device] = rec
+            emit(phase="train_dir", eval_device=device, wall_s=round(time.perf_counter() - t0, 2),
+                 **rec)
+            if rec["tokens_scored"] != 2 * (seq - 1):
+                fail(f"train_dir: eval_lm on {device} scored {rec['tokens_scored']} tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        card, cpu = evals["cuda"]["nll_per_byte"], evals["cpu"]["nll_per_byte"]
+        rel = abs(card - cpu) / abs(cpu)
+        emit(phase="train_dir", check="eval_card_vs_cpu", nll_card=card, nll_cpu=cpu, rel=rel,
+             tol=EVAL_TOL, card=smi)
+        if not rel <= EVAL_TOL:
+            fail(f"train_dir: eval_lm's nll on the card {card} against the CPU's {cpu}")
+        emit(phase="train_dir", **timings,
+             save_stall_share_of_600s=round(timings["save_s"] / 600, 5))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _zero_counts()
+
+
 def main():
     smi = phase_card()
     phase_build()
@@ -3054,6 +3282,7 @@ def main():
     by_path["wide"] = phase_wide(smi)
     cli_runs = phase_cli_head_dims()
     d512 = phase_d512(smi)
+    phase_train_dir(smi)
     # A kernel's launches are those of the first path of by_path it serves
     # (`d512`'s launches run the column-group sources and go to their own
     # rows); the record lists every path's, and the routes phase's for the

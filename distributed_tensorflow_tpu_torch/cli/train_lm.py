@@ -27,6 +27,20 @@ from ``np.random.default_rng(seed)``. One JSON record per eval boundary,
 printed by the chief (rank 0): step, loss, parallelism and, after the first
 (warm-up) window, steps/s, tokens/s and MFU (over the peak of every rank's
 card), timed over windows drained by ``torch.cuda.synchronize()``.
+
+Checkpoints (``--train_dir``, ``train/checkpoint.py``): before the loop the
+newest committed step is restored (parameters, optimizer state, the
+schedule's count and the global step) and training goes on from there;
+the state is saved when ``--save_secs`` have passed (checked every step in
+a world of one, at eval boundaries over a group) and always at the last
+step. The chief also writes each boundary's loss, steps/s and MFU as
+TensorBoard scalars there. A run resumed at its last step trains nothing
+and returns NaN. With ``--text_file`` a resumed run draws the windows an
+uninterrupted run would have drawn (they are keyed by step); the synthetic
+copy task's generator restarts from ``--seed``, as in the JAX trainer.
+``--output`` exports the final parameters as an inference bundle from the
+chief (not for tp over several processes, whose parameters are split
+across them), with the JAX trainer's metadata.
 """
 
 from __future__ import annotations
@@ -81,6 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", type=int, default=0)
     p.add_argument("--grad_clip_norm", type=float, default=0.0)
     p.add_argument("--attention", default="dense", choices=("dense", "flash"))
+    p.add_argument("--output", default="", help="optional params bundle path")
+    p.add_argument("--train_dir", default="",
+                   help="checkpoint dir: timed autosave + resume")
+    p.add_argument("--save_secs", type=int, default=600)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # Reference-style cluster flags: worker_hosts[0] is the rendezvous,
@@ -148,7 +166,7 @@ def _train(args, device, cluster) -> float:
                              f"data-parallel ranks")
         per = args.batch_size // world
         rows = slice(cluster.rank * per, (cluster.rank + 1) * per)  # this rank's batch rows
-        model = TransformerLM(cfg, seed=args.seed, device=device)
+        model, mesh = TransformerLM(cfg, seed=args.seed, device=device), None
         build_step = functools.partial(build_lm_train_step, group=dist.group.WORLD)
     else:
         from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
@@ -173,6 +191,23 @@ def _train(args, device, cluster) -> float:
     step = build_step(model, opt)
     rng = np.random.default_rng(args.seed)
 
+    ckpt, start = None, 0
+    if args.train_dir:
+        from distributed_tensorflow_tpu_torch.train.checkpoint import (
+            CheckpointManager,
+            coordinated_maybe_save,
+            restore_train_state,
+            train_state,
+        )
+
+        ckpt = CheckpointManager(args.train_dir, save_interval_secs=args.save_secs)
+        restored = ckpt.restore_latest()
+        if restored is not None:
+            start = restore_train_state(*restored, model, opt, mesh)
+            if chief:
+                print(f"restored checkpoint at step {restored[0]} from {args.train_dir}",
+                      flush=True)
+
     def batch_for(i):
         if text_data is not None:
             return text_data.train_batch(args.batch_size, step=i)
@@ -185,28 +220,50 @@ def _train(args, device, cluster) -> float:
     peak = chip_peak_flops(device)
     flops = transformer_train_flops(cfg, args.batch_size)
     timer = StepTimer(warmup_steps=2)
-    timer.start(0)
-    loss = float("nan")
-    for i in range(args.training_steps):
-        # Every rank draws the same global batch and trains on its rows.
-        tokens = torch.from_numpy(batch_for(i)[rows]).to(device, non_blocking=True)
-        m = step(tokens)
-        i_end = i + 1
-        if i_end % args.eval_step_interval == 0 or i_end == args.training_steps:
-            sync()  # completion barrier: the window holds finished work only
-            timer.tick_to(i_end)
-            loss = float(m["loss"])
-            record = {"step": i_end, "loss": round(loss, 4), "parallelism": args.parallelism}
-            if timer.steps_per_sec > 0:  # the first drained window is warm-up
-                record["steps_per_sec"] = round(timer.steps_per_sec, 2)
-                record["tokens_per_sec"] = round(
-                    timer.steps_per_sec * args.batch_size * args.seq_len, 0
-                )
-                if peak is not None:
-                    record["mfu"] = round(flops * timer.steps_per_sec / (peak * world), 4)
-            if chief:
-                print(json.dumps(record), flush=True)
-            timer.mark(i_end)
+    timer.start(start)
+    loss = float("nan")  # a run resumed at its last step trains nothing
+    writer = None
+    if args.train_dir and chief:
+        from distributed_tensorflow_tpu_torch.utils.summary import SummaryWriter
+
+        writer = SummaryWriter(args.train_dir)
+    try:
+        for i in range(start, args.training_steps):
+            # Every rank draws the same global batch and trains on its rows.
+            tokens = torch.from_numpy(batch_for(i)[rows]).to(device, non_blocking=True)
+            m = step(tokens)
+            i_end = i + 1
+            boundary = i_end % args.eval_step_interval == 0 or i_end == args.training_steps
+            if boundary:
+                sync()  # completion barrier: the window holds finished work only
+                timer.tick_to(i_end)
+                loss = float(m["loss"])
+                record = {"step": i_end, "loss": round(loss, 4),
+                          "parallelism": args.parallelism}
+                scalars = {"loss": loss}
+                if timer.steps_per_sec > 0:  # the first drained window is warm-up
+                    record["steps_per_sec"] = round(timer.steps_per_sec, 2)
+                    record["tokens_per_sec"] = round(
+                        timer.steps_per_sec * args.batch_size * args.seq_len, 0
+                    )
+                    scalars["steps_per_sec"] = timer.steps_per_sec
+                    if peak is not None:
+                        record["mfu"] = scalars["mfu"] = round(
+                            flops * timer.steps_per_sec / (peak * world), 4)
+                if writer is not None:
+                    writer.add_scalars(scalars, i_end)
+                if chief:
+                    print(json.dumps(record), flush=True)
+            saved = ckpt is not None and coordinated_maybe_save(
+                ckpt, i_end, lambda: train_state(model, opt, i_end, mesh), is_chief=chief,
+                force=i_end == args.training_steps, at_boundary=boundary,
+            )
+            if boundary or saved:
+                # Boundary and save work stay out of the next window.
+                timer.mark(i_end)
+    finally:
+        if writer is not None:
+            writer.close()
     if args.parallelism == "dp" and world > 1:
         # Replicated parameters: every rank must hold the same bits (the
         # JAX trainer's check after multi-process dp).
@@ -215,7 +272,48 @@ def _train(args, device, cluster) -> float:
         )
 
         check_cross_process_consistency(model)
+    if args.output and chief:
+        _export(args, cfg, model, world)
     return loss
+
+
+def _export(args, cfg, model, world) -> None:
+    """The chief's ``--output``: the bundle with the JAX trainer's metadata
+    (enough to rebuild the config at load time)."""
+    if world > 1 and args.parallelism == "tp":
+        print(
+            f"skipping --output: {args.parallelism} params are sharded across "
+            "processes (not addressable from the chief alone) — use "
+            "--train_dir checkpoints, which save/restore cross-process "
+            "shards natively",
+            flush=True,
+        )
+        return
+    from distributed_tensorflow_tpu_torch.models.convert import transformer_params_to_jax
+    from distributed_tensorflow_tpu_torch.train.checkpoint import export_inference_bundle
+
+    export_inference_bundle(
+        args.output,
+        transformer_params_to_jax(model),
+        metadata={
+            "model": "TransformerLM",
+            "parallelism": args.parallelism,
+            "config": {
+                "vocab_size": cfg.vocab_size,
+                "d_model": cfg.d_model,
+                "num_heads": cfg.num_heads,
+                "num_kv_heads": cfg.num_kv_heads or 0,
+                "attention_window": cfg.attention_window or 0,
+                "use_bias": int(cfg.use_bias),
+                "rope": int(cfg.position == "rope"),  # 0 = learned
+                "rope_theta": float(cfg.rope_theta),
+                "num_layers": cfg.num_layers,
+                "d_ff": cfg.d_ff,
+                "max_seq_len": cfg.max_seq_len,
+            },
+        },
+    )
+    print(f"exported {args.output}", flush=True)
 
 
 if __name__ == "__main__":

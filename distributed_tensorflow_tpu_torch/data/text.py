@@ -1,9 +1,9 @@
 """Byte-level text dataset for LM training (numpy only).
 
-This package's own copy of the training side of
-``distributed_tensorflow_tpu/data/text.py``: any file is a token stream at
-vocab 256 (bytes), sampled as random fixed-size windows, with a held-out
-tail that training never reads.
+This package's own copy of ``distributed_tensorflow_tpu/data/text.py``: any
+file is a token stream at vocab 256 (bytes), sampled as random fixed-size
+windows for training, with a held-out tail that training never reads and
+evaluation sweeps in sequential windows.
 """
 
 from __future__ import annotations
@@ -20,9 +20,20 @@ def load_byte_tokens(path: str) -> np.ndarray:
     return np.frombuffer(data, dtype=np.uint8)
 
 
+def encode_text(s: str) -> np.ndarray:
+    return np.frombuffer(s.encode("utf-8"), dtype=np.uint8)
+
+
+def decode_tokens(ids) -> str:
+    return bytes(int(t) & 0xFF for t in np.asarray(ids).reshape(-1)).decode(
+        "utf-8", errors="replace"
+    )
+
+
 class ByteTextDataset:
     """Random-window training batches over a byte stream whose tail
-    (``holdout_fraction`` of it) is reserved for evaluation."""
+    (``holdout_fraction`` of it, ``eval_tokens``) is reserved for
+    evaluation (:meth:`eval_batches`)."""
 
     def __init__(self, tokens: np.ndarray, seq_len: int, holdout_fraction: float = 0.05,
                  seed: int = 0):
@@ -36,6 +47,7 @@ class ByteTextDataset:
             )
         self.seq_len = seq_len
         self.train_tokens = tokens[:split]
+        self.eval_tokens = tokens[split:]
         self._seed = seed
 
     def train_batch(self, batch_size: int, step: int = 0) -> np.ndarray:
@@ -47,3 +59,13 @@ class ByteTextDataset:
         return np.stack(
             [self.train_tokens[s : s + self.seq_len] for s in starts]
         ).astype(np.int32)
+
+    def eval_batches(self, batch_size: int):
+        """Non-overlapping sequential (batch, seq_len) int32 windows over
+        ``eval_tokens``, covering every full window: full batches first,
+        then one smaller batch for the remainder. Yields nothing only if the
+        holdout has no full window."""
+        n_windows = len(self.eval_tokens) // self.seq_len
+        windows = self.eval_tokens[: n_windows * self.seq_len].reshape(n_windows, self.seq_len)
+        for lo in range(0, n_windows, batch_size):
+            yield windows[lo : lo + batch_size].astype(np.int32)

@@ -41,10 +41,10 @@ def transformer_params_from_jax(params_np: dict) -> dict[str, torch.Tensor]:
     sd = {}
     for path, leaf in _flatten(params_np):
         *mods, leaf_name = path
-        arr = np.asarray(leaf, dtype=np.float32)
+        t = torch.tensor(np.asarray(leaf, dtype=np.float32))
         if leaf_name == "kernel":
-            arr = arr.T
-        sd[".".join(mods + [_FLAX_TO_TORCH_LEAF.get(leaf_name, leaf_name)])] = torch.tensor(arr)
+            t = t.t().contiguous()  # torch's transposing copy: numpy's is single-threaded
+        sd[".".join(mods + [_FLAX_TO_TORCH_LEAF.get(leaf_name, leaf_name)])] = t
     return sd
 
 
@@ -58,22 +58,33 @@ def _flax_leaf(mod: nn.Module, leaf: str) -> str:
     return leaf
 
 
+def flax_param_paths(module: nn.Module) -> dict[str, tuple[tuple[str, ...], bool]]:
+    """``{state-dict name: (flax tree path, transposed)}`` for every
+    parameter of the model, in ``named_parameters`` order; ``transposed``
+    marks a Dense kernel, stored (in, out) in the flax tree."""
+    out = {}
+    for mod_name, mod in module.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            flax_leaf = _flax_leaf(mod, leaf)
+            path = (*(mod_name.split(".") if mod_name else ()), flax_leaf)
+            out[f"{mod_name}.{leaf}" if mod_name else leaf] = (path, flax_leaf == "kernel")
+    return out
+
+
 def transformer_params_to_jax(module: nn.Module, grads: bool = False) -> dict:
     """The model → flax param tree (nested numpy dicts). With ``grads`` the
     leaves are the parameters' ``.grad`` instead — the tree ``jax.grad``
     returns, for comparing gradients."""
     tree: dict = {}
-    for mod_name, mod in module.named_modules():
-        for leaf, p in mod.named_parameters(recurse=False):
-            t = p.grad if grads else p
-            arr = t.detach().float().cpu().numpy()
-            flax_leaf = _flax_leaf(mod, leaf)
-            if flax_leaf == "kernel":
-                arr = arr.T
-            node = tree
-            for m in mod_name.split(".") if mod_name else ():
-                node = node.setdefault(m, {})
-            node[flax_leaf] = np.ascontiguousarray(arr)
+    params = dict(module.named_parameters())
+    for name, (path, transposed) in flax_param_paths(module).items():
+        t = (params[name].grad if grads else params[name]).detach().float()
+        if transposed:
+            t = t.t()  # transposed where the tensor lives (on the card, before the copy)
+        node = tree
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = t.contiguous().cpu().numpy()
     return tree
 
 

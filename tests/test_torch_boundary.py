@@ -1,5 +1,6 @@
-"""The port's boundary: it imports neither JAX nor the JAX package, runs on
-the card unless asked for the CPU, and launches no kernel for CPU tensors."""
+"""The port's boundary: it imports neither JAX nor the JAX package (nor
+msgpack or orbax, which the card's machine lacks), runs on the card unless
+asked for the CPU, and launches no kernel for CPU tensors."""
 
 import os
 import pathlib
@@ -34,7 +35,8 @@ def test_importing_every_module_loads_no_jax():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', "
-        "'optax', 'distributed_tensorflow_tpu.')) or m == 'distributed_tensorflow_tpu')\n"
+        "'optax', 'msgpack', 'orbax', 'distributed_tensorflow_tpu.')) "
+        "or m == 'distributed_tensorflow_tpu')\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )

@@ -167,6 +167,31 @@ def test_cli_tp_trains_in_a_world_of_one_on_cpu(capsys):
     assert not torch.distributed.is_initialized()  # the world of one is torn down
 
 
+def run_ranks(flags, n=2):
+    """The CLI in ``n`` processes joined by the reference-style
+    --worker_hosts/--task_index (gloo over loopback, rendezvous at the first
+    host); returns each rank's stdout."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    hosts = ",".join(f"127.0.0.1:{port + r}" for r in range(n))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    env["OMP_NUM_THREADS"] = "1"  # tiny shapes: one thread per rank keeps the host free
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train_lm", *flags,
+         "--worker_hosts", hosts, "--task_index", str(r)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for r in range(n)]
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err
+        outs.append(out)
+    return outs
+
+
 def test_cli_tp_over_worker_hosts_matches_one_process(capsys):
     """Two processes joined by the reference-style --worker_hosts/--task_index
     (gloo over loopback, rendezvous at the first host) train the model split
@@ -177,24 +202,7 @@ def test_cli_tp_over_worker_hosts_matches_one_process(capsys):
              "--attention", "flash", "--position", "rope"]
     cli.main(flags)
     want = [json.loads(line)["loss"] for line in capsys.readouterr().out.splitlines()]
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    hosts = f"127.0.0.1:{port},127.0.0.1:{port + 1}"
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
-    env["GLOO_SOCKET_IFNAME"] = "lo"
-    env["OMP_NUM_THREADS"] = "1"  # tiny shapes: one thread per rank keeps the host free
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train_lm", *flags,
-         "--model_parallel", "2", "--worker_hosts", hosts, "--task_index", str(r)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-    ) for r in range(2)]
-    outs = []
-    for proc in procs:
-        out, err = proc.communicate(timeout=120)
-        assert proc.returncode == 0, err
-        outs.append(out)
+    outs = run_ranks([*flags, "--model_parallel", "2"])
     records = [json.loads(line) for line in outs[0].splitlines()]
     assert outs[1] == ""  # only the chief prints
     assert [r["step"] for r in records] == [2, 4]
@@ -209,8 +217,8 @@ def test_cli_tp_raises_without_a_card_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--parallelism", "sp"], ["--remat"], ["--steps_per_call", "2"], ["--train_dir", "x"],
-    ["--output", "x"], ["--profile_dir", "x"], ["--obs_dir", "x"], ["--slo", "default"],
+    ["--parallelism", "sp"], ["--remat"], ["--steps_per_call", "2"], ["--num_microbatches", "2"],
+    ["--pipeline_parallel", "2"], ["--profile_dir", "x"], ["--obs_dir", "x"], ["--slo", "default"],
     ["--attention", "blockwise"],
 ])
 def test_cli_rejects_flags_of_later_slices(flag):
