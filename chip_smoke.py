@@ -143,6 +143,23 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  schedule's count), with the save, restore and export
                  seconds and bytes; cli/eval_lm.py on the bundle on the card
                  and on the CPU (two holdout windows, nll within 2e-2);
+     serve     — the serving core at the flagship's width: weights from a
+                 seed exported to a bundle and served by cli/serve_lm.py's
+                 build_stack (8 slots, page 16, prefix cache, buckets 64 and
+                 256 under prefill_len 1024, chunk 512); 16 concurrent HTTP
+                 requests (16-1,500 tokens, half on a 512-token prefix, 64
+                 new tokens, 12 greedy, 4 sampled, 2 streamed) with the
+                 engine's logit trace on; no flash kernel launched while
+                 serving; every request's logits within SERVE_TOL of the
+                 uncached forward on K1 over its prompt and tokens, greedy
+                 tokens its argmax but at near-ties (counted), sampled ones
+                 inside their top_k/top_p support; compile_count flat, every
+                 page back after the prefix cache's eviction; TTFT, time per
+                 output token, decode tokens/s at 1 and 8 slots (and with
+                 per-call weight casts), cold against prefix-hit TTFT, pool
+                 bytes; the long recipe (2 layers) on a 6,000-token prompt
+                 through chunked prefill against K1; cli/serve_lm.py --demo
+                 as a subprocess, one /generate and /healthz, SIGTERM;
   5. routes    — one long-context step (batch 1, 2 layers) through the three
                  backward routes the gate can take (K8 segments, K2 whole,
                  K5/K6 two-pass) on the same weights: equal launches to the
@@ -217,6 +234,10 @@ Phases, in order; any failed check exits non-zero and no result is printed:
 Then a line with nvidia-smi's name and power limit, a JSON line with the
 kernels' numbers, and last ``{"ok": true, "device": {...}}``. Needs one
 card and no network.
+
+    python3 chip_smoke.py --serve
+
+runs the card line and the serve phase alone.
 
     python3 chip_smoke.py --dispatch [--tree DIR]
 
@@ -3270,6 +3291,419 @@ def phase_train_dir(smi):
     _zero_counts()
 
 
+# phase_serve: the serving core (cli/serve_lm.py's stack) at the flagship's
+# width. Its path reaches no flash kernel (the cached branch attends by two
+# matmuls); its reference does: the uncached forward with flash attention
+# (K1) over each request's prompt and emitted tokens.
+SERVE_SEED = 5
+SERVE = dict(slots=8, serve_max_len=2048, prefill_len=1024, page_size=16,
+             prefill_chunk_tokens=512, steps_per_sync=1, max_queue_depth=64,
+             request_timeout_s=300.0)
+SERVE_BUCKETS = (64, 256)  # with prefill_len 1024; chunk 512 keeps {64, 256, 512}
+SERVE_NEW = 64
+SERVE_PREFIX = 512
+# Cached logits (bf16 weights, f32 attention) against the K1 forward's (bf16
+# P·V), as max |cached - reference| / max |reference| over each request's
+# emitted positions; a token may differ from the reference's argmax only
+# where the reference's top two are closer than SERVE_TOL · max |reference|.
+SERVE_TOL = 3e-2
+# The long recipe's check: 2 layers of LONG, one 6,000-token prompt.
+SERVE_LONG_PROMPT, SERVE_LONG_NEW = 6000, 16
+
+
+def _serve_prompts():
+    """16 requests: prompts of 16-1,500 tokens, the first 8 sharing a
+    512-token prefix; 4 sampled (top_k 20, top_p 0.9), 2 streaming."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED)
+    prefix = rng.integers(0, 256, SERVE_PREFIX).tolist()
+    reqs = []
+    for i in range(16):
+        if i < 8:
+            prompt = prefix + rng.integers(0, 256, int(rng.integers(16, 989))).tolist()
+        else:
+            prompt = rng.integers(0, 256, int(rng.integers(16, 1501))).tolist()
+        body = {"prompt": prompt, "max_new_tokens": SERVE_NEW, "request_id": f"s{i}"}
+        if i % 4 == 3:
+            body.update(temperature=0.8, top_k=20, top_p=0.9, seed=100 + i)
+        if i in (1, 7):
+            body["stream"] = True
+        reqs.append(body)
+    return reqs
+
+
+def _http(url, body=None, timeout=300):
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers.get("Content-Type", ""), resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.headers.get("Content-Type", ""), err.read()
+
+
+def _serve_outcome(status, ctype, raw):
+    """The completion JSON of a /generate answer (the SSE done frame's for
+    a stream), with the streamed tokens beside it."""
+    if not ctype.startswith("text/event-stream"):
+        return status, json.loads(raw), None
+    frames = [dict(line.split(": ", 1) for line in f.splitlines())
+              for f in raw.decode().split("\n\n") if f.strip()]
+    streamed = [t for f in frames if f["event"] == "token" for t in json.loads(f["data"])["tokens"]]
+    return status, json.loads(frames[-1]["data"]), streamed
+
+
+def _traced_requests(trace, results):
+    """Each request's [(token index, logits row)] out of the engine's logit
+    trace of the HTTP run: a slot's picks split at each token index 0, each
+    run matched to the request whose tokens it picked."""
+    runs = {}
+    for slot, i, tok, lg in trace:
+        if i == 0:
+            runs.setdefault(slot, []).append([])
+        runs[slot][-1].append((i, tok, lg))
+    found = {}
+    for run in (r for rs in runs.values() for r in rs):
+        toks = [t for _, t, _ in run]
+        for n, res in enumerate(results):
+            if res[1]["tokens"] == toks and n not in found:
+                found[n] = [(i, lg) for i, _, lg in run]
+                break
+    if sorted(found) != list(range(len(results))):
+        fail(f"serve: the trace holds the picks of requests {sorted(found)} only")
+    return [found[n] for n in range(len(results))]
+
+
+def _traced_replay(engine, body):
+    """One request alone through the engine's own API with its logit trace
+    on: (tokens, [(token index, logits row)])."""
+    engine.logit_trace = []
+    slot = engine.acquire_slot()
+    first, finished = engine.start(
+        slot, body["prompt"], max_new_tokens=body["max_new_tokens"],
+        temperature=body.get("temperature", 0.0), top_k=body.get("top_k", 0),
+        top_p=body.get("top_p", 0.0), seed=body.get("seed", 0))
+    toks = [] if first is None else [first]
+    while not finished:
+        t, v, done = engine.step()
+        toks += [int(x) for x in t[v[:, slot], slot]]
+        finished = bool(done[slot])
+    engine.release(slot)
+    trace = sorted(((i, lg) for s, i, _, lg in engine.logit_trace if s == slot),
+                   key=lambda x: x[0])
+    engine.logit_trace = None
+    return toks, trace
+
+
+def _hold_against_reference(name, ref_model, prompt, toks, trace, top=None):
+    """The engine's logits at each emitted position against the uncached
+    K1 forward over prompt + emitted tokens; greedy tokens equal to the
+    reference's argmax but at near-ties; a sampled token (``top`` = its
+    top_k, top_p) inside the filtered support of the engine's own logits.
+    Returns the near-tie count."""
+    from distributed_tensorflow_tpu_torch.models.decoding import filter_logits_batched
+
+    if [i for i, _ in trace] != list(range(len(toks))):
+        fail(f"serve: {name}: the trace holds tokens {[i for i, _ in trace]}")
+    seq = torch.tensor([list(prompt) + list(toks)], device="cuda")
+    with torch.no_grad():
+        ref = ref_model(seq)[0, len(prompt) - 1: len(prompt) - 1 + len(toks)].float()
+    cached = torch.stack([lg for _, lg in trace]).cuda()
+    scale = ref.abs().max().item()
+    err = (cached - ref).abs().max().item() / scale
+    if not err <= SERVE_TOL:
+        fail(f"serve: {name}: cached logits {err:.3e} from the reference's (tol {SERVE_TOL})")
+    ties = 0
+    if top is None:
+        two = torch.topk(ref, 2, dim=-1).values
+        near = (two[:, 0] - two[:, 1]) < SERVE_TOL * scale
+        picked = torch.tensor(toks, device="cuda")
+        wrong = (picked != ref.argmax(-1)) & ~near
+        if wrong.any():
+            fail(f"serve: {name}: tokens {torch.nonzero(wrong).flatten().tolist()} differ from "
+                 "the reference's argmax where its top two are apart")
+        ties = int(((picked != ref.argmax(-1)) & near).sum())
+    else:
+        k, p = top
+        n = len(toks)
+        filt = filter_logits_batched(cached, torch.full((n,), 0.8), torch.full((n,), k),
+                                     torch.full((n,), p))
+        support = filt[torch.arange(n), torch.tensor(toks)] > -1e29
+        topk = torch.topk(cached, k, dim=-1).indices
+        in_topk = (topk == torch.tensor(toks, device="cuda")[:, None]).any(-1)
+        if not (support.all() and in_topk.all()):
+            fail(f"serve: {name}: sampled tokens outside their top_k/top_p support")
+    return err, ties
+
+
+def _decode_rate(engine, n_slots, rounds=32):
+    """Decode tokens/s and ms per round with ``n_slots`` active requests
+    (256-token prompts, greedy), timed over ``rounds`` rounds after two."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED + n_slots)
+    slots = []
+    for _ in range(n_slots):
+        s = engine.acquire_slot()
+        engine.start(s, rng.integers(0, 256, 256).tolist(), max_new_tokens=rounds + 8)
+        slots.append(s)
+    engine.step()
+    engine.step()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        engine.step()
+    dt = time.perf_counter() - t0
+    for s in slots:
+        engine.release(s)
+    return n_slots * rounds / dt, 1e3 * dt / rounds
+
+
+def _ttft_direct(engine, prompt):
+    """Seconds from ``start`` to the request's first token (the chunked
+    path's comes out of a later step), greedy, the request alone."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slot = engine.acquire_slot()
+    first, _ = engine.start(slot, prompt, max_new_tokens=2)
+    while first is None:
+        t, v, _ = engine.step()
+        if v[:, slot].any():
+            first = int(t[v[:, slot], slot][0])
+    dt = time.perf_counter() - t0
+    engine.release(slot)
+    return dt
+
+
+def _serve_cli_subprocess(smi):
+    """python -m ...cli.serve_lm --demo on the card: one /generate, one
+    /healthz, then SIGTERM and a clean exit."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.serve_lm", "--demo",
+         "--port", "0", "--d_model", "256", "--num_heads", "4", "--num_layers", "2",
+         "--d_ff", "1024", "--seq_len", "256", "--slots", "2"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving on http://"):
+            fail(f"serve: cli/serve_lm printed {line!r}")
+        base = line.split()[2]
+        status, _, raw = _http(base + "/generate", {"prompt": "Hello", "max_new_tokens": 8})
+        body = json.loads(raw)
+        health, _, hraw = _http(base + "/healthz")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    emit(phase="serve", check="cli_serve_lm", serving_line=line.strip(), generate_status=status,
+         tokens=body.get("tokens"), text=body.get("text"), healthz=health,
+         exit_code=proc.returncode, card=smi)
+    if (status, health, proc.returncode) != (200, 200, 0) or len(body["tokens"]) != 8:
+        fail(f"serve: cli/serve_lm answered {status}/{health}, exited {proc.returncode}: {out}")
+    if "shut down cleanly" not in out:
+        fail(f"serve: cli/serve_lm did not shut down cleanly: {out}")
+
+
+def phase_serve(smi):
+    """The serving core on the card, at the flagship's width (SERVE):
+    weights from SERVE_SEED exported to a bundle and served by
+    cli/serve_lm.py's build_stack; 16 concurrent HTTP requests; every
+    greedy request's cached logits and tokens against the K1 forward's,
+    every sampled token inside its support; compile_count flat and every
+    page freed; the long recipe's 6,000-token prompt through chunked
+    prefill; cli/serve_lm.py as a subprocess; the readings."""
+    import threading
+
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.cli.serve_lm import build_stack
+    from distributed_tensorflow_tpu_torch.config import ServeConfig
+    from distributed_tensorflow_tpu_torch.models.convert import transformer_params_to_jax
+    from distributed_tensorflow_tpu_torch.models.transformer import TransformerLM
+    from distributed_tensorflow_tpu_torch.obs.export import parse_prometheus_text
+    from distributed_tensorflow_tpu_torch.serve.engine import SlotEngine
+    from distributed_tensorflow_tpu_torch.train.checkpoint import (
+        export_inference_bundle,
+        load_lm_bundle,
+    )
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".scratch", "chip_smoke_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        cfg = _cfg(attention="flash")
+        ref = TransformerLM(cfg, seed=SERVE_SEED, device="cuda")  # K1: the reference
+        bundle = os.path.join(work, "serve.msgpack")
+        meta = {"model": "TransformerLM", "parallelism": "dp", "config": {
+            "vocab_size": 256, "d_model": cfg.d_model, "num_heads": cfg.num_heads,
+            "num_kv_heads": 0, "attention_window": 0, "use_bias": 0, "rope": 0,
+            "num_layers": cfg.num_layers, "d_ff": cfg.d_ff, "max_seq_len": cfg.max_seq_len}}
+        export_inference_bundle(bundle, transformer_params_to_jax(ref), metadata=meta)
+        scfg, model, _ = load_lm_bundle(bundle, device="cuda")
+        t0 = time.perf_counter()
+        engine, sched, metrics, server = build_stack(ServeConfig(port=0, **SERVE), scfg, model,
+                                                     prefill_buckets=SERVE_BUCKETS)
+        warm_s = time.perf_counter() - t0
+        compiled = engine.compile_count()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        sched.start(poll_s=0.0005)
+        base = "http://%s:%d" % server.server_address
+        reqs = _serve_prompts()
+        results = [None] * len(reqs)
+        engine.logit_trace = []  # one more small copy back a round
+        _zero_counts()
+
+        def call(i):
+            results[i] = _serve_outcome(*_http(base + "/generate", reqs[i]))
+
+        t0 = time.perf_counter()
+        callers = [threading.Thread(target=call, args=(i,)) for i in range(len(reqs))]
+        for c in callers:
+            c.start()
+        for c in callers:
+            c.join(timeout=600)
+        http_s = time.perf_counter() - t0
+        health = json.loads(_http(base + "/healthz")[2])
+        prom = _http(base + "/metrics")[2].decode()
+        served_launches = dict(A.KERNEL_LAUNCHES)
+        server.shutdown()
+        server.server_close()
+        sched.stop()
+        if any(served_launches.values()):
+            fail(f"serve: the serving path launched flash kernels: {served_launches}")
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200 or len(res[1]["tokens"]) != SERVE_NEW:
+                fail(f"serve: request {i} answered {res and res[:2]}")
+            if res[2] is not None and res[2] != res[1]["tokens"]:
+                fail(f"serve: request {i}'s stream differs from its done frame")
+        samples = {x["name"]: x["value"] for x in parse_prometheus_text(prom)}
+        if samples.get("recompile_events_total") != 0:
+            fail(f"serve: /metrics reports {samples.get('recompile_events_total')} "
+                 "recompile events after warmup")
+
+        # Each request's picks as the batched run made them, against the
+        # reference (bf16 batches of other sizes may break near-ties
+        # differently, so a replay need not repeat them).
+        traces = _traced_requests(engine.logit_trace, results)
+        engine.logit_trace = None
+        errs, ties, hits = [], 0, engine.prefix_hit_rate
+        for i, (body, trace) in enumerate(zip(reqs, traces)):
+            toks = results[i][1]["tokens"]
+            top = (body["top_k"], body["top_p"]) if "top_k" in body else None
+            err, tie = _hold_against_reference(f"request {i}", ref, body["prompt"], toks,
+                                               trace, top)
+            errs.append(err)
+            ties += tie
+        ref_launches = A.KERNEL_LAUNCHES["flash_fwd"]
+        if ref_launches != len(reqs) * cfg.num_layers:
+            fail(f"serve: the reference made {ref_launches} K1 launches")
+        emit(phase="serve", check="greedy_and_sampled_against_k1", max_rel_logit_err=max(errs),
+             tol=SERVE_TOL, near_ties=ties, greedy_requests=12, sampled_requests=4,
+             reference_k1_launches=ref_launches, serving_path_launches=served_launches, card=smi)
+
+        # Readings straight from the engine (the scheduler is stopped).
+        rng = np.random.default_rng(SERVE_SEED + 1)
+        cold, hit = [], []
+        for _ in range(3):
+            shared = rng.integers(0, 256, SERVE_PREFIX).tolist()
+            cold.append(_ttft_direct(engine, shared + rng.integers(0, 256, 88).tolist()))
+            hit.append(_ttft_direct(engine, shared + rng.integers(0, 256, 88).tolist()))
+        rate1, round1 = _decode_rate(engine, 1)
+        rate8, round8 = _decode_rate(engine, 8)
+        if engine.compile_count() != compiled:
+            fail(f"serve: compile_count {engine.compile_count()} after warmup's {compiled}")
+        if engine.active.any() or engine.prefilling.any() or engine.free_slots != engine.slots:
+            fail("serve: slots still held after the last release")
+        held = engine.pool.pages_allocatable - engine.pool.pages_free
+        cached_pages = len(engine.prefix)
+        engine.prefix.clear()
+        if engine.pool.pages_free != engine.pool.pages_allocatable:
+            fail(f"serve: {engine.pool.pages_allocatable - engine.pool.pages_free} pages "
+                 "leaked after the prefix cache's eviction")
+        if held != cached_pages:
+            fail(f"serve: {held} pages held after release, the prefix cache indexes "
+                 f"{cached_pages}")
+        percall = SlotEngine(scfg, model, slots=8, max_len=2048, prefill_len=1024,
+                             page_size=16, device="cuda", hold_compute_weights=False)
+        pc_rate1, pc_round1 = _decode_rate(percall, 1)
+        pc_rate8, pc_round8 = _decode_rate(percall, 8)
+        del percall
+        ttft = sorted(r[1]["ttft_ms"] for r in results)
+        per_tok = sorted((r[1]["latency_ms"] - r[1]["ttft_ms"]) / (SERVE_NEW - 1) for r in results)
+        emit(phase="serve", reading="latency", ttft_ms_p50=float(np.percentile(ttft, 50)),
+             ttft_ms_p90=float(np.percentile(ttft, 90)),
+             ms_per_output_token_p50=float(np.percentile(per_tok, 50)),
+             ms_per_output_token_p90=float(np.percentile(per_tok, 90)),
+             http_wall_s=round(http_s, 3), requests=len(reqs), card=smi)
+        emit(phase="serve", reading="decode", tokens_per_s_1_slot=rate1,
+             tokens_per_s_8_slots=rate8, ms_per_round_1_slot=round1, ms_per_round_8_slots=round8,
+             per_call_casts_ms_per_round_1_slot=pc_round1,
+             per_call_casts_ms_per_round_8_slots=pc_round8,
+             per_call_casts_tokens_per_s_1_slot=pc_rate1,
+             per_call_casts_tokens_per_s_8_slots=pc_rate8,
+             cast_share_1_slot=1 - round1 / pc_round1, cast_share_8_slots=1 - round8 / pc_round8,
+             card=smi)
+        emit(phase="serve", reading="prefix", prompt_tokens=SERVE_PREFIX + 88,
+             ttft_cold_ms=[round(1e3 * x, 3) for x in cold],
+             ttft_prefix_hit_ms=[round(1e3 * x, 3) for x in hit],
+             http_prefix_hit_rate=hits, card=smi)
+        emit(phase="serve", reading="pool", pool_bytes=engine.pool.hbm_bytes,
+             bytes_per_token=engine.kv_bytes_per_token,
+             weight_bytes_served=engine.weight_bytes_per_device, buckets=engine.prefill_buckets,
+             chunk=engine.prefill_chunk_tokens, compile_count=compiled, warmup_s=round(warm_s, 3),
+             healthz_pages_total=health.get("pages_total"), card=smi)
+        del engine, sched, metrics, server, model, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The long recipe at 2 layers: one 6,000-token prompt through chunked
+        # prefill, rope at absolute positions over the unexpanded GQA cache.
+        lcfg = _cfg(dict(LONG, seq_len=8192), attention="flash", num_layers=2)
+        lref = TransformerLM(lcfg, seed=SERVE_SEED, device="cuda")
+        long_engine = SlotEngine(lcfg, lref, slots=1, max_len=8192, prefill_len=1024,
+                                 prefill_chunk_tokens=512, page_size=16, device="cuda")
+        long_engine.warmup()
+        prompt = np.random.default_rng(SERVE_SEED + 2).integers(0, 256, SERVE_LONG_PROMPT)
+        _zero_counts()
+        t0 = time.perf_counter()
+        toks, trace = _traced_replay(long_engine, {"prompt": prompt.tolist(),
+                                                   "max_new_tokens": SERVE_LONG_NEW})
+        long_s = time.perf_counter() - t0
+        chunks = long_engine.stats["prefill_chunks"]
+        if any(A.KERNEL_LAUNCHES.values()):
+            fail(f"serve: the long engine launched flash kernels: {dict(A.KERNEL_LAUNCHES)}")
+        err, tie = _hold_against_reference("long", lref, prompt.tolist(), toks, trace)
+        emit(phase="serve", check="long_recipe_chunked_prefill", prompt_tokens=SERVE_LONG_PROMPT,
+             new_tokens=len(toks), prefill_chunks=chunks, rel_logit_err=err, tol=SERVE_TOL,
+             near_ties=tie, wall_s=round(long_s, 3), card=smi)
+        del long_engine, lref
+        gc.collect()
+        torch.cuda.empty_cache()
+        _serve_cli_subprocess(smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _zero_counts()
+    emit(phase="serve", seconds=round(time.perf_counter() - t_phase, 2), card=smi)
+
+
+def serve_main():
+    """``chip_smoke.py --serve``: the card line and the serve phase alone."""
+    smi = phase_card()
+    phase_serve(smi)
+    print(smi, flush=True)
+
+
 def main():
     smi = phase_card()
     phase_build()
@@ -3283,6 +3717,7 @@ def main():
     cli_runs = phase_cli_head_dims()
     d512 = phase_d512(smi)
     phase_train_dir(smi)
+    phase_serve(smi)
     # A kernel's launches are those of the first path of by_path it serves
     # (`d512`'s launches run the column-group sources and go to their own
     # rows); the record lists every path's, and the routes phase's for the
@@ -3360,5 +3795,7 @@ def main():
 if __name__ == "__main__":
     if "--dispatch" in sys.argv:
         dispatch_main(TREE)
+    elif "--serve" in sys.argv:
+        serve_main()
     else:
         main()

@@ -1,10 +1,18 @@
 """Decoder-only transformer LM.
 
-Counterpart of ``distributed_tensorflow_tpu/models/transformer.py`` on the
-uncached (training) path: pre-norm blocks, tanh-GELU MLP, learned or rotary
-positions, GQA, sliding-window causal attention, and the attention
-implementation chosen by name — ``dense`` (the O(S²) reference) or ``flash``
-(the packed-qkv kernels of ``ops/attention.py``).
+Counterpart of ``distributed_tensorflow_tpu/models/transformer.py``:
+pre-norm blocks, tanh-GELU MLP, learned or rotary positions, GQA,
+sliding-window causal attention, and the attention implementation chosen by
+name — ``dense`` (the O(S²) reference) or ``flash`` (the packed-qkv kernels
+of ``ops/attention.py``) — on the uncached (training) path.
+
+With a KV cache (``model(tokens, cache=...)``) the model runs the JAX
+model's cached branch instead, which reaches no flash kernel: the new keys
+and values are written at absolute positions ``len + arange(s)`` first, then
+the queries attend the whole cache by two f32 matmuls under an explicit
+causal (and window) mask. The cache holds the unexpanded kv heads, rope
+rotates q and k at their absolute positions, and positions at or above a
+row's ``len + s`` (a freed slot's stale keys, a padded tail) stay masked.
 
 Numerics follow the flax modules the JAX model is built from: parameters are
 f32 and every matmul casts its input and weight to ``compute_dtype``;
@@ -24,11 +32,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_tensorflow_tpu_torch.ops import attention as A
-from distributed_tensorflow_tpu_torch.ops.rope import apply_rope, rope_tables
+from distributed_tensorflow_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_tables
 from distributed_tensorflow_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
 ATTENTION = ("dense", "flash")
+_NOT_PORTED = "is not ported yet"
 
 
 @dataclass(frozen=True)
@@ -46,6 +55,7 @@ class TransformerConfig:
     attention_window: int | None = None  # None = full causal
     position: str = "learned"  # 'learned' | 'rope'
     rope_theta: float = 10000.0
+    kv_cache_dtype: str | None = None  # None = compute dtype; 'int8' not ported yet
 
     def __post_init__(self):
         if self.position not in ("learned", "rope"):
@@ -169,10 +179,60 @@ class Block(nn.Module):
             attn = attn.transpose(1, 2).reshape(b, s, cfg.d_model)
         return x + self.proj(attn)
 
-    def forward(self, x, rope=None):
-        x = self.attention(x, rope)
+    def cached_attention(self, x, rope, cache, layer, allowed):
+        """The cached branch of ``attention_sublayer``: ``cache`` is a KV
+        view (``ContiguousKV``, or the serving engine's paged view),
+        ``allowed`` the (B, S, L) mask of the keys each query reads."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, kv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        q, k, v = self.qkv(self.ln1(x)).split([h * dh, kv * dh, kv * dh], dim=-1)
+        q, k, v = q.reshape(b, s, h, dh), k.reshape(b, s, kv, dh), v.reshape(b, s, kv, dh)
+        if rope is not None:
+            # Absolute positions: the cache stores rotated keys.
+            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+        # Write before attend: every key a query reads below len + s was
+        # written by this sequence (the serving engine's slot-reuse rule).
+        cache.write(layer, k.transpose(1, 2), v.transpose(1, 2))
+        keys, values = cache.read(layer)  # (B, KV, L, dh) f32
+        qh = q.transpose(1, 2).reshape(b, kv, (h // kv) * s, dh).float()
+        scores = torch.matmul(qh, keys.transpose(-1, -2)) / math.sqrt(dh)
+        scores = scores.view(b, kv, h // kv, s, -1).masked_fill(~allowed[:, None, None], A.NEG_INF)
+        weights = torch.softmax(scores, dim=-1).view(b, kv, (h // kv) * s, -1)
+        attn = torch.matmul(weights, values).to(cfg.compute_dtype)
+        attn = attn.view(b, h, s, dh).transpose(1, 2).reshape(b, s, cfg.d_model)
+        return x + self.proj(attn)
+
+    def forward(self, x, rope=None, cache=None, layer=0, allowed=None):
+        if cache is None:
+            x = self.attention(x, rope)
+        else:
+            x = self.cached_attention(x, rope, cache, layer, allowed)
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
         return x + self.mlp_out(h)
+
+
+class ContiguousKV:
+    """KV view of a cache dict ``{"layers": [{"k", "v"}], "len"}`` (the JAX
+    layout: k/v (B, KV, S_max, dh), ``len`` the filled prefix, one int for
+    the batch or one per row). Writes land in the layer tensors in place."""
+
+    def __init__(self, layers, lengths: torch.Tensor):
+        self.layers = layers
+        self.lengths = lengths
+        self.extent = layers[0]["k"].shape[2]
+
+    def write(self, layer, k, v):
+        b, _, s, _ = k.shape
+        pos = self.lengths[:, None] + torch.arange(s, device=k.device)
+        rows = torch.arange(b, device=k.device)[:, None]
+        buf = self.layers[layer]
+        buf["k"][rows, :, pos] = k.transpose(1, 2).to(buf["k"].dtype)
+        buf["v"][rows, :, pos] = v.transpose(1, 2).to(buf["v"].dtype)
+
+    def read(self, layer):
+        buf = self.layers[layer]
+        return buf["k"].float(), buf["v"].float()
 
 
 class TransformerLM(nn.Module):
@@ -199,7 +259,16 @@ class TransformerLM(nn.Module):
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.use_bias, dt, gen)
         self.to(device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, cache=None, self_mask=None):
+        """Uncached: logits. With ``cache`` (a dict from
+        ``models/decoding.py::init_cache``, or a KV view with ``lengths``,
+        ``extent``, ``write`` and ``read``): ``(logits, cache)``, a dict's
+        ``len`` advanced by S and its buffers written in place.
+        ``self_mask`` (tree speculation) is not ported yet."""
+        if self_mask is not None:
+            raise NotImplementedError(f"self_mask (tree attention) {_NOT_PORTED}")
+        if cache is not None:
+            return self._cached_forward(tokens, cache)
         cfg = self.cfg
         s = tokens.shape[1]
         x = self.tok_embed(tokens)
@@ -212,6 +281,34 @@ class TransformerLM(nn.Module):
         for i in range(cfg.num_layers):
             x = getattr(self, f"block_{i}")(x, rope)
         return self.lm_head(self.ln_f(x)).float()
+
+    def _cached_forward(self, tokens, cache):
+        cfg = self.cfg
+        if cfg.kv_cache_dtype is not None:
+            raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} {_NOT_PORTED}")
+        b, s = tokens.shape
+        dev = tokens.device
+        view = cache
+        if isinstance(cache, dict):
+            lengths = torch.as_tensor(cache["len"], dtype=torch.int64, device=dev)
+            view = ContiguousKV(cache["layers"], lengths.expand(b) if lengths.dim() == 0 else lengths)
+        pos = view.lengths[:, None] + torch.arange(s, device=dev)  # (B, S) absolute
+        x = self.tok_embed(tokens)
+        rope = None
+        if cfg.position == "rope":
+            rope = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+        else:
+            x = x + self.pos_embed(pos)
+        key_pos = torch.arange(view.extent, device=dev)
+        allowed = key_pos[None, None, :] <= pos[:, :, None]
+        if cfg.attention_window is not None:
+            allowed &= key_pos[None, None, :] > pos[:, :, None] - cfg.attention_window
+        for i in range(cfg.num_layers):
+            x = getattr(self, f"block_{i}")(x, rope, cache=view, layer=i, allowed=allowed)
+        logits = self.lm_head(self.ln_f(x)).float()
+        if isinstance(cache, dict):
+            cache = {"layers": cache["layers"], "len": cache["len"] + s}
+        return logits, cache
 
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,8 @@ from distributed_tensorflow_tpu_torch.ops import attention as TA
 from distributed_tensorflow_tpu_torch.ops import rope as TR
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 B, S, H, DH = 2, 64, 4, 32
 TOL = 1e-4

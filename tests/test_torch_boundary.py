@@ -17,6 +17,8 @@ from distributed_tensorflow_tpu_torch.ops import attention as TA
 from distributed_tensorflow_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "distributed_tensorflow_tpu_torch"

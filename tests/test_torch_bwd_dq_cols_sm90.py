@@ -22,6 +22,8 @@ from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops import attention as TA
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 NEW = "flash_bwd_dq_cols_sm90"
 

@@ -41,6 +41,8 @@ from distributed_tensorflow_tpu_torch.utils import faults, msgpack_state
 from test_torch_train_lm import run_ranks
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 S = 16
 CONFIG = {"vocab_size": 64, "d_model": 32, "num_heads": 4, "num_kv_heads": 2,

@@ -36,6 +36,8 @@ from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_tra
 from distributed_tensorflow_tpu_torch.train.optimizers import make_optimizer
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 B, S, STEPS, LR = 4, 32, 3, 1e-2
 SHAPE = dict(vocab_size=32, d_model=32, num_heads=4, num_kv_heads=2, num_layers=2, d_ff=64,
@@ -44,7 +46,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _jax_params(seed=3):
-    cfg = JT.TransformerConfig(compute_dtype=jnp.float32, **SHAPE)
+    # The JAX steps run their dense reference attention: the port's flash
+    # is held against the JAX kernels in tests/test_torch_attention.py.
+    cfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**SHAPE, "attention": "dense"})
     params = JT.TransformerLM(cfg).init(jax.random.PRNGKey(seed),
                                         jnp.zeros((1, 8), jnp.int32))["params"]
     return cfg, jax.device_get(params)

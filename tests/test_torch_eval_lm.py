@@ -23,6 +23,8 @@ from distributed_tensorflow_tpu_torch.models import transformer as TT
 from distributed_tensorflow_tpu_torch.models.convert import transformer_params_to_jax
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 CONFIG = {"vocab_size": 256, "d_model": 32, "num_heads": 4, "num_kv_heads": 0,
           "attention_window": 0, "use_bias": 0, "rope": 1, "rope_theta": 10000.0,

@@ -18,6 +18,8 @@ from distributed_tensorflow_tpu.ops import attention as JA
 from distributed_tensorflow_tpu_torch.ops import attention as TA
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 FWD_TOL, GRAD_TOL = 1e-5, 1e-4
 BLOCK = 16  # JAX block size; _fit_block shrinks it to divide short sequences

@@ -37,6 +37,8 @@ from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_tra
 from distributed_tensorflow_tpu_torch.train import optimizers as TO
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 PAD_TOL = 1e-6  # relative to the largest value: f32 sums over zero columns change nothing
 
@@ -298,10 +300,12 @@ def test_cli_defaults_step_matches_jax():
     """Two Adam steps at the CLI's defaults (d_model 128 over 4 heads: dh 32,
     4 layers, seq 128, batch 8, flash attention) from the same weights and
     the CLI's own synthetic batches: the port's losses equal the JAX
-    trainer's within 1e-4."""
+    trainer's within 1e-4. The JAX step runs its dense reference
+    attention: test_flash_qkv_at_head_dim_matches_jax holds the port's D 32
+    flash against the JAX kernel in interpret mode."""
     args, shape = _cli_config()
     assert shape["d_model"] // args.num_heads == 32
-    jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **shape)
+    jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**shape, "attention": "dense"})
     params = jax.device_get(
         JT.TransformerLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
     )

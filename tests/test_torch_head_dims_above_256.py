@@ -41,6 +41,8 @@ from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_tra
 from distributed_tensorflow_tpu_torch.train import optimizers as TO
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 H, S, BLOCK = 4, 128, 64
 
@@ -153,7 +155,10 @@ def test_cli_step_at_head_dim_512_matches_jax():
     head of 512, flash attention; one layer and batch 4 to keep the JAX
     side's interpret-mode kernels quick, the CLI's other defaults: seq 128,
     d_ff 512) from the same weights and the CLI's own synthetic batches: the
-    port's losses equal the JAX trainer's within 1e-4."""
+    port's losses equal the JAX trainer's within 1e-4. The JAX step runs its
+    dense reference attention: test_flash_qkv_above_256_matches_jax and the
+    two-pass tests hold the port's kernels above 256 against the JAX kernels
+    in interpret mode."""
     args = cli.build_parser().parse_args(["--attention", "flash", "--device", "cpu",
                                           "--d_model", "512", "--num_heads", "1",
                                           "--num_layers", "1", "--batch_size", "4"])
@@ -161,7 +166,7 @@ def test_cli_step_at_head_dim_512_matches_jax():
     shape = dict(vocab_size=args.vocab_size, d_model=args.d_model, num_heads=args.num_heads,
                  num_layers=args.num_layers, d_ff=args.d_ff, max_seq_len=args.seq_len,
                  use_bias=bool(args.use_bias), attention=args.attention)
-    jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **shape)
+    jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**shape, "attention": "dense"})
     params = jax.device_get(
         JT.TransformerLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
     )

@@ -26,6 +26,8 @@ from distributed_tensorflow_tpu_torch.ops import attention as TA
 from distributed_tensorflow_tpu_torch.tools import pipeline_probe as TP
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 TOL = 1e-5
 

@@ -2,7 +2,9 @@
 
 From the same flax weights and the same numpy-seeded tokens, the port's
 ``build_lm_train_step`` and the JAX package's (on a one-device mesh) take
-the same optimizer steps; their losses agree within 1e-4. Schedules are
+the same optimizer steps; their losses agree within 1e-4. The JAX step runs
+its dense reference attention (tests/test_torch_attention.py holds the
+port's flash against the JAX kernels in interpret mode). Schedules are
 compared value by value with optax's. The CLI runs on the CPU.
 """
 
@@ -30,6 +32,8 @@ from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_tra
 from distributed_tensorflow_tpu_torch.train import optimizers as TO
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -39,7 +43,7 @@ SHAPE = dict(vocab_size=32, d_model=32, num_heads=2, num_layers=1, d_ff=64, max_
 
 
 def _losses(optimizer, steps, schedule="constant", clip=0.0, lr=1e-2):
-    jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **SHAPE)
+    jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**SHAPE, "attention": "dense"})
     params = jax.device_get(
         JT.TransformerLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
     )

@@ -20,6 +20,8 @@ from distributed_tensorflow_tpu_torch.models.convert import (
 )
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 B, S = 2, 64
 SHAPE = dict(vocab_size=32, d_model=64, num_heads=4, num_layers=2, d_ff=128, max_seq_len=S)

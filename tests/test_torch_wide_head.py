@@ -28,6 +28,8 @@ from distributed_tensorflow_tpu_torch.models.convert import transformer_params_t
 from distributed_tensorflow_tpu_torch.ops import attention as TA
 
 pytestmark = pytest.mark.torch_port
+# Six test workers share the host's cores: one torch thread each, not one per core.
+torch.set_num_threads(1)
 
 BLOCK = 64  # the JAX side's block_q/block_kv, and the port's gate block to match
 D, S = 256, 256
