@@ -129,6 +129,16 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  8 K5 and 8 K6 launches a step (the gate's two-pass route at
                  head_dim 512), on flash_fwd_cols_sm90.cu,
                  flash_bwd_dq_cols_sm90.cu and flash_bwd_cols_sm90.cu;
+     pipeline  — pp, 3d and --remat at the flagship on one card (6 steps
+                 each, phase 4's seed and flags): pp with one stage and 2
+                 microbatches (exactly 2 x 8 K1 and 2 x 8 K2 launches a
+                 step, on flash_fwd_sm90.cu and flash_bwd_sm90.cu, its
+                 losses within cli/tp_cards.py's LOSS_TOL of dp's), 3d on
+                 one rank (data 1 x pipe 1 x model 1, 2 microbatches: 2 x 8
+                 K3 and 2 x 8 K4 a step, losses within LOSS_TOL of tp's),
+                 and dp with --remat (2 x 8 K1, the recompute, and 8 K2 a
+                 step, losses within LOSS_TOL of dp's); steps/s, tokens/s,
+                 MFU and the peak device memory of each run beside dp's;
      train_dir — checkpoints, resume, export and eval at the flagship's
                  full width, byte-level on a file of the repo's own text:
                  run A trains 8 steps with --train_dir (only the forced
@@ -1448,17 +1458,17 @@ def _zero_counts():
             counts[k] = 0
 
 
-def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
-    """The trainer (cli/train_lm.py) on one main path for ``steps`` steps:
-    finite loss at every boundary and exactly the path's launches, on the
-    path's sources. With ``forced`` (a map of source to source,
-    :data:`PLAIN_DESIGN`) every launch goes to the forced sources instead.
-    Returns the path's launches and its records."""
+def _trainer_run(smi, phase, shape, flags, per_layer, remap=None, steps=STEPS,
+                 interval=INTERVAL, forced=None):
+    """The trainer (cli/train_lm.py) at ``shape`` with ``flags`` for
+    ``steps`` steps: finite loss at every boundary, records naming the
+    run's parallelism, and exactly ``per_layer`` launches a layer a step on
+    their sources (:func:`expected_sources` with ``remap``). With ``forced``
+    (a map of source to source, :data:`PLAIN_DESIGN`) both directions run
+    the forced sources. Returns the launches of ``per_layer``'s counters,
+    the records and the peak device memory."""
     from distributed_tensorflow_tpu_torch.cli import train_lm
 
-    shape = SHAPES[path]
-    flags, per_layer, remap = MAIN_PATHS[path]
-    remap = forced or remap
     argv = [
         "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
         "--num_layers", str(shape["num_layers"]), "--d_ff", str(shape["d_ff"]),
@@ -1466,9 +1476,9 @@ def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
         "--use_bias", "0", "--attention", "flash", "--training_steps", str(steps),
         "--eval_step_interval", str(interval), "--device", "cuda", *flags,
     ]
-    parallelism = "tp" if path == "tp" else "dp"
-    phase = f"main_{path}" + ("_plain_design" if forced else "")
+    parallelism = flags[flags.index("--parallelism") + 1] if "--parallelism" in flags else "dp"
     _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
@@ -1479,6 +1489,7 @@ def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
         train_lm.main(argv)
     wall = time.perf_counter() - t0
     launches = dict(A.KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
     records = [json.loads(line) for line in buf.getvalue().splitlines()]
@@ -1504,8 +1515,20 @@ def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
     if "steps_per_sec" not in last:
         fail(f"{phase}: no timed window")
     emit(phase=phase, steps_per_sec=last["steps_per_sec"],
-         tokens_per_sec=last["tokens_per_sec"], mfu=last.get("mfu"), card=smi)
-    return {k: v for k, v in launches.items() if k in per_layer}, records
+         tokens_per_sec=last["tokens_per_sec"], mfu=last.get("mfu"),
+         max_memory_allocated=peak, card=smi)
+    return {k: v for k, v in launches.items() if k in per_layer}, records, peak
+
+
+def phase_main(smi, path, steps=STEPS, interval=INTERVAL, forced=None):
+    """The trainer on one main path (:data:`MAIN_PATHS`) for ``steps``
+    steps, by :func:`_trainer_run`; with ``forced`` every launch goes to
+    the forced sources instead. Returns the path's launches, its records
+    and its peak device memory."""
+    flags, per_layer, remap = MAIN_PATHS[path]
+    phase = f"main_{path}" + ("_plain_design" if forced else "")
+    return _trainer_run(smi, phase, SHAPES[path], flags, per_layer, forced or remap, steps,
+                        interval, forced)
 
 
 def phase_d512(smi):
@@ -1514,7 +1537,7 @@ def phase_d512(smi):
     flash_bwd_dq_cols_sm90.cu and 8 K6 on flash_bwd_cols_sm90.cu a step (at
     head_dim 512 the gate leaves the fused backward for the two-pass pair),
     and no other launch, and a falling loss. Returns the path's launches."""
-    launches, records = phase_main(smi, "d512")
+    launches, records, _ = phase_main(smi, "d512")
     if not records[-1]["loss"] < records[0]["loss"]:
         fail(f"main_d512: the loss did not fall ({[r['loss'] for r in records]})")
     return launches
@@ -1525,7 +1548,7 @@ def phase_wide(smi):
     steps with both directions forced to the plain-design kernels
     (flash_fwd.cu, flash_bwd.cu): its "was" reading, in the same run. The
     loss must fall over the 6 steps. Returns the path's launches."""
-    launches, records = phase_main(smi, "wide")
+    launches, records, _ = phase_main(smi, "wide")
     if not records[-1]["loss"] < records[0]["loss"]:
         fail(f"main_wide: the loss did not fall ({[r['loss'] for r in records]})")
     new = records[-1]
@@ -1535,6 +1558,48 @@ def phase_wide(smi):
          speedup=new["steps_per_sec"] / was["steps_per_sec"], mfu=new.get("mfu"),
          plain_design_mfu=was.get("mfu"), card=smi)
     return launches
+
+
+# The pipeline phase: each run's trainer flags (beside phase 4's flagship
+# flags), its launches a layer a step, and the phase 4 path whose losses it
+# must equal within LOSS_TOL. One stage and one rank: the schedule, the
+# microbatch split and the collect run on one card; cli/tp_cards.py holds
+# the splits across cards.
+PIPELINE_RUNS = {
+    "pp": (["--parallelism", "pp", "--model_parallel", "1", "--num_microbatches", "2"],
+           {"flash_fwd": 2, "flash_bwd": 2}, "dp"),
+    "3d": (["--parallelism", "3d", "--pipeline_parallel", "1", "--model_parallel", "1",
+            "--num_microbatches", "2"], {"bhsd_fwd": 2, "bhsd_bwd": 2}, "tp"),
+    "dp_remat": (["--remat"], {"flash_fwd": 2, "flash_bwd": 1}, "dp"),
+}
+
+
+def phase_pipeline(smi, base):
+    """pp, 3d and dp under --remat at the flagship (:data:`PIPELINE_RUNS`),
+    each by :func:`_trainer_run` (its exact launches on the warpgroup
+    sources) and against ``base`` (phase 4's ``{path: (records, peak
+    bytes)}``): losses within ``cli/tp_cards.py``'s LOSS_TOL (relative) of
+    the base path's. Prints steps/s, tokens/s, MFU and the peak device
+    memory beside the base path's. Returns each run's launches."""
+    from distributed_tensorflow_tpu_torch.cli.tp_cards import LOSS_TOL
+
+    out = {}
+    for name, (flags, per_layer, against) in PIPELINE_RUNS.items():
+        phase = f"pipeline_{name}"
+        launches, records, peak = _trainer_run(smi, phase, FLAGSHIP, flags, per_layer)
+        base_records, base_peak = base[against]
+        losses, base_losses = [r["loss"] for r in records], [r["loss"] for r in base_records]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+        last, base_last = records[-1], base_records[-1]
+        emit(phase=phase, against=against, losses=losses, base_losses=base_losses,
+             loss_rel_diff=worst, loss_tol=LOSS_TOL, steps_per_sec=last["steps_per_sec"],
+             against_steps_per_sec=base_last["steps_per_sec"], max_memory_allocated=peak,
+             against_max_memory_allocated=base_peak, card=smi)
+        if len(losses) != len(base_losses) or not worst <= LOSS_TOL:
+            fail(f"{phase}: losses {losses} against {against}'s {base_losses}: "
+                 f"{worst} > {LOSS_TOL}")
+        out[name] = launches
+    return out
 
 
 # The trainer at its own defaults (d_model 128 over 4 heads: head_dim 32, 4
@@ -3712,10 +3777,12 @@ def main():
     errs.update(phase_head_dims())
     errs.update(phase_head_dims_above_256())
     phase_pipe_head_dims()
-    by_path = {path: phase_main(smi, path)[0] for path in ("dp", "tp", "long")}
+    main_runs = {path: phase_main(smi, path) for path in ("dp", "tp", "long")}
+    by_path = {path: run[0] for path, run in main_runs.items()}
     by_path["wide"] = phase_wide(smi)
     cli_runs = phase_cli_head_dims()
     d512 = phase_d512(smi)
+    pipeline = phase_pipeline(smi, {p: main_runs[p][1:] for p in ("dp", "tp")})
     phase_train_dir(smi)
     phase_serve(smi)
     # A kernel's launches are those of the first path of by_path it serves
@@ -3767,6 +3834,11 @@ def main():
                                            "at --d_model 1280 --num_heads 4")):
         launches[name] = 0
         notes[name] = {"launches_note": f"0 on every path driven here; {where}"}
+    # pp, 3d and remat run the dp/tp kernels at other launch counts: listed
+    # beside their paths (each row's launches stay its first path's).
+    for run, counts in pipeline.items():
+        for k, n in counts.items():
+            notes[k]["launches_by_path"][run] = n
     for name, route_launches in phase_routes().items():
         for k in ("bshd_fwd", "bwd_dq", "bwd_dkv"):
             if k in route_launches:

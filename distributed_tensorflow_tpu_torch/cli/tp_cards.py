@@ -1,7 +1,8 @@
-"""Run the tp and dp trainers on one card and across the cards of one host,
-and compare.
+"""Run the tp, dp, pp and 3d trainers on one card and across the cards of
+one host, and compare.
 
-    python -m distributed_tensorflow_tpu_torch.cli.tp_cards [--cards 4] [trainer flags]
+    python -m distributed_tensorflow_tpu_torch.cli.tp_cards [--cards 4] [--only pp,3d]
+        [trainer flags]
 
 Runs of ``cli/train_lm.py`` with the same flags, seed and global batch
 (default: the bench flagship, 6 steps). tp: ``--parallelism tp
@@ -9,11 +10,15 @@ Runs of ``cli/train_lm.py`` with the same flags, seed and global batch
 --nproc_per_node N`` with ``--model_parallel N`` and with
 ``--model_parallel N/2`` (data 2 x model N/2). dp: ``--parallelism dp`` on
 one card, then under the same ``torchrun`` over N cards (each rank its rows
-of the batch, the gradients averaged in one all-reduce). Every split of a
-mode trains the same whole model, so its losses must agree with the one-card
-run's up to bf16 rounding (relative ``LOSS_TOL``). Prints each run's command
-and its chief's JSON records, then one summary line; exits non-zero when a
-run fails or the losses disagree. The summary names the cards as
+of the batch, the gradients averaged in one all-reduce). pp: N pipeline
+stages (``--model_parallel N --num_microbatches N``) against the one-card
+dp run. 3d: data 1 x pipe 2 x model N/2 (``--pipeline_parallel 2
+--model_parallel N/2``) against the one-card tp run. Every split trains the
+same whole model, so its losses must agree with its one-card run's up to
+bf16 rounding (relative ``LOSS_TOL``). ``--only`` runs the named modes and
+the one-card runs they are held against. Prints each run's command and its
+chief's JSON records, then one summary line; exits non-zero when a run
+fails or the losses disagree. The summary names the cards as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 """
 
@@ -34,6 +39,7 @@ FLAGSHIP = [
 ]
 TRAINER = ["-m", "distributed_tensorflow_tpu_torch.cli.train_lm"]
 LOSS_TOL = 1e-2  # bf16 compute: splits sum partial products in other orders
+MODES = ("tp", "dp", "pp", "3d")
 
 
 def run(cmd: list[str]) -> list[dict]:
@@ -59,22 +65,39 @@ def nvidia_smi() -> list[str]:
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--cards", type=int, default=torch.cuda.device_count())
+    p.add_argument("--only", default=",".join(MODES),
+                   help="comma-separated modes to run, each with its one-card run")
     args, flags = p.parse_known_args(argv)
     if args.cards < 2 or args.cards % 2:
         sys.exit(f"tp_cards: needs an even number of cards >= 2, got {args.cards}")
+    modes = args.only.split(",")
+    if set(modes) - set(MODES):
+        sys.exit(f"tp_cards: --only takes modes of {MODES}, got {args.only}")
     flags = flags or FLAGSHIP
+    n, half = str(args.cards), str(args.cards // 2)
     torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc_per_node", str(args.cards)]
-    tp, dp = [*TRAINER, "--parallelism", "tp"], [*TRAINER, "--parallelism", "dp"]
+                "--nproc_per_node", n]
+    trainer = lambda mode: [*TRAINER, "--parallelism", mode, *flags]  # noqa: E731
     # Each run and the one-card run of its mode that it is held against.
-    runs = {"tp1_one_card": (run([sys.executable, *tp, *flags, "--model_parallel", "1"]),
-                             "tp1_one_card")}
-    runs[f"tp{args.cards}"] = (run([*torchrun, *tp, *flags, "--model_parallel", str(args.cards)]),
-                               "tp1_one_card")
-    runs[f"data2_tp{args.cards // 2}"] = (run([*torchrun, *tp, *flags, "--model_parallel",
-                                               str(args.cards // 2)]), "tp1_one_card")
-    runs["dp1_one_card"] = (run([sys.executable, *dp, *flags]), "dp1_one_card")
-    runs[f"dp{args.cards}"] = (run([*torchrun, *dp, *flags]), "dp1_one_card")
+    runs = {}
+    if {"tp", "3d"} & set(modes):
+        runs["tp1_one_card"] = (run([sys.executable, *trainer("tp"), "--model_parallel", "1"]),
+                                "tp1_one_card")
+    if "tp" in modes:
+        runs[f"tp{n}"] = (run([*torchrun, *trainer("tp"), "--model_parallel", n]),
+                          "tp1_one_card")
+        runs[f"data2_tp{half}"] = (run([*torchrun, *trainer("tp"), "--model_parallel", half]),
+                                   "tp1_one_card")
+    if {"dp", "pp"} & set(modes):
+        runs["dp1_one_card"] = (run([sys.executable, *trainer("dp")]), "dp1_one_card")
+    if "dp" in modes:
+        runs[f"dp{n}"] = (run([*torchrun, *trainer("dp")]), "dp1_one_card")
+    if "pp" in modes:
+        runs[f"pp{n}"] = (run([*torchrun, *trainer("pp"), "--model_parallel", n,
+                               "--num_microbatches", n]), "dp1_one_card")
+    if "3d" in modes:
+        runs[f"3d_pipe2_tp{half}"] = (run([*torchrun, *trainer("3d"), "--pipeline_parallel",
+                                           "2", "--model_parallel", half]), "tp1_one_card")
     summary = {"cards": args.cards, "nvidia_smi": nvidia_smi()}
     ok = True
     for name, (records, base_name) in runs.items():

@@ -1,6 +1,6 @@
 """Transformer-LM training CLI — the port of ``tools/train_lm.py`` in its
-``dp`` mode (data parallelism) and ``tp`` mode (Megatron tensor
-parallelism).
+``dp`` (data parallelism), ``tp`` (Megatron tensor parallelism), ``pp``
+(GPipe pipeline parallelism) and ``3d`` (data x pipe x model) modes.
 
     python -m distributed_tensorflow_tpu_torch.cli.train_lm \\
         --d_model 2048 --num_heads 16 --num_layers 8 --d_ff 8192 \\
@@ -9,6 +9,10 @@ parallelism).
         --parallelism dp --attention flash ...
     torchrun --nproc_per_node N -m distributed_tensorflow_tpu_torch.cli.train_lm \\
         --parallelism tp --model_parallel N --attention flash ...
+    torchrun --nproc_per_node N -m distributed_tensorflow_tpu_torch.cli.train_lm \\
+        --parallelism pp --model_parallel N --num_microbatches N --attention flash ...
+    torchrun --nproc_per_node 4 -m distributed_tensorflow_tpu_torch.cli.train_lm \\
+        --parallelism 3d --pipeline_parallel 2 --model_parallel 2 --attention flash ...
 
 Flags keep the JAX trainer's names and defaults. It runs on the card
 (``--device cuda``, the default) in bf16, or on the CPU in f32 when asked
@@ -21,8 +25,16 @@ in a world of one); after training in a world of more than one it checks
 that every rank holds bitwise-equal parameters, as the JAX trainer does.
 ``tp`` splits the world into data x model groups of ``--model_parallel``
 ranks and gives each data group's ranks their slice of the global
-``--batch_size``. Data: ``--text_file`` trains byte-level (vocab 256) on
-random windows of a file; without it, the JAX trainer's synthetic copy task
+``--batch_size``. ``pp`` splits the layers into ``--model_parallel``
+pipeline stages, as the JAX trainer does (the rest of the world is data
+parallel), and runs ``--num_microbatches`` microbatches through them
+(``parallel/pipeline_parallel.py``); ``3d`` runs ``--pipeline_parallel``
+stages of ``--model_parallel``-way tensor-parallel blocks, data parallel
+across the rest (``parallel/three_d.py``). ``--remat`` recomputes each
+block on backward in every mode. Gradient clipping under tp, pp and 3d is
+per rank, over what the rank holds, as in the JAX step. Data:
+``--text_file`` trains byte-level (vocab 256) on random windows of a file;
+without it, the JAX trainer's synthetic copy task
 from ``np.random.default_rng(seed)``. One JSON record per eval boundary,
 printed by the chief (rank 0): step, loss, parallelism and, after the first
 (warm-up) window, steps/s, tokens/s and MFU (over the peak of every rank's
@@ -38,9 +50,11 @@ TensorBoard scalars there. A run resumed at its last step trains nothing
 and returns NaN. With ``--text_file`` a resumed run draws the windows an
 uninterrupted run would have drawn (they are keyed by step); the synthetic
 copy task's generator restarts from ``--seed``, as in the JAX trainer.
-``--output`` exports the final parameters as an inference bundle from the
-chief (not for tp over several processes, whose parameters are split
-across them), with the JAX trainer's metadata.
+``--train_dir`` under pp and 3d is not ported yet. ``--output`` exports the
+final parameters as an inference bundle from the chief (not for tp, pp or
+3d over several processes, whose parameters are split across them), with
+the JAX trainer's metadata; pp and 3d export the stage-stacked tree the JAX
+trainer exports.
 """
 
 from __future__ import annotations
@@ -62,11 +76,14 @@ def synthetic_tokens(rng, batch, seq_len, vocab):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--parallelism", choices=("dp", "tp"), default="dp",
+    p.add_argument("--parallelism", choices=("dp", "tp", "pp", "3d"), default="dp",
                    help="dp: data parallelism over every rank; tp: tensor parallelism over "
-                        "--model_parallel ranks, data parallelism across the rest (other "
-                        "modes are not ported yet)")
+                        "--model_parallel ranks; pp: --model_parallel pipeline stages; 3d: "
+                        "--pipeline_parallel stages of --model_parallel-way tp; data "
+                        "parallelism across the rest (other modes are not ported yet)")
     p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="size of the 'pipe' mesh axis: pipeline stages (3d)")
     p.add_argument("--training_steps", type=int, default=100)
     p.add_argument("--eval_step_interval", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=8)
@@ -95,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", type=int, default=0)
     p.add_argument("--grad_clip_norm", type=float, default=0.0)
     p.add_argument("--attention", default="dense", choices=("dense", "flash"))
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialise transformer blocks on backward (activation "
+                        "memory O(L*S*d_model) instead of every intermediate)")
+    p.add_argument("--num_microbatches", type=int, default=2, help="pp and 3d only")
     p.add_argument("--output", default="", help="optional params bundle path")
     p.add_argument("--train_dir", default="",
                    help="checkpoint dir: timed autosave + resume")
@@ -111,6 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> float:
     """Train; returns the last step's loss."""
     args = build_parser().parse_args(argv)
+    if args.train_dir and args.parallelism in ("pp", "3d"):
+        raise SystemExit(f"train_lm: --train_dir under --parallelism {args.parallelism} is not "
+                         "ported yet")
 
     from distributed_tensorflow_tpu_torch.utils.device import resolve_device
 
@@ -155,6 +179,7 @@ def _train(args, device, cluster) -> float:
         d_ff=args.d_ff,
         max_seq_len=args.seq_len,
         attention=args.attention,
+        remat=args.remat,
         compute_dtype=compute_dtype(device),
     )
     world, chief = cluster.world_size, cluster.is_chief
@@ -169,20 +194,43 @@ def _train(args, device, cluster) -> float:
         model, mesh = TransformerLM(cfg, seed=args.seed, device=device), None
         build_step = functools.partial(build_lm_train_step, group=dist.group.WORLD)
     else:
-        from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
-        from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
-            TpTransformerLM,
-            build_tp_lm_train_step,
-        )
+        from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh3
 
-        mesh = make_mesh(args.model_parallel)
+        # pp takes its stage count from --model_parallel, as the JAX trainer does.
+        pipe, tp = {"tp": (1, args.model_parallel), "pp": (args.model_parallel, 1),
+                    "3d": (args.pipeline_parallel, args.model_parallel)}[args.parallelism]
+        mesh = make_mesh3(pipe, tp)
         if args.batch_size % mesh.data_size:
             raise ValueError(f"--batch_size {args.batch_size} does not split over "
                              f"{mesh.data_size} data-parallel ranks")
         per = args.batch_size // mesh.data_size
         rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)  # this rank's batch rows
-        model = TpTransformerLM(cfg, mesh, seed=args.seed, device=device)
-        build_step = functools.partial(build_tp_lm_train_step, mesh=mesh)
+        if args.parallelism == "tp":
+            from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+                TpTransformerLM,
+                build_tp_lm_train_step,
+            )
+
+            model = TpTransformerLM(cfg, mesh, seed=args.seed, device=device)
+            build_step = functools.partial(build_tp_lm_train_step, mesh=mesh)
+        elif args.parallelism == "pp":
+            from distributed_tensorflow_tpu_torch.parallel.pipeline_parallel import (
+                PipelineLM,
+                build_pp_lm_train_step,
+            )
+
+            model = PipelineLM(cfg, mesh, seed=args.seed, device=device)
+            build_step = functools.partial(build_pp_lm_train_step,
+                                           num_microbatches=args.num_microbatches)
+        else:
+            from distributed_tensorflow_tpu_torch.parallel.three_d import (
+                ThreeDLM,
+                build_3d_lm_train_step,
+            )
+
+            model = ThreeDLM(cfg, mesh, seed=args.seed, device=device)
+            build_step = functools.partial(build_3d_lm_train_step,
+                                           num_microbatches=args.num_microbatches)
     opt = make_optimizer(
         args.optimizer, model.parameters(), args.learning_rate,
         total_steps=args.training_steps, schedule=args.lr_schedule,
@@ -280,7 +328,7 @@ def _train(args, device, cluster) -> float:
 def _export(args, cfg, model, world) -> None:
     """The chief's ``--output``: the bundle with the JAX trainer's metadata
     (enough to rebuild the config at load time)."""
-    if world > 1 and args.parallelism == "tp":
+    if world > 1 and args.parallelism != "dp":
         print(
             f"skipping --output: {args.parallelism} params are sharded across "
             "processes (not addressable from the chief alone) — use "
@@ -289,12 +337,19 @@ def _export(args, cfg, model, world) -> None:
             flush=True,
         )
         return
-    from distributed_tensorflow_tpu_torch.models.convert import transformer_params_to_jax
+    from distributed_tensorflow_tpu_torch.models.convert import (
+        pp_params_to_jax,
+        transformer_params_to_jax,
+    )
     from distributed_tensorflow_tpu_torch.train.checkpoint import export_inference_bundle
 
+    if args.parallelism in ("pp", "3d"):
+        params = pp_params_to_jax([model])  # a world of one: the one stage, stacked
+    else:
+        params = transformer_params_to_jax(model)
     export_inference_bundle(
         args.output,
-        transformer_params_to_jax(model),
+        params,
         metadata={
             "model": "TransformerLM",
             "parallelism": args.parallelism,

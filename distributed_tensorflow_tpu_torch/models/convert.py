@@ -1,6 +1,7 @@
 """Weight bridge between the JAX package's flax parameter trees and this
-package's state dicts: ``TransformerLM`` and (whole, unsplit)
-``TpTransformerLM``.
+package's state dicts: ``TransformerLM``, (whole, unsplit)
+``TpTransformerLM``, and the pipeline stages (``PipelineLM``, ``ThreeDLM``)
+against the JAX stage-stacked trees.
 
 The flax tree arrives as nested dicts of numpy arrays (``jax.device_get``
 of the params) and leaves as the same; nothing here imports JAX. Mapping:
@@ -17,6 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from distributed_tensorflow_tpu_torch.parallel.pipeline_parallel import (
+    stack_stage_params,
+    stage_state_dict,
+    unstack_stage_params,
+)
+from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import shard_params
 
 _FLAX_TO_TORCH_LEAF = {
     "kernel": "weight",
@@ -93,3 +101,35 @@ def transformer_params_to_jax(module: nn.Module, grads: bool = False) -> dict:
 # split the result with parallel/tensor_parallel.shard_params.
 tp_params_from_jax = transformer_params_from_jax
 tp_params_to_jax = transformer_params_to_jax
+
+
+def pp_params_from_jax(stacked: dict, stage: int) -> dict[str, torch.Tensor]:
+    """A JAX ``stack_stage_params`` tree (nested numpy dicts; leaves of the
+    layers (S, L/S, ...)) → stage ``stage``'s ``PipelineLM`` state dict."""
+    num_stages = next(_flatten(stacked["stages"]))[1].shape[0]
+    plain = unstack_stage_params(stacked)
+    return stage_state_dict(transformer_params_from_jax(plain), stage, num_stages)
+
+
+def pp_params_to_jax(stages: list[nn.Module]) -> dict:
+    """Every stage's module (``PipelineLM``, or an unsplit ``ThreeDLM``), in
+    stage order → the JAX stage-stacked tree (nested numpy dicts)."""
+    trees = [transformer_params_to_jax(m) for m in stages]
+    plain = {k: v for k, v in trees[0].items() if k != "blocks"}
+    per = len(trees[0]["blocks"])
+    for s, tree in enumerate(trees):
+        for i, block in tree["blocks"].items():
+            plain[f"block_{s * per + int(i)}"] = block
+    return stack_stage_params(plain, len(stages))
+
+
+def three_d_params_from_jax(stacked: dict, stage: int, mesh) -> dict[str, torch.Tensor]:
+    """The JAX ``init_3d_params`` tree (stacked tp blocks, whole widths) →
+    this rank's ``ThreeDLM`` state dict: stage ``stage``, sliced for
+    ``mesh.model_rank``."""
+    return shard_params(pp_params_from_jax(stacked, stage), mesh)
+
+
+# Whole-width 3d stages go back through the same bridge (gather a stage split
+# over a model group first: parallel/tensor_parallel.gather_params).
+three_d_params_to_jax = pp_params_to_jax

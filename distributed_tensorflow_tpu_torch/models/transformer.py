@@ -4,7 +4,9 @@ Counterpart of ``distributed_tensorflow_tpu/models/transformer.py``:
 pre-norm blocks, tanh-GELU MLP, learned or rotary positions, GQA,
 sliding-window causal attention, and the attention implementation chosen by
 name — ``dense`` (the O(S²) reference) or ``flash`` (the packed-qkv kernels
-of ``ops/attention.py``) — on the uncached (training) path.
+of ``ops/attention.py``) — on the uncached (training) path. Under
+``remat`` that path recomputes each block on backward
+(``torch.utils.checkpoint``) instead of keeping its activations.
 
 With a KV cache (``model(tokens, cache=...)``) the model runs the JAX
 model's cached branch instead, which reaches no flash kernel: the new keys
@@ -30,6 +32,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distributed_tensorflow_tpu_torch.ops import attention as A
 from distributed_tensorflow_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_tables
@@ -56,6 +59,7 @@ class TransformerConfig:
     position: str = "learned"  # 'learned' | 'rope'
     rope_theta: float = 10000.0
     kv_cache_dtype: str | None = None  # None = compute dtype; 'int8' not ported yet
+    remat: bool = False  # recompute each block on backward (uncached path)
 
     def __post_init__(self):
         if self.position not in ("learned", "rope"):
@@ -212,6 +216,14 @@ class Block(nn.Module):
         return x + self.mlp_out(h)
 
 
+def apply_block(block: nn.Module, x: torch.Tensor, rope, remat: bool) -> torch.Tensor:
+    """``block(x, rope)``; under ``remat`` its activations are not kept but
+    recomputed on backward, as ``nn.remat(Block)`` does in the JAX model."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, x, rope, use_reentrant=False)
+    return block(x, rope)
+
+
 class ContiguousKV:
     """KV view of a cache dict ``{"layers": [{"k", "v"}], "len"}`` (the JAX
     layout: k/v (B, KV, S_max, dh), ``len`` the filled prefix, one int for
@@ -279,7 +291,7 @@ class TransformerLM(nn.Module):
             # Unbatched lookup of positions 0..S-1, broadcast over the batch.
             x = x + self.pos_embed(torch.arange(s, device=tokens.device))[None]
         for i in range(cfg.num_layers):
-            x = getattr(self, f"block_{i}")(x, rope)
+            x = apply_block(getattr(self, f"block_{i}"), x, rope, cfg.remat)
         return self.lm_head(self.ln_f(x)).float()
 
     def _cached_forward(self, tokens, cache):

@@ -34,6 +34,7 @@ from distributed_tensorflow_tpu_torch.models.transformer import (
     Embed,
     LayerNorm,
     TransformerConfig,
+    apply_block,
     next_token_loss,
 )
 from distributed_tensorflow_tpu_torch.ops import attention as A
@@ -193,7 +194,7 @@ class TpTransformerLM(nn.Module):
         else:
             x = x + self.pos_embed(torch.arange(s, device=tokens.device))[None]
         for i in range(cfg.num_layers):
-            x = getattr(self, f"block_{i}")(x, rope)
+            x = apply_block(getattr(self, f"block_{i}"), x, rope, cfg.remat)
         return self.lm_head(self.ln_f(x)).float()
 
 

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distributed_tensorflow_tpu_torch.parallel.pipeline_parallel import unstack_stage_params
 from distributed_tensorflow_tpu_torch.utils import faults, msgpack_state
 from distributed_tensorflow_tpu_torch.utils.logging import get_logger
 from distributed_tensorflow_tpu_torch.utils.retry import retry_call
@@ -668,31 +669,6 @@ def load_inference_bundle(path: str):
         if fh.readinto(blob) != len(blob):
             raise OSError(f"truncated bundle {path}")
     return msgpack_state.loads(blob), metadata
-
-
-def unstack_stage_params(pp_params: dict) -> dict:
-    """A pipeline-parallel tree (``stages`` leaves (num_stages, per, ...))
-    back to the plain ``TransformerLM`` tree of ``block_i`` subtrees."""
-
-    def leaves(node):
-        if isinstance(node, dict):
-            for v in node.values():
-                yield from leaves(v)
-        else:
-            yield node
-
-    def take(node, s, layer):
-        if isinstance(node, dict):
-            return {k: take(v, s, layer) for k, v in node.items()}
-        return np.asarray(node)[s, layer]
-
-    stages = pp_params["stages"]
-    num_stages, per = np.shape(next(leaves(stages)))[:2]
-    out = {k: v for k, v in pp_params.items() if k != "stages"}
-    for s in range(num_stages):
-        for layer in range(per):
-            out[f"block_{s * per + layer}"] = take(stages, s, layer)
-    return out
 
 
 _QUANT_KEYS = ("weight_dtype", "quant_group_size", "kv_cache_dtype")

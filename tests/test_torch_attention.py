@@ -55,18 +55,28 @@ def _rope_kwargs(mode, lib):
     return {}
 
 
+def jit_vjp(f, cotangent, *primals):
+    """``jax.vjp`` of ``f`` at ``primals``, pulled back from ``cotangent``,
+    as one compiled program: ``(out, grads)``. Run eagerly, each Pallas call
+    of the forward and backward (interpret mode) compiles on its own."""
+    def pull(c, *xs):
+        out, vjp = jax.vjp(f, *xs)
+        return out, vjp(c)
+
+    return jax.jit(pull)(cotangent, *primals)
+
+
 def _jax_side(qkv, g, kv, causal, window=None, rope=None):
     kw = _rope_kwargs(rope, "jax")
     x = jnp.asarray(qkv)
     _, lse = JA._flash_forward_qkv(
         x, H, kv, causal, 1024, 1024, None, True, with_lse=True, window=window, **kw
     )
-    out, vjp = jax.vjp(
+    out, (dqkv,) = jit_vjp(
         lambda t: JA.flash_attention_qkv(t, H, kv, causal=causal, interpret=True,
                                          window=window, **kw),
-        x,
+        jnp.asarray(g), x,
     )
-    (dqkv,) = vjp(jnp.asarray(g))
     return np.asarray(out), np.asarray(lse).reshape(B, H, S), np.asarray(dqkv)
 
 

@@ -2,6 +2,7 @@
 msgpack or orbax, which the card's machine lacks), runs on the card unless
 asked for the CPU, and launches no kernel for CPU tensors."""
 
+import json
 import os
 import pathlib
 import re
@@ -31,42 +32,43 @@ def _modules():
     )
 
 
-def test_importing_every_module_loads_no_jax():
+def _tools_modules():
+    return [m for m in _modules() if m.startswith("distributed_tensorflow_tpu_torch.tools")]
+
+
+@pytest.fixture(scope="module")
+def imports():
+    """One fresh interpreter: the modules its imports load after the port's
+    tools alone, then after every module of the port."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, json, sys\n"
+        f"for m in {_tools_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "tools = sorted(sys.modules)\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', "
-        "'optax', 'msgpack', 'orbax', 'distributed_tensorflow_tpu.')) "
-        "or m == 'distributed_tensorflow_tpu')\n"
-        "assert not bad, bad\n"
-        "print('ok', len(sys.modules))\n"
+        "print(json.dumps({'tools': tools, 'all': sorted(sys.modules)}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.startswith("ok")
+    return json.loads(res.stdout)
 
 
-def test_port_tools_import_no_root_tools_or_bench():
+def test_importing_every_module_loads_no_jax(imports):
+    bad = sorted(m for m in imports["all"] if m == "jax" or m.startswith(
+        ("jax.", "flax", "optax", "msgpack", "orbax", "distributed_tensorflow_tpu."))
+        or m == "distributed_tensorflow_tpu")
+    assert not bad, bad
+
+
+def test_port_tools_import_no_root_tools_or_bench(imports):
     # The port's probes are counterparts of the repo root's tools/*_probe.py,
     # which import bench and the JAX package; the port keeps its own copies.
-    mods = [m for m in _modules() if m.startswith("distributed_tensorflow_tpu_torch.tools")]
-    code = (
-        "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
-        "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('tools', 'bench'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert len(mods) == 3, mods
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.startswith("ok")
+    assert len(_tools_modules()) == 3, _tools_modules()
+    bad = sorted(m for m in imports["tools"] if m.split(".")[0] in ("tools", "bench"))
+    assert not bad, bad
 
 
 def test_sources_name_no_jax():

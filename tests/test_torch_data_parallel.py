@@ -30,7 +30,10 @@ from distributed_tensorflow_tpu.parallel import data_parallel as jdp
 from distributed_tensorflow_tpu.parallel.mesh import make_mesh
 from distributed_tensorflow_tpu.train import optimizers as JO
 from distributed_tensorflow_tpu_torch.models import transformer as TT
-from distributed_tensorflow_tpu_torch.models.convert import transformer_params_from_jax
+from distributed_tensorflow_tpu_torch.models.convert import (
+    transformer_params_from_jax,
+    transformer_params_to_jax,
+)
 from distributed_tensorflow_tpu_torch.parallel import consistency as tcons
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_train_step
 from distributed_tensorflow_tpu_torch.train.optimizers import make_optimizer
@@ -48,10 +51,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _jax_params(seed=3):
     # The JAX steps run their dense reference attention: the port's flash
     # is held against the JAX kernels in tests/test_torch_attention.py.
+    # The port draws the weights (no JAX init to compile); both packages
+    # start from them.
     cfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**SHAPE, "attention": "dense"})
-    params = JT.TransformerLM(cfg).init(jax.random.PRNGKey(seed),
-                                        jnp.zeros((1, 8), jnp.int32))["params"]
-    return cfg, jax.device_get(params)
+    model = TT.TransformerLM(TT.TransformerConfig(compute_dtype=torch.float32, **SHAPE),
+                             seed=seed, device="cpu")
+    return cfg, transformer_params_to_jax(model)
 
 
 def _torch_model(params):
@@ -128,7 +133,7 @@ def test_gloo_two_ranks_match_jax_dp_step(tmp_path):
     tx = JO.make_optimizer("adam", LR, total_steps=STEPS)
     jstep = jdp.build_lm_train_step(jcfg, tx, mesh)
     p, o = jdp.replicate(params, mesh), jdp.replicate(tx.init(params), mesh)
-    n = jnp.zeros((), jnp.int32)
+    n = jdp.replicate(jnp.zeros((), jnp.int32), mesh)  # as the step returns it: one compile
     want = []
     for t in batches:
         p, o, n, m = jstep(p, o, n, jdp.shard_global_batch({"x": jnp.asarray(t)}, mesh)["x"],

@@ -24,7 +24,10 @@ from distributed_tensorflow_tpu.models import decoding as JD
 from distributed_tensorflow_tpu.models import transformer as JT
 from distributed_tensorflow_tpu_torch.models import decoding as TD
 from distributed_tensorflow_tpu_torch.models import transformer as TT
-from distributed_tensorflow_tpu_torch.models.convert import transformer_params_from_jax
+from distributed_tensorflow_tpu_torch.models.convert import (
+    transformer_params_from_jax,
+    transformer_params_to_jax,
+)
 
 pytestmark = pytest.mark.torch_port
 # Six test workers share the host's cores: one torch thread each, not one per core.
@@ -48,9 +51,10 @@ def _rel(got, want):
 def pair(request):
     shape = CASES[request.param]
     jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **shape)
-    params = jax.device_get(
-        JT.TransformerLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
     tcfg = TT.TransformerConfig(compute_dtype=torch.float32, **shape)
+    # The port draws the weights (no JAX init to compile); both packages
+    # start from them.
+    params = transformer_params_to_jax(TT.TransformerLM(tcfg, device="cpu"))
     model = TT.TransformerLM(tcfg, device="cpu")
     model.load_state_dict(transformer_params_from_jax(params))
     return jcfg, params, tcfg, model

@@ -16,6 +16,7 @@ import torch
 
 from distributed_tensorflow_tpu.ops import attention as JA
 from distributed_tensorflow_tpu_torch.ops import attention as TA
+from test_torch_attention import jit_vjp
 
 pytestmark = pytest.mark.torch_port
 # Six test workers share the host's cores: one torch thread each, not one per core.
@@ -53,12 +54,11 @@ def _jax_side(q, k, v, g, causal, window):
     jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
     out, lse = JA._flash_forward(jq, jk, jv, causal, BLOCK, BLOCK, None, True,
                                  with_lse=True, window=window)
-    _, vjp = jax.vjp(
+    _, grads = jit_vjp(
         lambda a, b_, c: JA.flash_attention(a, b_, c, causal=causal, block_q=BLOCK,
                                             block_kv=BLOCK, interpret=True, window=window),
-        jq, jk, jv,
+        jnp.asarray(g), jq, jk, jv,
     )
-    grads = vjp(jnp.asarray(g))
     return [np.asarray(t) for t in (out, lse, *grads)]
 
 

@@ -22,6 +22,7 @@ from distributed_tensorflow_tpu.ops import attention as JA
 from distributed_tensorflow_tpu.ops import rope as JR
 from distributed_tensorflow_tpu_torch.ops import attention as TA
 from distributed_tensorflow_tpu_torch.ops import rope as TR
+from test_torch_attention import jit_vjp
 
 pytestmark = pytest.mark.torch_port
 # Six test workers share the host's cores: one torch thread each, not one per core.
@@ -116,10 +117,10 @@ def test_flash_attention_bshd_matches_jax(case):
     jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
     _, jlse = JA._flash_forward_bshd(jq, jk, jv, causal, BLOCK, BLOCK, None, True,
                                      with_lse=True, window=window)
-    jout, vjp = jax.vjp(lambda a, b_, c: JA.flash_attention_bshd(
+    jout, grads = jit_vjp(lambda a, b_, c: JA.flash_attention_bshd(
         a, b_, c, causal=causal, block_q=BLOCK, block_kv=BLOCK, interpret=True, window=window),
-        jq, jk, jv)
-    want = [jout, jlse.reshape(2, 2, sq), *vjp(jnp.asarray(g))]
+        jnp.asarray(g), jq, jk, jv)
+    want = [jout, jlse.reshape(2, 2, sq), *grads]
 
     tq, tk, tv = (torch.tensor(t, requires_grad=True) for t in (q, k, v))
     out = TA.flash_attention_bshd(tq, tk, tv, causal=causal, window=window)
@@ -148,12 +149,11 @@ def test_packed_long_branch_matches_jax(gate, routes, route, window):
     jcos, jsin = JR.rope_cos_sin(jnp.asarray(positions), d)
     tcos, tsin = TR.rope_cos_sin(torch.tensor(positions), d)
 
-    want_out, vjp = jax.vjp(
+    want_out, (want_grad,) = jit_vjp(
         lambda x: JA.flash_attention_qkv(x, h, kv, causal=True, window=window, block_q=BLOCK,
                                          block_kv=BLOCK, interpret=True, rope_cos=jcos,
                                          rope_sin=jsin),
-        jnp.asarray(qkv))
-    (want_grad,) = vjp(jnp.asarray(g_out))
+        jnp.asarray(g_out), jnp.asarray(qkv))
     x = torch.tensor(qkv, requires_grad=True)
     out = TA.flash_attention_qkv(x, h, kv, causal=True, window=window, rope_cos=tcos,
                                  rope_sin=tsin)
@@ -181,7 +181,10 @@ def test_long_context_lm_step_matches_jax(gate, routes):
     from distributed_tensorflow_tpu.parallel.mesh import make_mesh
     from distributed_tensorflow_tpu.train import optimizers as JO
     from distributed_tensorflow_tpu_torch.models import transformer as TT
-    from distributed_tensorflow_tpu_torch.models.convert import transformer_params_from_jax
+    from distributed_tensorflow_tpu_torch.models.convert import (
+        transformer_params_from_jax,
+        transformer_params_to_jax,
+    )
     from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_train_step
     from distributed_tensorflow_tpu_torch.train import optimizers as TO
 
@@ -191,9 +194,11 @@ def test_long_context_lm_step_matches_jax(gate, routes):
                  max_seq_len=s, attention="flash", use_bias=False, position="rope",
                  rope_theta=500000.0)
     jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**shape, "attention": "dense"})
-    params = jax.device_get(
-        JT.TransformerLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
-    )
+    # The port draws the weights (no JAX init to compile); both packages
+    # start from them.
+    params = transformer_params_to_jax(
+        TT.TransformerLM(TT.TransformerConfig(compute_dtype=torch.float32, **shape),
+                         device="cpu"))
     tokens = np.random.default_rng(0).integers(0, 32, (1, s)).astype(np.int32)
 
     mesh = make_mesh(num_devices=1)

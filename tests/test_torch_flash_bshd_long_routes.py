@@ -14,6 +14,7 @@ from distributed_tensorflow_tpu.ops import attention as JA
 from distributed_tensorflow_tpu_torch.ops import attention as TA
 from distributed_tensorflow_tpu_torch.ops import rope as TR
 from test_torch_flash_bshd_long import BLOCK, TOL, gate, routes  # noqa: F401 (fixtures)
+from test_torch_attention import jit_vjp
 
 pytestmark = pytest.mark.torch_port
 # Six test workers share the host's cores: one torch thread each, not one per core.
@@ -39,10 +40,9 @@ def test_flash_attention_long_routes_match_jax(gate, routes, route, case):
     rng = np.random.default_rng(9)
     q, g = (rng.standard_normal((2, 2, sq, d)).astype(np.float32) for _ in range(2))
     k, v = (rng.standard_normal((2, 2, skv, d)).astype(np.float32) for _ in range(2))
-    _, vjp = jax.vjp(lambda a, b_, c: JA.flash_attention(
+    _, want = jit_vjp(lambda a, b_, c: JA.flash_attention(
         a, b_, c, causal=causal, block_q=BLOCK, block_kv=BLOCK, interpret=True, window=window),
-        *(jnp.asarray(t) for t in (q, k, v)))
-    want = vjp(jnp.asarray(g))
+        jnp.asarray(g), *(jnp.asarray(t) for t in (q, k, v)))
     ts = [torch.tensor(t, requires_grad=True) for t in (q, k, v)]
     out = TA.flash_attention(*ts, causal=causal, window=window)
     got = torch.autograd.grad(out, ts, torch.tensor(g))

@@ -23,6 +23,7 @@ import torch
 from distributed_tensorflow_tpu.ops import attention as JA
 from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops import attention as TA
+from test_torch_attention import jit_vjp
 
 pytestmark = pytest.mark.torch_port
 # Six test workers share the host's cores: one torch thread each, not one per core.
@@ -114,10 +115,11 @@ def test_two_pass_route_at_d256_matches_jax(monkeypatch):
     out = TA.flash_attention_qkv(x, h, kv, causal=True, rope_theta=10000.0)
     (got,) = torch.autograd.grad(out, x, torch.tensor(g))
     assert seen == [1]
-    _, vjp = jax.vjp(lambda t: JA.flash_attention_qkv(t, h, kv, causal=True, interpret=True,
-                                                      block_q=BLOCK, block_kv=BLOCK,
-                                                      rope_theta=10000.0), jnp.asarray(qkv))
-    want = np.asarray(vjp(jnp.asarray(g))[0])
+    _, (want,) = jit_vjp(lambda t: JA.flash_attention_qkv(t, h, kv, causal=True,
+                                                          interpret=True, block_q=BLOCK,
+                                                          block_kv=BLOCK, rope_theta=10000.0),
+                         jnp.asarray(g), jnp.asarray(qkv))
+    want = np.asarray(want)
     sections = np.cumsum([h * d, kv * d])
     for name, a, w in zip(("dq", "dk", "dv"), np.split(got.numpy(), sections, -1),
                           np.split(want, sections, -1)):

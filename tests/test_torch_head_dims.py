@@ -29,12 +29,16 @@ from distributed_tensorflow_tpu.parallel.mesh import make_mesh
 from distributed_tensorflow_tpu.train import optimizers as JO
 from distributed_tensorflow_tpu_torch.cli import train_lm as cli
 from distributed_tensorflow_tpu_torch.models import transformer as TT
-from distributed_tensorflow_tpu_torch.models.convert import transformer_params_from_jax
+from distributed_tensorflow_tpu_torch.models.convert import (
+    transformer_params_from_jax,
+    transformer_params_to_jax,
+)
 from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops import attention as TA
 from distributed_tensorflow_tpu_torch.ops import rope as TR
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_train_step
 from distributed_tensorflow_tpu_torch.train import optimizers as TO
+from test_torch_attention import jit_vjp
 
 pytestmark = pytest.mark.torch_port
 # Six test workers share the host's cores: one torch thread each, not one per core.
@@ -252,9 +256,10 @@ def test_flash_qkv_at_head_dim_matches_jax(d, kv, window, rope):
     qkv = rng.standard_normal((B, S, (H + 2 * kv) * d)).astype(np.float32)
     g = rng.standard_normal((B, S, H * d)).astype(np.float32)
     kw = dict(rope_theta=10000.0) if rope else {}
-    out, vjp = jax.vjp(lambda t: JA.flash_attention_qkv(t, H, kv, causal=True, interpret=True,
-                                                        window=window, **kw), jnp.asarray(qkv))
-    (want_d,) = vjp(jnp.asarray(g))
+    out, (want_d,) = jit_vjp(lambda t: JA.flash_attention_qkv(t, H, kv, causal=True,
+                                                              interpret=True, window=window,
+                                                              **kw),
+                             jnp.asarray(g), jnp.asarray(qkv))
     x = torch.tensor(qkv, requires_grad=True)
     got = TA.flash_attention_qkv(x, H, kv, causal=True, window=window, **kw)
     (got_d,) = torch.autograd.grad(got, x, torch.tensor(g))
@@ -272,9 +277,10 @@ def test_wide_head_flash_qkv_matches_jax(d):
     rng = np.random.default_rng(d)
     qkv = rng.standard_normal((1, s, (h + 2 * kv) * d)).astype(np.float32)
     g = rng.standard_normal((1, s, h * d)).astype(np.float32)
-    out, vjp = jax.vjp(lambda t: JA.flash_attention_qkv(t, h, kv, causal=True, interpret=True,
-                                                        rope_theta=10000.0), jnp.asarray(qkv))
-    (want_d,) = vjp(jnp.asarray(g))
+    out, (want_d,) = jit_vjp(lambda t: JA.flash_attention_qkv(t, h, kv, causal=True,
+                                                              interpret=True,
+                                                              rope_theta=10000.0),
+                             jnp.asarray(g), jnp.asarray(qkv))
     x = torch.tensor(qkv, requires_grad=True)
     got = TA.flash_attention_qkv(x, h, kv, causal=True, rope_theta=10000.0)
     (got_d,) = torch.autograd.grad(got, x, torch.tensor(g))
@@ -306,17 +312,19 @@ def test_cli_defaults_step_matches_jax():
     args, shape = _cli_config()
     assert shape["d_model"] // args.num_heads == 32
     jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**shape, "attention": "dense"})
-    params = jax.device_get(
-        JT.TransformerLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
-    )
+    # The port draws the weights (no JAX init to compile); both packages
+    # start from them.
+    params = transformer_params_to_jax(
+        TT.TransformerLM(TT.TransformerConfig(compute_dtype=torch.float32, **shape),
+                         device="cpu"))
     rng = np.random.default_rng(args.seed)
     batches = [cli.synthetic_tokens(rng, args.batch_size, args.seq_len, args.vocab_size)
                for _ in range(2)]
     mesh = make_mesh(num_devices=1)
     tx = JO.make_optimizer(args.optimizer, args.learning_rate, total_steps=2)
     jstep = jdp.build_lm_train_step(jcfg, tx, mesh)
-    p, o, n = jdp.replicate(params, mesh), jdp.replicate(tx.init(params), mesh), jnp.zeros(
-        (), jnp.int32)
+    p, o = jdp.replicate(params, mesh), jdp.replicate(tx.init(params), mesh)
+    n = jdp.replicate(jnp.zeros((), jnp.int32), mesh)  # as the step returns it: one compile
     want = []
     for t in batches:
         p, o, n, m = jstep(p, o, n, jdp.shard_global_batch({"x": jnp.asarray(t)}, mesh)["x"],

@@ -34,11 +34,15 @@ from distributed_tensorflow_tpu.parallel.mesh import make_mesh
 from distributed_tensorflow_tpu.train import optimizers as JO
 from distributed_tensorflow_tpu_torch.cli import train_lm as cli
 from distributed_tensorflow_tpu_torch.models import transformer as TT
-from distributed_tensorflow_tpu_torch.models.convert import transformer_params_from_jax
+from distributed_tensorflow_tpu_torch.models.convert import (
+    transformer_params_from_jax,
+    transformer_params_to_jax,
+)
 from distributed_tensorflow_tpu_torch.ops import attention as TA
 from distributed_tensorflow_tpu_torch.ops.rope import rope_cos_sin
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_train_step
 from distributed_tensorflow_tpu_torch.train import optimizers as TO
+from test_torch_attention import jit_vjp
 
 pytestmark = pytest.mark.torch_port
 # Six test workers share the host's cores: one torch thread each, not one per core.
@@ -70,10 +74,11 @@ def _port_qkv(qkv, g, kv, kw):
 
 
 def _jax_qkv(qkv, g, kv, kw):
-    out, vjp = jax.vjp(lambda t: JA.flash_attention_qkv(t, H, kv, causal=True, interpret=True,
-                                                        block_q=BLOCK, block_kv=BLOCK, **kw),
-                       jnp.asarray(qkv))
-    return np.asarray(out), vjp(jnp.asarray(g))[0]
+    out, (grad,) = jit_vjp(lambda t: JA.flash_attention_qkv(t, H, kv, causal=True,
+                                                            interpret=True, block_q=BLOCK,
+                                                            block_kv=BLOCK, **kw),
+                           jnp.asarray(g), jnp.asarray(qkv))
+    return np.asarray(out), grad
 
 
 @pytest.mark.parametrize("d,kv,rope", [(320, 2, True), (512, 4, False)])
@@ -94,11 +99,10 @@ def test_flash_bhsd_d512_cross_length_matches_jax():
     rng = np.random.default_rng(5)
     q, k, v = (rng.standard_normal((1, 2, n, d)).astype(np.float32) for n in (sq, skv, skv))
     g = rng.standard_normal((1, 2, sq, d)).astype(np.float32)
-    want, vjp = jax.vjp(lambda a, b, c: JA.flash_attention(a, b, c, causal=True, window=48,
-                                                           block_q=BLOCK, block_kv=BLOCK,
-                                                           interpret=True),
-                        *map(jnp.asarray, (q, k, v)))
-    want_g = vjp(jnp.asarray(g))
+    want, want_g = jit_vjp(lambda a, b, c: JA.flash_attention(a, b, c, causal=True, window=48,
+                                                              block_q=BLOCK, block_kv=BLOCK,
+                                                              interpret=True),
+                           jnp.asarray(g), *map(jnp.asarray, (q, k, v)))
     xs = [torch.tensor(t, requires_grad=True) for t in (q, k, v)]
     got = TA.flash_attention(*xs, causal=True, window=48)
     got_g = torch.autograd.grad(got, xs, torch.tensor(g))
@@ -167,9 +171,11 @@ def test_cli_step_at_head_dim_512_matches_jax():
                  num_layers=args.num_layers, d_ff=args.d_ff, max_seq_len=args.seq_len,
                  use_bias=bool(args.use_bias), attention=args.attention)
     jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**shape, "attention": "dense"})
-    params = jax.device_get(
-        JT.TransformerLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
-    )
+    # The port draws the weights (no JAX init to compile); both packages
+    # start from them.
+    params = transformer_params_to_jax(
+        TT.TransformerLM(TT.TransformerConfig(compute_dtype=torch.float32, **shape),
+                         device="cpu"))
     rng = np.random.default_rng(args.seed)
     batches = [cli.synthetic_tokens(rng, args.batch_size, args.seq_len, args.vocab_size)
                for _ in range(2)]
@@ -177,7 +183,7 @@ def test_cli_step_at_head_dim_512_matches_jax():
     tx = JO.make_optimizer(args.optimizer, args.learning_rate, total_steps=2)
     jstep = jdp.build_lm_train_step(jcfg, tx, mesh)
     p, o = jdp.replicate(params, mesh), jdp.replicate(tx.init(params), mesh)
-    n = jnp.zeros((), jnp.int32)
+    n = jdp.replicate(jnp.zeros((), jnp.int32), mesh)  # as the step returns it: one compile
     want = []
     for t in batches:
         p, o, n, m = jstep(p, o, n, jdp.shard_global_batch({"x": jnp.asarray(t)}, mesh)["x"],

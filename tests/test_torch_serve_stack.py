@@ -25,19 +25,18 @@ import urllib.error
 import urllib.request
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from distributed_tensorflow_tpu.config import ServeConfig as JaxServeConfig
-from distributed_tensorflow_tpu.models import transformer as JT
 from distributed_tensorflow_tpu.serve import scheduler as JS
 from distributed_tensorflow_tpu.train import checkpoint as JC
 from distributed_tensorflow_tpu_torch.cli import generate as gen_cli
 from distributed_tensorflow_tpu_torch.cli import serve_lm as serve_cli
 from distributed_tensorflow_tpu_torch.config import ServeConfig
+from distributed_tensorflow_tpu_torch.models.convert import transformer_params_to_jax
+from distributed_tensorflow_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 from distributed_tensorflow_tpu_torch.obs.export import parse_prometheus_text
 from distributed_tensorflow_tpu_torch.serve import scheduler as TS
 from distributed_tensorflow_tpu_torch.serve.engine import SlotEngine
@@ -103,11 +102,13 @@ def _shut(server, thread, sched):
 
 @pytest.fixture(scope="module")
 def bundle(tmp_path_factory):
-    cfg = JT.TransformerConfig(compute_dtype=jnp.float32, vocab_size=256, d_model=32,
-                               num_heads=4, num_layers=2, d_ff=64, max_seq_len=48)
-    params = JT.TransformerLM(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    # The port draws the weights (no JAX init to compile); the JAX package
+    # exports them.
+    cfg = TransformerConfig(compute_dtype=torch.float32, vocab_size=256, d_model=32,
+                            num_heads=4, num_layers=2, d_ff=64, max_seq_len=48)
+    params = transformer_params_to_jax(TransformerLM(cfg, device="cpu"))
     path = str(tmp_path_factory.mktemp("bundle") / "lm.msgpack")
-    JC.export_inference_bundle(path, params["params"],
+    JC.export_inference_bundle(path, params,
                                metadata={"model": "TransformerLM", "parallelism": "dp",
                                          "config": CONFIG})
     return path

@@ -116,7 +116,9 @@ def _jax_tp_loss_and_grads(jcfg, params, tokens):
 ])
 def test_world_of_one_matches_jax(attention, position, kv):
     jcfg, tcfg = _configs(attention=attention, position=position, num_kv_heads=kv)
-    tree = jtp.init_tp_params(jcfg, seed=2)
+    # The port draws the weights (no JAX init to compile); both packages
+    # start from them.
+    tree = tp_params_to_jax(ttp.TpTransformerLM(tcfg, seed=2, device="cpu"))
     tokens = _tokens(seed=2)
     want_loss, want_logits, want_grads = _jax_tp_loss_and_grads(jcfg, tree, tokens)
 
@@ -177,14 +179,45 @@ dist.destroy_process_group()
 """
 
 
-def test_gloo_data2_model2_steps_match_jax(tmp_path):
+GLOO_STEPS, GLOO_LR = 3, 1e-2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def gloo_ranks(tmp_path_factory):
+    """The four gloo ranks of test_gloo_data2_model2_steps_match_jax, started
+    when the file starts so that they run beside its other tests. The port
+    draws the weights (no JAX init to compile); both packages start from
+    them."""
+    tmp_path = tmp_path_factory.mktemp("tp_gloo")
+    _, tcfg = _configs(attention="dense", position="rope", num_kv_heads=2)
+    tree = tp_params_to_jax(ttp.TpTransformerLM(tcfg, seed=3, device="cpu"))
+    batches = np.stack([_tokens(seed=10 + i) for i in range(GLOO_STEPS)])
+    flat = {"/".join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+    np.savez(tmp_path / "params.npz", **flat)
+    np.save(tmp_path / "batches.npy", batches)
+    cfg = dict(SHAPE, attention="flash", position="rope", num_kv_heads=2)
+    (tmp_path / "spec.json").write_text(json.dumps({"cfg": cfg, "lr": GLOO_LR,
+                                                    "steps": GLOO_STEPS}))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    env["OMP_NUM_THREADS"] = "1"  # tiny shapes: one thread per rank keeps the host free
+    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), str(tmp_path)], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(4)]
+    yield tree, batches, tmp_path, procs
+    for proc in procs:
+        proc.kill()
+        proc.communicate()
+
+
+def test_gloo_data2_model2_steps_match_jax(gloo_ranks):
     # The JAX step runs its dense reference attention; test_world_of_one_
     # matches_jax[flash-*] holds the port's tp flash against the JAX kernels.
-    steps, lr = 3, 1e-2
+    tree, batches, tmp_path, procs = gloo_ranks
+    steps, lr = GLOO_STEPS, GLOO_LR
     jcfg, _ = _configs(attention="dense", position="rope", num_kv_heads=2)
-    tree = jtp.init_tp_params(jcfg, seed=3)
-    batches = np.stack([_tokens(seed=10 + i) for i in range(steps)])
-
+    # The JAX reference runs while the ranks do.
     mesh = make_mesh(num_devices=4, model_parallel=2)
     tx = JO.make_optimizer("adam", lr, total_steps=steps)
     jstep = jtp.build_tp_lm_train_step(jcfg, tx, mesh, tree, donate=False)
@@ -196,19 +229,6 @@ def test_gloo_data2_model2_steps_match_jax(tmp_path):
         x = jdp.shard_global_batch({"x": jnp.asarray(t)}, mesh)["x"]
         p, o, g, m = jstep(p, o, g, x, jax.random.PRNGKey(0))
         want.append(float(m["loss"]))
-
-    flat = {"/".join(str(k.key) for k in path): np.asarray(leaf)
-            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
-    np.savez(tmp_path / "params.npz", **flat)
-    np.save(tmp_path / "batches.npy", batches)
-    cfg = dict(SHAPE, attention="flash", position="rope", num_kv_heads=2)
-    (tmp_path / "spec.json").write_text(json.dumps({"cfg": cfg, "lr": lr, "steps": steps}))
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["GLOO_SOCKET_IFNAME"] = "lo"
-    env["OMP_NUM_THREADS"] = "1"  # tiny shapes: one thread per rank keeps the host free
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), str(tmp_path)], cwd=ROOT,
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(4)]
     for proc in procs:
         out, _ = proc.communicate(timeout=120)
         assert proc.returncode == 0, out

@@ -27,7 +27,10 @@ from distributed_tensorflow_tpu.parallel.mesh import make_mesh
 from distributed_tensorflow_tpu.train import optimizers as JO
 from distributed_tensorflow_tpu_torch.cli import train_lm as cli
 from distributed_tensorflow_tpu_torch.models import transformer as TT
-from distributed_tensorflow_tpu_torch.models.convert import transformer_params_from_jax
+from distributed_tensorflow_tpu_torch.models.convert import (
+    transformer_params_from_jax,
+    transformer_params_to_jax,
+)
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import build_lm_train_step
 from distributed_tensorflow_tpu_torch.train import optimizers as TO
 
@@ -44,9 +47,11 @@ SHAPE = dict(vocab_size=32, d_model=32, num_heads=2, num_layers=1, d_ff=64, max_
 
 def _losses(optimizer, steps, schedule="constant", clip=0.0, lr=1e-2):
     jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **{**SHAPE, "attention": "dense"})
-    params = jax.device_get(
-        JT.TransformerLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
-    )
+    # The port draws the weights (no JAX init to compile); both packages
+    # start from them.
+    params = transformer_params_to_jax(
+        TT.TransformerLM(TT.TransformerConfig(compute_dtype=torch.float32, **SHAPE),
+                         device="cpu"))
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, SHAPE["vocab_size"], (B, S)).astype(np.int32) for _ in range(steps)]
 
@@ -54,7 +59,8 @@ def _losses(optimizer, steps, schedule="constant", clip=0.0, lr=1e-2):
     tx = JO.make_optimizer(optimizer, lr, total_steps=steps, schedule=schedule,
                            warmup_steps=1, grad_clip_norm=clip)
     jstep = jdp.build_lm_train_step(jcfg, tx, mesh)
-    p, o, g = jdp.replicate(params, mesh), jdp.replicate(tx.init(params), mesh), jnp.zeros((), jnp.int32)
+    p, o = jdp.replicate(params, mesh), jdp.replicate(tx.init(params), mesh)
+    g = jdp.replicate(jnp.zeros((), jnp.int32), mesh)  # as the step returns it: one compile
     want = []
     for t in batches:
         p, o, g, m = jstep(p, o, g, jdp.shard_global_batch({"x": jnp.asarray(t)}, mesh)["x"],
@@ -171,46 +177,150 @@ def test_cli_tp_trains_in_a_world_of_one_on_cpu(capsys):
     assert not torch.distributed.is_initialized()  # the world of one is torn down
 
 
-def run_ranks(flags, n=2):
-    """The CLI in ``n`` processes joined by the reference-style
-    --worker_hosts/--task_index (gloo over loopback, rendezvous at the first
-    host); returns each rank's stdout."""
+# One rank of the multi-process runs: the CLI's main over each flag list in turn.
+_RANK = r"""
+import json, sys
+from distributed_tensorflow_tpu_torch.cli import train_lm
+for flags in json.loads(sys.argv[1]):
+    print("\x1e", flush=True)  # separates the runs' output
+    train_lm.main(flags)
+"""
+
+
+def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    hosts = ",".join(f"127.0.0.1:{port + r}" for r in range(n))
+        return s.getsockname()[1]
+
+
+def start_ranks(runs, n=2):
+    """The CLI in ``n`` processes joined by the reference-style
+    --worker_hosts/--task_index (gloo over loopback, rendezvous at the first
+    host), each of ``runs`` (a list of flags) in turn in the same processes,
+    each on a fresh port. Returns the processes; :func:`rank_outputs` waits
+    for them."""
+    ports = [_free_port() for _ in runs]
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
     env["GLOO_SOCKET_IFNAME"] = "lo"
     env["OMP_NUM_THREADS"] = "1"  # tiny shapes: one thread per rank keeps the host free
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train_lm", *flags,
-         "--worker_hosts", hosts, "--task_index", str(r)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-    ) for r in range(n)]
+    procs = []
+    for r in range(n):
+        argv = [[*flags, "--worker_hosts", ",".join(f"127.0.0.1:{port + i}" for i in range(n)),
+                 "--task_index", str(r)] for flags, port in zip(runs, ports)]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK, json.dumps(argv)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def rank_outputs(procs):
+    """For each run of :func:`start_ranks`, each rank's stdout."""
     outs = []
     for proc in procs:
         out, err = proc.communicate(timeout=120)
         assert proc.returncode == 0, err
-        outs.append(out)
-    return outs
+        outs.append(out.split("\x1e\n")[1:])
+    return [list(run) for run in zip(*outs)]
 
 
-def test_cli_tp_over_worker_hosts_matches_one_process(capsys):
+def run_ranks(flags, n=2):
+    """One run in ``n`` processes (:func:`start_ranks`): each rank's stdout."""
+    return rank_outputs(start_ranks([flags], n))[0]
+
+
+FLAGS = ["--device", "cpu", "--training_steps", "4", "--eval_step_interval", "2",
+         "--seq_len", "32", "--batch_size", "2", "--d_model", "32", "--num_heads", "2",
+         "--d_ff", "64", "--attention", "flash", "--position", "rope"]
+TP_FLAGS = ["--parallelism", "tp", "--num_layers", "1", *FLAGS]
+PP_FLAGS = ["--parallelism", "pp", "--num_layers", "2", *FLAGS]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_process_procs(tmp_path_factory):
+    """tp, then pp (asked for --output), over two processes: started once,
+    when the file starts, so that they run beside its other tests."""
+    out = tmp_path_factory.mktemp("pp_output") / "lm.msgpack"
+    procs = start_ranks([[*TP_FLAGS, "--model_parallel", "2"],
+                         [*PP_FLAGS, "--model_parallel", "2", "--output", str(out)]])
+    yield procs, out
+    for proc in procs:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def two_process_runs(two_process_procs):
+    procs, pp_output = two_process_procs
+    return {**dict(zip(("tp", "pp"), rank_outputs(procs))), "pp_output": pp_output}
+
+
+def _one_process_losses(flags, capsys):
+    cli.main(flags)
+    return [json.loads(line)["loss"] for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+
+
+def test_cli_tp_over_worker_hosts_matches_one_process(two_process_runs, capsys):
     """Two processes joined by the reference-style --worker_hosts/--task_index
     (gloo over loopback, rendezvous at the first host) train the model split
     in two and print the losses of one process training it whole."""
-    flags = ["--device", "cpu", "--parallelism", "tp", "--training_steps", "4",
-             "--eval_step_interval", "2", "--seq_len", "32", "--batch_size", "2",
-             "--d_model", "32", "--num_heads", "2", "--num_layers", "1", "--d_ff", "64",
-             "--attention", "flash", "--position", "rope"]
-    cli.main(flags)
-    want = [json.loads(line)["loss"] for line in capsys.readouterr().out.splitlines()]
-    outs = run_ranks([*flags, "--model_parallel", "2"])
+    want = _one_process_losses(TP_FLAGS, capsys)
+    outs = two_process_runs["tp"]
     records = [json.loads(line) for line in outs[0].splitlines()]
     assert outs[1] == ""  # only the chief prints
     assert [r["step"] for r in records] == [2, 4]
     np.testing.assert_allclose([r["loss"] for r in records], want, atol=1e-4, rtol=0)
+
+
+def test_cli_pp_over_worker_hosts_matches_one_process_dp(two_process_runs, capsys):
+    """Two pipeline stages in two processes (--model_parallel 2, 2
+    microbatches) print the losses of one process training the same model
+    data-parallel; pp parameters live on two processes, so --output is
+    skipped."""
+    want = _one_process_losses(["--parallelism", "dp", *PP_FLAGS[2:]], capsys)
+    outs = two_process_runs["pp"]
+    lines = outs[0].splitlines()
+    records = [json.loads(line) for line in lines if line.startswith("{")]
+    assert outs[1] == ""  # only the chief prints
+    assert lines[-1].startswith("skipping --output: pp params are sharded")
+    assert not two_process_runs["pp_output"].exists()
+    assert [r["step"] for r in records] == [2, 4]
+    assert all(r["parallelism"] == "pp" for r in records)
+    np.testing.assert_allclose([r["loss"] for r in records], want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("mode,base", [("pp", "dp"), ("3d", "tp")])
+def test_cli_pp_and_3d_train_in_a_world_of_one(mode, base, tmp_path, capsys):
+    """pp and 3d on one process print the losses of dp and tp on the same
+    flags (the same seed's weights), and --output exports the stage-stacked
+    tree the JAX trainer exports, with the mode in the metadata."""
+    from distributed_tensorflow_tpu.train import checkpoint as JC
+    from distributed_tensorflow_tpu_torch.parallel.pipeline_parallel import unstack_stage_params
+
+    flags = [*PP_FLAGS[2:], "--remat"]
+    want = _one_process_losses(["--parallelism", base, *flags], capsys)
+    path = str(tmp_path / "lm.msgpack")
+    got = _one_process_losses(["--parallelism", mode, "--model_parallel", "1",
+                               "--num_microbatches", "2", *flags, "--output", path], capsys)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    params, meta = JC.load_inference_bundle(path)
+    assert meta["parallelism"] == mode and meta["config"]["num_layers"] == 2
+    leaf = jax.tree_util.tree_leaves(params["stages"])[0]
+    assert leaf.shape[:2] == (1, 2)  # (stages, layers a stage)
+    plain = unstack_stage_params(params)
+    assert sorted(plain) == ["block_0", "block_1", "lm_head", "ln_f", "tok_embed"]
+    block = {"pp": {"ln1", "qkv", "proj", "ln2", "mlp_in", "mlp_out"},
+             "3d": {"ln1", "q", "k", "v", "proj", "proj_bias", "ln2", "mlp_in", "mlp_out",
+                    "mlp_out_bias"}}[mode]
+    assert set(plain["block_0"]) == block
+
+
+@pytest.mark.parametrize("mode", ["pp", "3d"])
+def test_cli_train_dir_under_pp_and_3d_is_not_ported_yet(mode, tmp_path):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["--device", "cpu", "--parallelism", mode, "--train_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
 
 
 def test_cli_tp_raises_without_a_card_unless_cpu_is_asked():
@@ -221,9 +331,9 @@ def test_cli_tp_raises_without_a_card_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--parallelism", "sp"], ["--remat"], ["--steps_per_call", "2"], ["--num_microbatches", "2"],
-    ["--pipeline_parallel", "2"], ["--profile_dir", "x"], ["--obs_dir", "x"], ["--slo", "default"],
-    ["--attention", "blockwise"],
+    ["--parallelism", "sp"], ["--parallelism", "ep"], ["--steps_per_call", "2"],
+    ["--num_experts", "2"], ["--parallelism", "fsdp"], ["--profile_dir", "x"], ["--obs_dir", "x"],
+    ["--slo", "default"], ["--attention", "blockwise"],
 ])
 def test_cli_rejects_flags_of_later_slices(flag):
     with pytest.raises(SystemExit):

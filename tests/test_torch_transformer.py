@@ -6,6 +6,8 @@ both models then see the same numpy-seeded tokens. Logits agree within
 2e-4 of the largest gradient magnitude.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,21 +37,30 @@ CASES = {
 }
 
 
+@functools.cache
+def _jax_params(shape_items, seed):
+    """The JAX model's initial params for ``shape_items`` (its config but the
+    attention, which draws no parameter), from one jitted init: eager flax
+    compiles each primitive apart."""
+    jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **dict(shape_items))
+    return jax.device_get(
+        jax.jit(JT.TransformerLM(jcfg).init)(jax.random.PRNGKey(seed),
+                                            jnp.zeros((1, 8), jnp.int32))["params"]
+    )
+
+
 def _pair(case, seed=0):
     kw = dict(SHAPE, **CASES[case])
     jcfg = JT.TransformerConfig(compute_dtype=jnp.float32, **kw)
     tcfg = TT.TransformerConfig(compute_dtype=torch.float32, **kw)
-    params = jax.device_get(
-        JT.TransformerLM(jcfg).init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))[
-            "params"
-        ]
-    )
+    params = _jax_params(tuple(sorted((k, v) for k, v in kw.items() if k != "attention")), seed)
     model = TT.TransformerLM(tcfg, device="cpu")
     model.load_state_dict(transformer_params_from_jax(params))
     tokens = np.random.default_rng(seed).integers(0, SHAPE["vocab_size"], (B, S)).astype(np.int32)
     return jcfg, params, model, tokens
 
 
+@functools.partial(jax.jit, static_argnums=0)
 def _jax_loss(jcfg, params, tokens):
     logits = JT.TransformerLM(jcfg).apply({"params": params}, tokens)
     return JT.next_token_loss(logits, tokens), logits
