@@ -17,6 +17,7 @@ torch generator seeded by ``--seed``, not from ``jax.random``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import numpy as np
@@ -39,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="nucleus sampling: smallest token set with cumulative probability "
                         ">= p (0 = no filter; needs --temperature > 0)")
     p.add_argument("--kv_cache_dtype", default="", choices=("", "int8"),
-                   help="int8 is not ported yet")
+                   help="KV-cache storage dtype ('' = compute dtype, 'int8' = quantize-on-write "
+                        "rows with f32 scales)")
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--vocab_size", type=int, default=256)
     p.add_argument("--d_model", type=int, default=128)
@@ -56,9 +58,6 @@ def main(argv=None) -> np.ndarray:
     tokens."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.kv_cache_dtype:
-        parser.error(f"--kv_cache_dtype {args.kv_cache_dtype}: the int8 KV cache is not "
-                     "ported yet")
     from distributed_tensorflow_tpu_torch.data.text import decode_tokens, encode_text
     from distributed_tensorflow_tpu_torch.models.decoding import build_generate_fn
     from distributed_tensorflow_tpu_torch.train.checkpoint import load_lm_bundle
@@ -75,6 +74,9 @@ def main(argv=None) -> np.ndarray:
         )
     except ValueError as e:
         sys.exit(str(e))
+    if args.kv_cache_dtype:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache_dtype)
+        model = model.with_config(cfg)
 
     if args.text:
         if cfg.vocab_size != 256:

@@ -17,17 +17,25 @@ with no card it raises.
     curl -s localhost:8000/metrics        # Prometheus text exposition
     curl -s localhost:8000/metrics.json   # JSON summary snapshot
 
+Serving as it is deployed: ``--weight_dtype int8|int4`` (alias ``--quant``;
+a bundle from ``cli/quantize_lm.py`` serves as it is, a high-precision one
+is quantized on the fly), ``--kv_dtype int8`` (quantize-on-write KV pages;
+``--kv_cache_dtype`` sets the model's own), ``--spec_k`` drafts a verify
+round by prompt lookup, ``--spec_branches`` > 1 as a draft tree, and
+``--draft_model`` a learned drafter bundle (quantized to int4 on the fly
+when the target is quantized).
+
 Byte-level models (vocab 256) also take ``{"prompt": "text"}`` and return
 the decoded ``"text"`` beside the token ids. SIGTERM drains: ``/healthz``
 turns 503, accepted work finishes (up to ``--drain_deadline_s``), then the
-server stops. Flags of later slices (quantized weights, int8 KV,
-speculation, tp, deploy, handoff roles, SLO rules, obs output) exit with a
-message.
+server stops. Flags of later slices (tp, deploy, handoff roles, SLO rules,
+obs output) exit with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import signal
 import sys
 import threading
@@ -40,15 +48,6 @@ from distributed_tensorflow_tpu_torch.config import ServeConfig, add_dataclass_f
 # Flags of the JAX tool that later slices port: (flag, value that is still
 # this slice's behaviour, or None when any use is refused).
 _LATER = {
-    "quant": ("", "weight-only quantization (models/quant.py)"),
-    "weight_dtype": ("", "weight-only quantization (models/quant.py)"),
-    "quant_group_size": (0, "weight-only quantization (models/quant.py)"),
-    "kv_cache_dtype": ("", "the int8 KV cache"),
-    "kv_dtype": (("", "bf16"), "the int8 KV cache"),
-    "spec_k": (0, "speculative decoding"),
-    "spec_branches": (1, "tree speculation"),
-    "draft_model": ("", "the learned drafter"),
-    "draft_window": (None, "the learned drafter"),
     "tp": (1, "the sharded engine (ShardedSlotEngine)"),
     "role": ("mixed", "disaggregated prefill/decode roles (handoff)"),
     "handoff_peers": (None, "disaggregated prefill/decode roles (handoff)"),
@@ -77,13 +76,34 @@ class _ByteCodec:
         return decode_tokens(np.asarray(tokens, np.int32))
 
 
+def _quantized(cfg, model, mode, group_size, hp_dtype):
+    """``(cfg, model)`` quantized on the fly (``models/quant.py``), the high
+    precision leaves in ``hp_dtype`` (the serving compute dtype)."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models.convert import (
+        model_from_tree,
+        transformer_params_to_jax,
+    )
+    from distributed_tensorflow_tpu_torch.models.quant import quantize_lm_params
+
+    cfg = dataclasses.replace(cfg, weight_dtype=mode, quant_group_size=group_size)
+    tree = quantize_lm_params(transformer_params_to_jax(model), mode, group_size=group_size,
+                              hp_dtype="bfloat16" if hp_dtype == torch.bfloat16 else np.float32)
+    return cfg, model_from_tree(cfg, tree, next(model.parameters()).device)
+
+
 def build_stack(serve_cfg, cfg, model, deploy_cfg=None, *, prefill_buckets=()):
     """(engine, scheduler, metrics, http server) — warmed up, not started,
     on the model's device; ``prefill_buckets`` adds prefill widths below
-    ``prefill_len`` (the engine's argument, which the CLI leaves empty). The recompile sentinel and the metrics ride
-    along as ``server.sentinel`` / ``server.serving_metrics`` (the 4-tuple
-    is the JAX tool's contract); ``server.slo_monitor``, ``variant_table``,
-    ``swapper`` and ``watcher`` are None (not ported yet)."""
+    ``prefill_len`` (the engine's argument, which the CLI leaves empty).
+    ``serve_cfg``'s ``draft_model`` loads the drafter, ``weight_dtype``
+    quantizes an unquantized target (and the drafter, harder: int4) on the
+    fly, ``kv_dtype`` overrides the KV format. The recompile sentinel and
+    the metrics ride along as ``server.sentinel`` /
+    ``server.serving_metrics`` (the 4-tuple is the JAX tool's contract);
+    ``server.slo_monitor``, ``variant_table``, ``swapper`` and ``watcher``
+    are None (not ported yet)."""
     from distributed_tensorflow_tpu_torch.obs.perf import RecompileSentinel
     from distributed_tensorflow_tpu_torch.serve.engine import SlotEngine
     from distributed_tensorflow_tpu_torch.serve.metrics import ServingMetrics
@@ -93,8 +113,35 @@ def build_stack(serve_cfg, cfg, model, deploy_cfg=None, *, prefill_buckets=()):
     if deploy_cfg is not None:
         raise NotImplementedError("the deploy plane (hot swap, canaries, variants) is not "
                                   "ported yet")
+    from distributed_tensorflow_tpu_torch.models.quant import validate_weight_quant
+
     metrics = ServingMetrics()
     sentinel = RecompileSentinel(metrics.registry, use_listener=False)
+    device = next(model.parameters()).device
+    draft_cfg = draft = None
+    if serve_cfg.draft_model:
+        if not serve_cfg.spec_k:
+            raise ValueError("--draft_model requires --spec_k > 0")
+        from distributed_tensorflow_tpu_torch.train.checkpoint import load_lm_bundle
+
+        draft_cfg, draft, _ = load_lm_bundle(serve_cfg.draft_model, device=device)
+    # A pre-quantized bundle serves as it is; a high-precision one is
+    # quantized here. The drafter goes harder (int4): its rounding costs
+    # acceptance only, never a verified token.
+    quant = serve_cfg.weight_dtype
+    if quant or serve_cfg.quant_group_size:
+        gs = serve_cfg.quant_group_size or (64 if quant == "int4" else 0)
+        if not cfg.weight_dtype:
+            validate_weight_quant(quant or None, gs, int(cfg.d_model), int(cfg.d_ff))
+            cfg, model = _quantized(cfg, model, quant, gs, cfg.compute_dtype)
+        if draft is not None and not draft_cfg.weight_dtype:
+            dgs = gs or 64
+            validate_weight_quant("int4", dgs, int(draft_cfg.d_model), int(draft_cfg.d_ff))
+            draft_cfg, draft = _quantized(draft_cfg, draft, "int4", dgs, cfg.compute_dtype)
+    serve_cfg.validate_kv()
+    kv = serve_cfg.engine_kv_cache_dtype
+    if kv != "keep" and cfg.kv_cache_dtype != kv:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
     engine = SlotEngine(
         cfg,
         model,
@@ -108,7 +155,12 @@ def build_stack(serve_cfg, cfg, model, deploy_cfg=None, *, prefill_buckets=()):
         prefix_cache=serve_cfg.prefix_cache,
         prefill_buckets=tuple(prefill_buckets),
         prefill_chunk_tokens=serve_cfg.prefill_chunk_tokens,
-        device=next(model.parameters()).device,
+        spec_k=serve_cfg.spec_k,
+        spec_branches=serve_cfg.spec_branches,
+        draft_params=draft,
+        draft_cfg=draft_cfg,
+        draft_window=serve_cfg.draft_window,
+        device=device,
     )
     engine.warmup()
     scheduler = Scheduler(
@@ -139,6 +191,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_layers", type=int, default=4)
     p.add_argument("--d_ff", type=int, default=512)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--kv_cache_dtype", default="", choices=("", "int8"),
+                   help="KV-pool storage dtype ('' = compute dtype)")
+    p.add_argument("--quant", default="", choices=("", "int8", "int4"),
+                   help="weight-only quantization (alias for --weight_dtype; a pre-quantized "
+                        "bundle serves as-is, a high-precision one is quantized on the fly; "
+                        "the drafter is quantized harder: int4)")
     add_dataclass_flags(p, ServeConfig)
     for name in _LATER:
         p.add_argument("--" + name, default=None, help=argparse.SUPPRESS)
@@ -157,7 +215,10 @@ def parse_args(argv=None):
         allowed = keep if isinstance(keep, tuple) else (keep,)
         if keep is None or value not in tuple(str(a) for a in allowed):
             parser.error(f"--{name} {value}: {what} is not ported yet")
-    return args, from_args(ServeConfig, args)
+    serve_cfg = from_args(ServeConfig, args)
+    if args.quant:
+        serve_cfg.weight_dtype = args.quant
+    return args, serve_cfg
 
 
 def main(argv=None):
@@ -190,13 +251,17 @@ def main(argv=None):
             )
         except ValueError as e:
             sys.exit(str(e))
+    if args.kv_cache_dtype:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache_dtype)
 
     engine, scheduler, metrics, server = build_stack(serve_cfg, cfg, model)
     host, port = server.server_address
     kv_desc = (
         f"paged(page_size={engine.page_size} pages={engine.pool.num_pages} "
         f"prefix={'on' if engine.prefix is not None else 'off'} "
-        f"kv_dtype={engine.kv_dtype} chunk={engine.prefill_chunk_tokens})"
+        f"spec_k={engine.spec_k} spec_branches={engine.spec_branches} "
+        f"drafter={engine.drafter} kv_dtype={engine.kv_dtype} "
+        f"chunk={engine.prefill_chunk_tokens})"
         if engine.paged else "monolithic"
     )
     print(

@@ -10,7 +10,10 @@ of the params) and leaves as the same; nothing here imports JAX. Mapping:
 ``Embedding.weight`` unchanged; a parameter a module declares itself (the
 tensor-parallel block's ``proj_bias`` and ``mlp_out_bias``) keeps its name.
 The fused qkv projection keeps its ``[q | k | v]`` column order on both
-sides.
+sides. A weight-quantized layer (``models/quant.py::QuantDense``) keeps the
+flax leaves as they are (``kernel_q`` int8/uint8, ``scale``/``gscale`` f32,
+in flax's layout), bit for bit both ways; a leaf the tree holds in bf16
+(``utils/msgpack_state.Bfloat16Bits``) becomes a torch bf16 tensor and back.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from distributed_tensorflow_tpu_torch.parallel.pipeline_parallel import (
     stage_state_dict,
     unstack_stage_params,
 )
+from distributed_tensorflow_tpu_torch.models.quant import QuantDense
 from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import shard_params
+from distributed_tensorflow_tpu_torch.utils.msgpack_state import Bfloat16Bits
 
 _FLAX_TO_TORCH_LEAF = {
     "kernel": "weight",
@@ -42,18 +47,51 @@ def _flatten(tree: dict, prefix: tuple = ()):
             yield prefix + (name,), sub
 
 
+def _leaf_tensor(leaf) -> torch.Tensor:
+    """A tree leaf as a torch tensor: bf16 bits → bf16, integer codes as they
+    are, other floats → f32."""
+    if isinstance(leaf, Bfloat16Bits):
+        return torch.from_numpy(np.array(leaf.view(np.int16))).view(torch.bfloat16)
+    arr = np.asarray(leaf)
+    if np.issubdtype(arr.dtype, np.integer):
+        return torch.from_numpy(np.array(arr))
+    return torch.tensor(np.asarray(arr, dtype=np.float32))
+
+
 def transformer_params_from_jax(params_np: dict) -> dict[str, torch.Tensor]:
     """flax param tree (nested numpy dicts) → a state dict for the model;
     load it with ``model.load_state_dict(sd)``, whose strict key check
-    reports a tree that does not match the model."""
+    reports a tree that does not match the model (or with
+    :func:`load_flax_params`, which keeps a quantized tree's dtypes)."""
     sd = {}
+    quant_mods = {path[:-1] for path, _ in _flatten(params_np) if path[-1] == "kernel_q"}
     for path, leaf in _flatten(params_np):
         *mods, leaf_name = path
-        t = torch.tensor(np.asarray(leaf, dtype=np.float32))
+        t = _leaf_tensor(leaf)
         if leaf_name == "kernel":
             t = t.t().contiguous()  # torch's transposing copy: numpy's is single-threaded
-        sd[".".join(mods + [_FLAX_TO_TORCH_LEAF.get(leaf_name, leaf_name)])] = t
+        if path[:-1] not in quant_mods:  # QuantDense leaves keep their flax names
+            leaf_name = _FLAX_TO_TORCH_LEAF.get(leaf_name, leaf_name)
+        sd[".".join(mods + [leaf_name])] = t
     return sd
+
+
+def load_flax_params(model: nn.Module, params_np: dict) -> nn.Module:
+    """Load a flax tree into ``model`` on the model's device, each parameter
+    taking the tree's dtype (a quantized tree's int codes, f32 scales and
+    bf16 high-precision leaves stay as stored). Strict on the keys."""
+    dev = next(model.parameters()).device
+    sd = {k: v.to(dev) for k, v in transformer_params_from_jax(params_np).items()}
+    model.load_state_dict(sd, assign=True)
+    return model
+
+
+def model_from_tree(cfg, params_np: dict, device: torch.device | str = "cuda") -> nn.Module:
+    """A ``TransformerLM`` of ``cfg`` on ``device`` holding a flax tree
+    (quantized or not) in the tree's dtypes."""
+    from distributed_tensorflow_tpu_torch.models.transformer import TransformerLM
+
+    return load_flax_params(TransformerLM(cfg, device=device), params_np)
 
 
 def _flax_leaf(mod: nn.Module, leaf: str) -> str:
@@ -63,7 +101,7 @@ def _flax_leaf(mod: nn.Module, leaf: str) -> str:
         return "embedding"
     if isinstance(mod, nn.Linear):
         return "kernel" if leaf == "weight" else "bias"
-    return leaf
+    return leaf  # QuantDense and a module's own parameters keep their names
 
 
 def flax_param_paths(module: nn.Module) -> dict[str, tuple[tuple[str, ...], bool]]:
@@ -86,13 +124,19 @@ def transformer_params_to_jax(module: nn.Module, grads: bool = False) -> dict:
     tree: dict = {}
     params = dict(module.named_parameters())
     for name, (path, transposed) in flax_param_paths(module).items():
-        t = (params[name].grad if grads else params[name]).detach().float()
+        t = (params[name].grad if grads else params[name]).detach()
+        if t.is_floating_point() and t.dtype != torch.bfloat16:
+            t = t.float()
         if transposed:
             t = t.t()  # transposed where the tensor lives (on the card, before the copy)
         node = tree
         for m in path[:-1]:
             node = node.setdefault(m, {})
-        node[path[-1]] = t.contiguous().cpu().numpy()
+        if t.dtype == torch.bfloat16:
+            leaf = t.contiguous().view(torch.int16).cpu().numpy().view(np.uint16).view(Bfloat16Bits)
+        else:
+            leaf = t.contiguous().cpu().numpy()
+        node[path[-1]] = leaf
     return tree
 
 

@@ -15,6 +15,18 @@ the queries attend the whole cache by two f32 matmuls under an explicit
 causal (and window) mask. The cache holds the unexpanded kv heads, rope
 rotates q and k at their absolute positions, and positions at or above a
 row's ``len + s`` (a freed slot's stale keys, a padded tail) stay masked.
+Under ``kv_cache_dtype="int8"`` keys and values are quantized on write
+(``quantize_kv_rows``: int8 rows, one f32 scale a row) and the row scales
+go onto the score and weight matrices; the cache is never dequantized.
+``positions=`` gives the embeddings and rotations other positions than the
+write offsets (the drafter reads absolute positions out of a fresh cache;
+tree verify reads tree depth), and ``self_mask`` (S, S) turns the fed block
+into a draft tree: each query reads the committed prefix and exactly the
+in-block keys its row marks.
+
+``weight_dtype="int8"|"int4"`` swaps the four per-block matmul projections
+for ``models/quant.py::QuantDense`` (``matmul_dense``), as the JAX model
+does; such a model is loaded from a quantized tree, not trained.
 
 Numerics follow the flax modules the JAX model is built from: parameters are
 f32 and every matmul casts its input and weight to ``compute_dtype``;
@@ -26,6 +38,8 @@ returned in f32. Parameter names match the flax tree (``tok_embed``,
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -34,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from distributed_tensorflow_tpu_torch.models.quant import QuantDense, validate_weight_quant
 from distributed_tensorflow_tpu_torch.ops import attention as A
 from distributed_tensorflow_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_tables
 from distributed_tensorflow_tpu_torch.utils.device import resolve_device
@@ -58,12 +73,18 @@ class TransformerConfig:
     attention_window: int | None = None  # None = full causal
     position: str = "learned"  # 'learned' | 'rope'
     rope_theta: float = 10000.0
-    kv_cache_dtype: str | None = None  # None = compute dtype; 'int8' not ported yet
+    kv_cache_dtype: str | None = None  # None = compute dtype | 'int8'
     remat: bool = False  # recompute each block on backward (uncached path)
+    weight_dtype: str | None = None  # None | 'int8' | 'int4' (serving; models/quant.py)
+    quant_group_size: int = 0  # int4 only; 0 elsewhere
 
     def __post_init__(self):
         if self.position not in ("learned", "rope"):
             raise ValueError(f"position must be 'learned' or 'rope', got {self.position!r}")
+        if self.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(f"kv_cache_dtype must be None or 'int8', got {self.kv_cache_dtype!r}")
+        if self.weight_dtype is not None or self.quant_group_size:
+            validate_weight_quant(self.weight_dtype, self.quant_group_size, self.d_model, self.d_ff)
         if self.attention not in ATTENTION:
             raise ValueError(f"attention must be one of {ATTENTION}, got {self.attention!r}")
         kv = self.kv_heads
@@ -119,7 +140,9 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        # .float(): a quantized tree may hold the affine parameters in bf16.
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(),
+                         self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -139,19 +162,38 @@ class Embed(nn.Embedding):
         return F.embedding(ids, self.weight.to(self.compute_dtype))
 
 
+def quantize_kv_rows(x: torch.Tensor):
+    """Symmetric absmax int8 over the last (head_dim) axis: ``x`` (..., dh)
+    → (int8 (..., dh), f32 scales (...)). One scale a cached row, so it
+    factors out of any dot product over dh."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def matmul_dense(cfg: TransformerConfig, in_features: int, out_features: int, gen):
+    """The four per-block matmul projections (``qkv``/``proj``/``mlp_in``/
+    ``mlp_out``): ``QuantDense`` under ``cfg.weight_dtype``, else ``Dense``.
+    Embeddings, norms and ``lm_head`` never quantize."""
+    if cfg.weight_dtype:
+        return QuantDense(in_features, out_features, cfg.weight_dtype, cfg.quant_group_size,
+                          cfg.use_bias, cfg.compute_dtype)
+    return Dense(in_features, out_features, cfg.use_bias, cfg.compute_dtype, gen)
+
+
 class Block(nn.Module):
     """Pre-norm attention sublayer + pre-norm GELU MLP, both residual."""
 
     def __init__(self, cfg: TransformerConfig, gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
-        d, dt, bias = cfg.d_model, cfg.compute_dtype, cfg.use_bias
+        d, dt = cfg.d_model, cfg.compute_dtype
         self.ln1 = LayerNorm(d, dt)
-        self.qkv = Dense(d, d + 2 * cfg.kv_heads * cfg.head_dim, bias, dt, gen)
-        self.proj = Dense(d, d, bias, dt, gen)
+        self.qkv = matmul_dense(cfg, d, d + 2 * cfg.kv_heads * cfg.head_dim, gen)
+        self.proj = matmul_dense(cfg, d, d, gen)
         self.ln2 = LayerNorm(d, dt)
-        self.mlp_in = Dense(d, cfg.d_ff, bias, dt, gen)
-        self.mlp_out = Dense(cfg.d_ff, d, bias, dt, gen)
+        self.mlp_in = matmul_dense(cfg, d, cfg.d_ff, gen)
+        self.mlp_out = matmul_dense(cfg, cfg.d_ff, d, gen)
 
     def attention(self, x, rope):
         """``attention_sublayer`` of the JAX model, uncached: ``rope`` is the
@@ -197,13 +239,23 @@ class Block(nn.Module):
             q, k = apply_rope(q, *rope), apply_rope(k, *rope)
         # Write before attend: every key a query reads below len + s was
         # written by this sequence (the serving engine's slot-reuse rule).
-        cache.write(layer, k.transpose(1, 2), v.transpose(1, 2))
-        keys, values = cache.read(layer)  # (B, KV, L, dh) f32
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        if cfg.kv_cache_dtype == "int8":
+            (k, k_sc), (v, v_sc) = quantize_kv_rows(k), quantize_kv_rows(v)
+            cache.write(layer, k, v, k_sc, v_sc)
+        else:
+            cache.write(layer, k, v)
+        # (B, KV, L, dh) f32; int8: the codes, with (B, KV, L) row scales.
+        keys, values, k_scale, v_scale = cache.read(layer)
         qh = q.transpose(1, 2).reshape(b, kv, (h // kv) * s, dh).float()
-        scores = torch.matmul(qh, keys.transpose(-1, -2)) / math.sqrt(dh)
-        scores = scores.view(b, kv, h // kv, s, -1).masked_fill(~allowed[:, None, None], A.NEG_INF)
-        weights = torch.softmax(scores, dim=-1).view(b, kv, (h // kv) * s, -1)
-        attn = torch.matmul(weights, values).to(cfg.compute_dtype)
+        scores = (torch.matmul(qh, keys.transpose(-1, -2)) / math.sqrt(dh)).view(b, kv, h // kv, s, -1)
+        if k_scale is not None:
+            scores = scores * k_scale[:, :, None, None, :]
+        scores = scores.masked_fill(~allowed[:, None, None], A.NEG_INF)
+        weights = torch.softmax(scores, dim=-1)
+        if v_scale is not None:
+            weights = weights * v_scale[:, :, None, None, :]
+        attn = torch.matmul(weights.view(b, kv, (h // kv) * s, -1), values).to(cfg.compute_dtype)
         attn = attn.view(b, h, s, dh).transpose(1, 2).reshape(b, s, cfg.d_model)
         return x + self.proj(attn)
 
@@ -225,26 +277,30 @@ def apply_block(block: nn.Module, x: torch.Tensor, rope, remat: bool) -> torch.T
 
 
 class ContiguousKV:
-    """KV view of a cache dict ``{"layers": [{"k", "v"}], "len"}`` (the JAX
-    layout: k/v (B, KV, S_max, dh), ``len`` the filled prefix, one int for
-    the batch or one per row). Writes land in the layer tensors in place."""
+    """KV view of a cache dict ``{"layers": [{"k", "v"[, "k_scale",
+    "v_scale"]}], "len"}`` (the JAX layout: k/v (B, KV, S_max, dh), int8
+    caches with (B, KV, S_max) f32 row scales; ``len`` the filled prefix,
+    one int for the batch or one per row). Writes land in the layer tensors
+    in place; ``read`` gives ``(k, v, k_scale, v_scale)``, k/v in f32 and the
+    scales None for a compute-dtype cache."""
 
     def __init__(self, layers, lengths: torch.Tensor):
         self.layers = layers
         self.lengths = lengths
         self.extent = layers[0]["k"].shape[2]
 
-    def write(self, layer, k, v):
+    def write(self, layer, k, v, k_scale=None, v_scale=None):
         b, _, s, _ = k.shape
         pos = self.lengths[:, None] + torch.arange(s, device=k.device)
         rows = torch.arange(b, device=k.device)[:, None]
         buf = self.layers[layer]
-        buf["k"][rows, :, pos] = k.transpose(1, 2).to(buf["k"].dtype)
-        buf["v"][rows, :, pos] = v.transpose(1, 2).to(buf["v"].dtype)
+        for name, t in (("k", k), ("v", v), ("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is not None:
+                buf[name][rows, :, pos] = t.transpose(1, 2).to(buf[name].dtype)
 
     def read(self, layer):
         buf = self.layers[layer]
-        return buf["k"].float(), buf["v"].float()
+        return (buf["k"].float(), buf["v"].float(), buf.get("k_scale"), buf.get("v_scale"))
 
 
 class TransformerLM(nn.Module):
@@ -271,16 +327,33 @@ class TransformerLM(nn.Module):
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.use_bias, dt, gen)
         self.to(device)
 
-    def forward(self, tokens: torch.Tensor, cache=None, self_mask=None):
+    def with_config(self, cfg: TransformerConfig) -> "TransformerLM":
+        """This model under ``cfg``, which may differ from its own only in
+        ``kv_cache_dtype`` (a serving-time mode, no weight changes): a new
+        module sharing every parameter, or ``self`` when nothing differs."""
+        if cfg == self.cfg:
+            return self
+        if dataclasses.replace(self.cfg, kv_cache_dtype=cfg.kv_cache_dtype) != cfg:
+            raise ValueError(f"config {cfg} differs from the model's {self.cfg} beyond "
+                             "kv_cache_dtype")
+        out = copy.deepcopy(self, {id(p): p for p in self.parameters()})
+        for mod in out.modules():
+            if isinstance(mod, (TransformerLM, Block)):
+                mod.cfg = cfg
+        return out
+
+    def forward(self, tokens: torch.Tensor, cache=None, self_mask=None, positions=None):
         """Uncached: logits. With ``cache`` (a dict from
         ``models/decoding.py::init_cache``, or a KV view with ``lengths``,
         ``extent``, ``write`` and ``read``): ``(logits, cache)``, a dict's
-        ``len`` advanced by S and its buffers written in place.
-        ``self_mask`` (tree speculation) is not ported yet."""
-        if self_mask is not None:
-            raise NotImplementedError(f"self_mask (tree attention) {_NOT_PORTED}")
+        ``len`` advanced by S and its buffers written in place. On the cached
+        path ``positions`` (B, S) replaces the write offsets for the
+        embeddings and rotations, and ``self_mask`` (S, S) bool marks each
+        fed token's in-block ancestors (tree verify)."""
         if cache is not None:
-            return self._cached_forward(tokens, cache)
+            return self._cached_forward(tokens, cache, positions, self_mask)
+        if self_mask is not None or positions is not None:
+            raise NotImplementedError(f"self_mask/positions without a cache {_NOT_PORTED}")
         cfg = self.cfg
         s = tokens.shape[1]
         x = self.tok_embed(tokens)
@@ -294,17 +367,17 @@ class TransformerLM(nn.Module):
             x = apply_block(getattr(self, f"block_{i}"), x, rope, cfg.remat)
         return self.lm_head(self.ln_f(x)).float()
 
-    def _cached_forward(self, tokens, cache):
+    def _cached_forward(self, tokens, cache, positions=None, self_mask=None):
         cfg = self.cfg
-        if cfg.kv_cache_dtype is not None:
-            raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} {_NOT_PORTED}")
         b, s = tokens.shape
         dev = tokens.device
         view = cache
         if isinstance(cache, dict):
             lengths = torch.as_tensor(cache["len"], dtype=torch.int64, device=dev)
             view = ContiguousKV(cache["layers"], lengths.expand(b) if lengths.dim() == 0 else lengths)
-        pos = view.lengths[:, None] + torch.arange(s, device=dev)  # (B, S) absolute
+        wpos = view.lengths[:, None] + torch.arange(s, device=dev)  # (B, S) write offsets
+        pos = wpos if positions is None else torch.as_tensor(
+            positions, dtype=torch.int64, device=dev).expand(b, s)
         x = self.tok_embed(tokens)
         rope = None
         if cfg.position == "rope":
@@ -312,9 +385,21 @@ class TransformerLM(nn.Module):
         else:
             x = x + self.pos_embed(pos)
         key_pos = torch.arange(view.extent, device=dev)
-        allowed = key_pos[None, None, :] <= pos[:, :, None]
-        if cfg.attention_window is not None:
-            allowed &= key_pos[None, None, :] > pos[:, :, None] - cfg.attention_window
+        if self_mask is not None:
+            # Tree verify: write order is not causal order inside the
+            # block, so in-block keys follow the ancestor mask; the committed
+            # prefix is visible, keys past the block stay hidden.
+            if cfg.attention_window is not None:
+                raise ValueError("self_mask (tree attention) is incompatible with attention_window")
+            ln = view.lengths[:, None]  # (B, 1)
+            in_block = (key_pos >= ln) & (key_pos < ln + s)  # (B, L)
+            rel = (key_pos - ln).clamp(0, s - 1)
+            anc = torch.as_tensor(self_mask, dtype=torch.bool, device=dev)[:, rel]  # (S, B, L)
+            allowed = (key_pos < ln)[:, None, :] | (in_block[:, None, :] & anc.transpose(0, 1))
+        else:
+            allowed = key_pos[None, None, :] <= wpos[:, :, None]
+            if cfg.attention_window is not None:
+                allowed &= key_pos[None, None, :] > wpos[:, :, None] - cfg.attention_window
         for i in range(cfg.num_layers):
             x = getattr(self, f"block_{i}")(x, rope, cache=view, layer=i, allowed=allowed)
         logits = self.lm_head(self.ln_f(x)).float()

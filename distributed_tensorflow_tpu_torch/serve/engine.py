@@ -1,8 +1,8 @@
 """Continuous-batching decode engine over one model on one device.
 
 Counterpart of ``distributed_tensorflow_tpu/serve/engine.py::SlotEngine``
-without speculation, weight swap, slot export/import and the sharded
-engine. The engine runs one of two KV layouts behind the same slot API:
+without weight swap, slot export/import and the sharded engine. The engine
+runs one of two KV layouts behind the same slot API:
 
 * ``page_size=0`` — the monolithic layout: per-slot worst-case rows in a
   :class:`~distributed_tensorflow_tpu_torch.serve.kv_pool.SlotKVPool`.
@@ -40,6 +40,22 @@ slot batch. :meth:`warmup` runs every one of them; after it
   whose post-adoption tail exceeds the chunk width is fed across engine
   iterations through the bucket programs, one suffix-aligned final chunk
   last, while co-resident slots keep decoding.
+* **speculative verify** (``spec_k > 0``, paged only) — each active slot
+  drafts ``spec_k`` tokens (prompt lookup over its own history,
+  ``models/decoding.py::propose_ngram_drafts``, or a learned draft model,
+  ``build_draft_fn``) and ONE forward of ``[cur_tok, d_0..d_{k-1}]``
+  verifies them: greedy lanes emit ``targets[:a+1]`` (``a`` leading drafts
+  equal to the target's argmax — token-identical to plain decoding),
+  sampled lanes the lossless ``rejection_verify_row``. With
+  ``spec_branches > 1`` each slot feeds a ``(branches, spec_k)`` draft TREE
+  (branch 0 the linear drafter's, the others n-gram continuations pooled
+  over every active slot's history) in one ``1 + branches·spec_k`` wide
+  forward under the ancestor ``self_mask``, positions following tree depth;
+  the best branch wins (ties to branch 0), sampled lanes take
+  ``tree_rejection_verify_row``. A verify forward runs on a gathered copy of
+  each lane's pages, then writes the accepted path back at the canonical
+  positions (the tree's winning branch compacted behind the current token):
+  the block's keys never touch a page another lane reads.
 
 Correctness invariant for slot reuse: a step at length ``len`` writes
 position ``len`` BEFORE attending keys ``0..len``, so every key a request
@@ -49,6 +65,11 @@ Sampling: a sampled pick at a slot's ``made``-th token draws from
 ``models/decoding.py::stream_uniforms(seed, made)``: the stream is a
 function of the request's seed, whatever shares the batch. Greedy rows
 take the argmax.
+
+The model may be weight-quantized (``QuantDense`` layers) and the pool may
+hold int8 rows with f32 scale planes (``kv_cache_dtype="int8"``);
+``hold_compute_weights`` never makes a compute-dtype copy of a quantized
+layer.
 
 The engine is single-threaded by contract: one thread owns it and makes
 every device call, on the engine's device.
@@ -62,10 +83,17 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch.models.decoding import (
+    build_draft_fn,
     compute_copy,
+    filter_logits_batched,
+    propose_ngram_drafts,
+    propose_ngram_tree,
+    rejection_verify_row,
     sample_logits_batched,
     stream_uniforms,
+    tree_rejection_verify_row,
 )
+from distributed_tensorflow_tpu_torch.models.transformer import ContiguousKV
 from distributed_tensorflow_tpu_torch.serve.kv_pool import (
     TRASH_PAGE,
     InsufficientPages,
@@ -91,7 +119,7 @@ class _PagedView:
         self.extent = tables.shape[1] * page_size
         self._where = None  # (page, offset) of the written positions, shared by the layers
 
-    def write(self, layer, k, v):
+    def write(self, layer, k, v, k_scale=None, v_scale=None):
         if self._where is None:
             pos = self.lengths[:, None] + torch.arange(k.shape[2], device=k.device)
             page = torch.gather(self.tables, 1, pos // self.page_size)
@@ -100,19 +128,22 @@ class _PagedView:
             self._where = (page, pos % self.page_size)
         page, off = self._where
         buf = self.layers[layer]
-        buf["k"][page, :, off] = k.transpose(1, 2).to(buf["k"].dtype)
-        buf["v"][page, :, off] = v.transpose(1, 2).to(buf["v"].dtype)
+        for name, t in (("k", k), ("v", v), ("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is not None:  # int8: the codes and their (n, kv, s) row scales
+                buf[name][page, :, off] = t.transpose(1, 2).to(buf[name].dtype)
 
     def read(self, layer):
         n, p = self.tables.shape
         out = []
-        for name in ("k", "v"):
-            g = self.layers[layer][name][self.tables]  # (n, P, kv, ps, dh)
-            f = torch.empty((n, g.shape[2], p, g.shape[3], g.shape[4]), dtype=torch.float32,
-                            device=g.device)
-            f.copy_(g.permute(0, 2, 1, 3, 4))
-            out.append(f.view(n, g.shape[2], p * g.shape[3], g.shape[4]))
-        return out[0], out[1]
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name not in self.layers[layer]:
+                out.append(None)
+                continue
+            g = self.layers[layer][name][self.tables]  # (n, P, kv, ps[, dh])
+            f = torch.empty((n, g.shape[2], p) + g.shape[3:], dtype=torch.float32, device=g.device)
+            f.copy_(g.transpose(1, 2))
+            out.append(f.view((n, g.shape[2], p * g.shape[3]) + g.shape[4:]))
+        return tuple(out)
 
 
 class _RowView:
@@ -123,18 +154,47 @@ class _RowView:
         self.layers, self.rows, self.lengths, self.extent = layers, rows, lengths, extent
         self._pos = None  # the written positions, shared by the layers
 
-    def write(self, layer, k, v):
+    def write(self, layer, k, v, k_scale=None, v_scale=None):
         if self._pos is None:
             self._pos = self.lengths[:, None] + torch.arange(k.shape[2], device=k.device)
         pos = self._pos
         buf = self.layers[layer]
-        buf["k"][self.rows[:, None], :, pos] = k.transpose(1, 2).to(buf["k"].dtype)
-        buf["v"][self.rows[:, None], :, pos] = v.transpose(1, 2).to(buf["v"].dtype)
+        for name, t in (("k", k), ("v", v), ("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is not None:
+                buf[name][self.rows[:, None], :, pos] = t.transpose(1, 2).to(buf[name].dtype)
 
     def read(self, layer):
         buf = self.layers[layer]
-        return (buf["k"][self.rows, :, : self.extent].float(),
-                buf["v"][self.rows, :, : self.extent].float())
+        cut = lambda name: buf[name][self.rows, :, : self.extent].float() if name in buf else None
+        return cut("k"), cut("v"), cut("k_scale"), cut("v_scale")
+
+
+class _GatheredView(ContiguousKV):
+    """A verify round's KV view: each lane's first P pages gathered into
+    contiguous rows ``(n, kv, P·ps[, dh])`` (as the JAX programs gather a
+    slot's logical cache), written and read there; :meth:`scatter_back`
+    copies chosen positions into the pool."""
+
+    def __init__(self, layers, tables, lengths, page_size):
+        rows = []
+        for layer in layers:
+            got = {}
+            for name, buf in layer.items():
+                g = buf[tables].transpose(1, 2)  # (n, kv, P, ps[, dh])
+                got[name] = g.reshape(g.shape[:2] + (-1,) + g.shape[4:])
+            rows.append(got)
+        super().__init__(rows, lengths)
+        self.pool_layers, self.tables, self.page_size = layers, tables, page_size
+
+    def scatter_back(self, src, dst):
+        """Pool positions ``dst`` (n, m) of each lane take the gathered rows'
+        positions ``src`` (n, m)."""
+        lanes = torch.arange(src.shape[0], device=src.device)[:, None]
+        page = torch.gather(self.tables, 1, dst // self.page_size)
+        off = dst % self.page_size
+        for pool, got in zip(self.pool_layers, self.layers):
+            for name, buf in pool.items():
+                buf[page, :, off] = got[name][lanes, :, src]
 
 
 class SlotEngine:
@@ -147,7 +207,10 @@ class SlotEngine:
     pages. ``model`` is a ``TransformerLM`` on ``device`` (the card unless
     the CPU is asked for); with ``hold_compute_weights`` the engine serves
     a copy whose matmul weights are already in the compute dtype, the same
-    values the per-call casts give."""
+    values the per-call casts give (a quantized layer stays quantized).
+    ``draft_params`` is the learned drafter, a ``TransformerLM`` of config
+    ``draft_cfg`` on the same device (``models/decoding.py::
+    init_draft_params`` or a draft bundle)."""
 
     def __init__(
         self,
@@ -172,10 +235,6 @@ class SlotEngine:
         device: torch.device | str = "cuda",
         hold_compute_weights: bool = True,
     ):
-        if spec_k or spec_branches != 1:
-            raise NotImplementedError(f"speculative decoding (spec_k, spec_branches) {_NOT_PORTED}")
-        if draft_params is not None or draft_cfg is not None:
-            raise NotImplementedError(f"the learned drafter (draft_params) {_NOT_PORTED}")
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev.type != self.device.type or (
@@ -191,7 +250,27 @@ class SlotEngine:
             raise ValueError(f"steps_per_sync must be >= 1, got {steps_per_sync}")
         if page_size is None:
             page_size = 16 if max_len % 16 == 0 else max_len
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k and not page_size:
+            raise ValueError("spec_k > 0 requires the paged KV layout")
+        spec_branches = int(spec_branches)
+        if spec_branches < 1:
+            raise ValueError(f"spec_branches must be >= 1, got {spec_branches}")
+        if spec_branches > 1:
+            if not spec_k:
+                raise ValueError("spec_branches > 1 requires spec_k > 0")
+            if cfg.attention_window is not None:
+                # In-block positions are not monotone in write order, which
+                # the window's relative-offset mask cannot express.
+                raise ValueError("spec_branches > 1 (tree speculation) is incompatible "
+                                 "with attention_window")
+            if 1 + spec_branches * spec_k > max_len - 1:
+                raise ValueError(
+                    f"tree verify width 1 + {spec_branches}*{spec_k} exceeds max_len - 1 "
+                    f"({max_len - 1}); shrink spec_branches/spec_k")
         self.cfg = cfg
+        model = model.with_config(cfg)  # the pool's KV format is the model's
         self.model = compute_copy(model) if hold_compute_weights else model
         self.slots = int(slots)
         self.max_len = max_len
@@ -199,6 +278,11 @@ class SlotEngine:
         self.steps_per_sync = int(steps_per_sync)
         self.page_size = int(page_size)
         self.paged = self.page_size > 0
+        self.spec_k = int(spec_k)
+        self.spec_branches = spec_branches
+        # Positions a verify round writes above each slot's length: the whole
+        # fed block (the end-of-window fallback guard in _decode_round).
+        self._spec_write = 1 + spec_branches * self.spec_k if spec_branches > 1 else self.spec_k + 1
         # Prefill width buckets (paged only); the largest is prefill_len.
         buckets = {int(b) for b in prefill_buckets} if self.paged else set()
         for b in buckets:
@@ -220,6 +304,31 @@ class SlotEngine:
             c = -1
         self.prefill_chunk_tokens = c
         self.prefill_buckets = tuple(sorted(buckets))
+        if draft_params is not None:
+            if not self.spec_k:
+                raise ValueError("draft_params requires spec_k > 0")
+            if draft_cfg is None:
+                raise ValueError("draft_params requires draft_cfg")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                                 f"{cfg.vocab_size}")
+            # The draft cache holds window + spec_k positions.
+            draft_window = min(int(draft_window), draft_cfg.max_seq_len - self.spec_k)
+            if draft_window < 1:
+                raise ValueError(f"draft max_seq_len {draft_cfg.max_seq_len} too short for "
+                                 f"spec_k {self.spec_k}")
+            if next(draft_params.parameters()).device.type != self.device.type:
+                raise ValueError(f"the drafter lives on {next(draft_params.parameters()).device}, "
+                                 f"the engine on {self.device}")
+            draft_params = draft_params.with_config(draft_cfg)
+            if hold_compute_weights:
+                draft_params = compute_copy(draft_params)
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        self.draft_window = int(draft_window)
+        self.drafter = "model" if draft_params is not None else "ngram"
+        self._draft = (build_draft_fn(draft_cfg, self.spec_k, self.draft_window)
+                       if draft_params is not None else None)
         self.sentinel = sentinel
         self.weight_version = 0
         self.serving_variant = ""
@@ -242,6 +351,9 @@ class SlotEngine:
         self.made = np.zeros(n, np.int32)  # tokens generated so far
         self.budget = np.ones(n, np.int32)  # max_new_tokens per slot
         self.eos = np.full(n, -1, np.int32)  # -1 = no eos stop
+        # Prompt + emitted tokens per slot: the drafters' corpus.
+        self.history = np.zeros((n, max_len), np.int32)
+        self.hist_len = np.zeros(n, np.int32)
         self.prefilling = np.zeros(n, bool)
         self._pf: dict[int, dict] = {}
         self._pf_queue: deque[int] = deque()
@@ -262,6 +374,7 @@ class SlotEngine:
             "prefill_tokens_last_iter": 0,
         }
         self.accept_samples: deque[int] = deque(maxlen=4096)
+        self._force_plain = False  # warmup hook: run the non-spec path
         self._signatures: set[tuple] = set()
         # Check hook: set to a list, it gets (slot, token index, token, the
         # f32 logits row it was picked from, on the host) for every pick.
@@ -304,20 +417,26 @@ class SlotEngine:
 
     @property
     def spec_accept_rate(self) -> float:
-        return 0.0
+        prop = self.stats["spec_drafts_proposed"]
+        return self.stats["spec_drafts_accepted"] / prop if prop else 0.0
 
     def spec_accept_rate_for(self, drafter: str) -> float:
-        return 0.0
+        prop = self.stats[f"spec_drafts_proposed_{drafter}"]
+        acc = self.stats[f"spec_drafts_accepted_{drafter}"]
+        return acc / prop if prop else 0.0
 
     @property
     def spec_accept_per_verify(self) -> float:
-        return 0.0
+        """Mean accepted drafts per (slot, verify round)."""
+        ver = self.stats["spec_verifies"]
+        return self.stats["spec_drafts_accepted"] / ver if ver else 0.0
 
     @property
     def kv_dtype(self) -> str:
         """The serving mode's KV label, as the JAX engine reports it:
-        ``'bf16'`` names compute-dtype rows (f32 bytes under f32 compute)."""
-        return "bf16"
+        ``'int8'`` for quantize-on-write pages, else ``'bf16'`` (compute-dtype
+        rows, f32 bytes under f32 compute)."""
+        return "int8" if self.cfg.kv_cache_dtype == "int8" else "bf16"
 
     @property
     def kv_bytes_per_token(self) -> float:
@@ -333,15 +452,20 @@ class SlotEngine:
 
     @property
     def weight_dtype(self) -> str:
-        return "native"
+        """``'int8'``/``'int4'`` for a quantized model, else ``'native'``."""
+        return self.cfg.weight_dtype or "native"
 
     @property
     def draft_weight_dtype(self) -> str:
-        return ""
+        """The learned drafter's mode (``''`` for the n-gram drafter)."""
+        if self.draft_cfg is None:
+            return ""
+        return self.draft_cfg.weight_dtype or "native"
 
     @property
     def weight_bytes_per_device(self) -> int:
-        """Bytes of the weights the engine serves."""
+        """Bytes of the target weights the engine serves (the drafter is
+        accounted apart)."""
         return int(sum(p.numel() * p.element_size() for p in self.model.parameters()))
 
     def acquire_slot(self) -> int | None:
@@ -396,6 +520,9 @@ class SlotEngine:
         self.seed[slot] = np.uint32(sargs[3])
         self.budget[slot] = max_new_tokens
         self.eos[slot] = eos
+        if self.spec_k:
+            self.history[slot, :p] = prompt
+            self.hist_len[slot] = p
         if first is None:
             self.active[slot] = False
             self.lengths[slot] = 0
@@ -407,6 +534,9 @@ class SlotEngine:
         self.lengths[slot] = p
         self.cur_tok[slot] = first
         self.made[slot] = 1
+        if self.spec_k:
+            self.history[slot, p] = first
+            self.hist_len[slot] = p + 1
         self._poll()
         return first, finished
 
@@ -523,6 +653,9 @@ class SlotEngine:
                 self.lengths[slot] = p
                 self.cur_tok[slot] = first
                 self.made[slot] = 1
+                if self.spec_k:
+                    self.history[slot, p] = first
+                    self.hist_len[slot] = p + 1
                 if self.prefix is not None:
                     # Pages become adoptable once every position is filled.
                     self.prefix.insert(prompt, st["page_ids"])
@@ -615,6 +748,11 @@ class SlotEngine:
         lanes = np.nonzero(self.active)[0]
         n, k = lanes.size, self.steps_per_sync
         any_sampled = bool((self.temp[lanes] > 0.0).any())
+        # A verify writes its whole block above each length: a slot within
+        # that of max_len takes a plain round instead.
+        if (self.spec_k and not self._force_plain
+                and bool((self.lengths[lanes] + self._spec_write <= self.max_len).all())):
+            return self._spec_round(lanes, any_sampled)
         self._run(("step", any_sampled, self.slots, k))
         self.stats["plain_rounds"] += 1
         dev = self.device
@@ -679,8 +817,158 @@ class SlotEngine:
         self.lengths[lanes] = tail[1]
         self.cur_tok[lanes] = tail[2]
         self.made[lanes] = tail[3]
+        self._record_history(lanes, toks, valid)
         self._poll()
         return toks, valid, was_active & ~self.active
+
+    def _record_history(self, lanes, toks, valid) -> None:
+        if self.spec_k:
+            for s in lanes:
+                emitted = toks[valid[:, s], s]
+                n = int(self.hist_len[s])
+                self.history[s, n: n + emitted.size] = emitted
+                self.hist_len[s] = n + emitted.size
+
+    @torch.no_grad()
+    def _spec_round(self, lanes, any_sampled: bool):
+        """One verify round over the active ``lanes`` (linear, or a tree with
+        ``spec_branches > 1``); the JAX engine's ``spec_fn``/``tree_fn`` and
+        their budget / eos truncation."""
+        n, D, B = lanes.size, self.spec_k, self.spec_branches
+        tree = B > 1
+        self._run(("tree" if tree else "spec", any_sampled, self.slots, D))
+        S = D + 1
+        if tree:
+            drafts = self._propose_tree_drafts()[lanes]  # (n, B, D)
+            fed = np.concatenate([self.cur_tok[lanes, None], drafts.reshape(n, B * D)], 1)
+        else:
+            drafts = self._propose_drafts()[lanes]  # (n, D)
+            fed = np.concatenate([self.cur_tok[lanes, None], drafts], 1)
+        dev, ps, w = self.device, self.page_size, fed.shape[1]
+        n_pages = min(-(-(int(self.lengths[lanes].max()) + w) // ps), self.pool.pages_per_slot)
+        lengths = torch.from_numpy(self.lengths[lanes].astype(np.int64)).to(dev)
+        tables = torch.from_numpy(self.pool.page_tables[lanes, :n_pages].astype(np.int64)).to(dev)
+        view = _GatheredView(self.pool.layers, tables, lengths, ps)
+        x = torch.from_numpy(fed.astype(np.int64)).to(dev)
+        if tree:
+            # Node (b, j) is fed at 1 + b·D + j; its position is length + 1 + j.
+            depth = np.concatenate([[0], 1 + np.tile(np.arange(D), B)])
+            anc = np.zeros((w, w), bool)
+            anc[:, 0] = True
+            for b in range(B):
+                for j in range(D):
+                    r = 1 + b * D + j
+                    anc[r, 1 + b * D: r + 1] = True
+            logits, _ = self.model(x, cache=view, self_mask=torch.from_numpy(anc).to(dev),
+                                   positions=lengths[:, None] + torch.from_numpy(depth).to(dev))
+        else:
+            logits, _ = self.model(x, cache=view)
+        targets = torch.argmax(logits, dim=-1).cpu().numpy()  # (n, w)
+        if tree:
+            par = np.array([[0 if j == 0 else 1 + b * D + j - 1 for j in range(D)]
+                            for b in range(B)])
+            lead = np.cumprod(drafts == targets[:, par], axis=2).sum(2)  # (n, B)
+            bsel = lead.argmax(1)  # first max: ties to branch 0
+            a = lead[np.arange(n), bsel]
+            rows = np.concatenate([np.zeros((n, 1), np.int64),
+                                   1 + bsel[:, None] * D + np.arange(D)], 1)  # (n, S)
+        else:
+            a = np.cumprod(drafts == targets[:, :D], axis=1).sum(1)
+            bsel = np.zeros(n, np.int64)
+            rows = np.tile(np.arange(S), (n, 1))
+        E = np.take_along_axis(targets, rows, 1)
+        sampled = np.nonzero(self.temp[lanes] > 0.0)[0]
+        if sampled.size:
+            sl = lanes[sampled]
+            filt = filter_logits_batched(
+                logits[torch.from_numpy(sampled).to(dev)].reshape(-1, logits.shape[-1]),
+                np.repeat(self.temp[sl], w), np.repeat(self.top_k[sl], w),
+                np.repeat(self.top_p[sl], w)).view(sampled.size, w, -1).cpu()
+            for i, j in enumerate(sampled):
+                seed, made = int(self.seed[lanes[j]]), int(self.made[lanes[j]])
+                if tree:
+                    e, a[j], bsel[j] = tree_rejection_verify_row(filt[i], drafts[j], seed, made)
+                    rows[j] = np.concatenate([[0], 1 + bsel[j] * D + np.arange(D)])
+                else:
+                    e, a[j] = rejection_verify_row(filt[i], drafts[j], seed, made)
+                E[j] = e.numpy()
+        budget, made, eos = self.budget[lanes], self.made[lanes], self.eos[lanes]
+        n1 = np.minimum(a + 1, budget - made)
+        idx = np.arange(S)[None, :]
+        eos_in = (E == eos[:, None]) & (idx < n1[:, None])
+        any_eos = eos_in.any(1)
+        n_final = np.where(any_eos, eos_in.argmax(1) + 1, n1)
+        # Keep the accepted path: position length + j takes the block's row
+        # rows[j] (the winning branch moves up behind the current token).
+        src = lengths[:, None] + torch.from_numpy(rows).to(dev)
+        view.scatter_back(src, lengths[:, None] + torch.arange(S, device=dev))
+        if self.logit_trace is not None:
+            lg = logits.cpu()
+            for j, s in enumerate(lanes):
+                for i in range(int(n_final[j])):
+                    self.logit_trace.append((int(s), int(made[j]) + i, int(E[j, i]),
+                                             lg[j, rows[j, i]]))
+        toks = np.zeros((S, self.slots), np.int32)
+        valid = np.zeros((S, self.slots), bool)
+        toks[:, lanes] = E.T
+        valid[:, lanes] = (idx < n_final[:, None]).T
+        accepted = np.minimum(a, n_final - 1)
+        was_active = self.active.copy()
+        self.lengths[lanes] += n_final.astype(np.int32)
+        self.made[lanes] += n_final.astype(np.int32)
+        self.cur_tok[lanes] = E[np.arange(n), n_final - 1]
+        self.active[lanes] = ~((self.made[lanes] >= budget) | any_eos)
+        proposed = n * D  # the path budget in both modes: rates stay comparable
+        self.accept_samples.extend(int(x) for x in accepted)
+        self.stats["spec_rounds"] += 1
+        self.stats["spec_verifies"] += n
+        self.stats["spec_rounds_sampled"] += int(any_sampled)
+        for suffix in ("", f"_{self.drafter}"):
+            self.stats[f"spec_drafts_proposed{suffix}"] += proposed
+            self.stats[f"spec_drafts_accepted{suffix}"] += int(accepted.sum())
+        self._record_history(lanes, toks, valid)
+        self._poll()
+        return toks, valid, was_active & ~self.active
+
+    def _propose_drafts(self) -> np.ndarray:
+        """(slots, spec_k) drafts for the active lanes: the learned drafter
+        over every active lane at once when one is loaded (the current token
+        is the history's last, so its first output follows it), else prompt
+        lookup over each slot's history."""
+        drafts = np.zeros((self.slots, self.spec_k), np.int32)
+        lanes = np.nonzero(self.active)[0]
+        if self._draft is not None:
+            self._run(("draft", self.slots, self.draft_window))
+            W = self.draft_window
+            toks = np.zeros((lanes.size, W), np.int32)
+            lens = np.ones(lanes.size, np.int32)
+            pos0 = np.zeros(lanes.size, np.int32)
+            for i, s in enumerate(lanes):
+                n = int(self.hist_len[s])
+                m = min(n, W)
+                toks[i, :m] = self.history[s, n - m: n]
+                lens[i] = max(m, 1)
+                pos0[i] = n - m  # the absolute position of toks[i, 0]
+            drafts[lanes] = self._draft(self.draft_params, toks, lens, pos0).cpu().numpy()
+            return drafts
+        for s in lanes:
+            drafts[s] = propose_ngram_drafts(self.history[s, : int(self.hist_len[s])], self.spec_k)
+        return drafts
+
+    def _propose_tree_drafts(self) -> np.ndarray:
+        """(slots, spec_branches, spec_k): branch 0 :meth:`_propose_drafts`'s
+        row, the others ``propose_ngram_tree`` over the slot's history and
+        every other active slot's."""
+        B, D = self.spec_branches, self.spec_k
+        tree = np.zeros((self.slots, B, D), np.int32)
+        tree[:, 0, :] = self._propose_drafts()
+        act = np.nonzero(self.active)[0]
+        hists = {s: self.history[s, : int(self.hist_len[s])] for s in act}
+        for s in act:
+            alt = propose_ngram_tree(hists[s], D, B,
+                                     extra_histories=[hists[o] for o in act if o != s])
+            tree[s, 1:, :] = alt[1:]
+        return tree
 
     # -- warmup / zero-recompile accounting -------------------------------
 
@@ -691,13 +979,22 @@ class SlotEngine:
     def warmup(self) -> int:
         """Run the full program set on throwaway requests; returns
         :meth:`compile_count`, which must not grow afterwards. Covers the
-        greedy and sampled prefill + decode round, every prefill bucket
+        greedy and sampled prefill + decode round (the plain rounds forced
+        when speculation is on: they serve the end-of-window fallback), both
+        verify variants (and the learned drafter), every prefill bucket
         width, and (when chunked prefill can trigger) one chunked prompt
         per sampling variant driven to completion."""
-        for kwargs in ({"temperature": 0.0}, {"temperature": 1.0, "top_k": 2, "top_p": 0.9}):
+        passes: list[dict] = [{"temperature": 0.0, "_plain": True}]
+        if self.spec_k:
+            passes.append({"temperature": 0.0})
+            passes.append({"temperature": 1.0, "top_k": 2, "top_p": 0.9, "_plain": True})
+        passes.append({"temperature": 1.0, "top_k": 2, "top_p": 0.9})
+        for kwargs in passes:
+            force = kwargs.pop("_plain", False)
             slot = self.acquire_slot()
             if slot is None:
                 raise RuntimeError("warmup needs a free slot")
+            self._force_plain = force
             try:
                 _, finished = self.start(slot, [0], max_new_tokens=2, seed=0, **kwargs)
                 if not finished:
@@ -705,6 +1002,7 @@ class SlotEngine:
                         self.step()
                     self.active[slot] = False
             finally:
+                self._force_plain = False
                 self.release(slot)
         # The passes above prefilled through the smallest bucket (p=1); a
         # length-b prompt forces bucket b. Adoption is off here, or the

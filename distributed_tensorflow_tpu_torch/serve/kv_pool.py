@@ -16,6 +16,11 @@ the scheduler's view of capacity never needs a device sync.
   is the reserved TRASH page: unbound table entries point at it, masked
   lanes write into it, and nothing reads it as a key that counts.
 
+Under ``kv_cache_dtype="int8"`` every layer's leaves are int8 ``k``/``v``
+rows with f32 ``k_scale``/``v_scale`` planes (``(…, page_size)``, one scale
+a row); pages carry, scatter and count their scales with their rows, so
+``hbm_bytes`` and ``bytes_per_token`` include them.
+
 Pages are REFCOUNTED so immutable full-prompt pages can be shared between
 slots and held by the :class:`PrefixCache`: a slot's allocation holds one
 reference, prefix adoption adds one per adopting slot, and the cache holds
@@ -201,7 +206,8 @@ class PagedKVPool:
 
     @property
     def bytes_per_token(self) -> float:
-        """KV bytes one token position costs across all layers."""
+        """KV bytes one token position costs across all layers, in the live
+        page format (int8 rows with their f32 scale planes)."""
         return self.hbm_bytes / (self.num_pages * self.page_size)
 
     def pages_needed(self, prompt_len: int, max_new_tokens: int) -> int:

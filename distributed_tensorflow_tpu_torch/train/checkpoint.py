@@ -671,7 +671,36 @@ def load_inference_bundle(path: str):
     return msgpack_state.loads(blob), metadata
 
 
-_QUANT_KEYS = ("weight_dtype", "quant_group_size", "kv_cache_dtype")
+def lm_config_from_meta(meta: dict, fallback_shapes: dict | None = None,
+                        dtype: torch.dtype = torch.float32):
+    """The ``TransformerConfig`` a bundle's metadata describes (its
+    ``config``, else ``fallback_shapes``), computing in ``dtype``: shapes,
+    GQA, window, rope, and the quantization and KV formats."""
+    from distributed_tensorflow_tpu_torch.models.transformer import TransformerConfig
+
+    fb = fallback_shapes or {}
+    shape_meta = meta.get("config") or {}
+
+    def dim(name, default):
+        return int(shape_meta.get(name, fb.get(name, default)))
+
+    return TransformerConfig(
+        vocab_size=dim("vocab_size", 256),
+        d_model=dim("d_model", 128),
+        num_heads=dim("num_heads", 4),
+        num_kv_heads=dim("num_kv_heads", 0) or None,  # 0/absent: multi-head
+        attention_window=dim("attention_window", 0) or None,
+        use_bias=bool(dim("use_bias", 1)),  # absent: biased, as bundles before the key
+        position="rope" if dim("rope", 0) else "learned",
+        rope_theta=float(shape_meta.get("rope_theta", fb.get("rope_theta", 10000.0))),
+        num_layers=dim("num_layers", 4),
+        d_ff=dim("d_ff", 512),
+        max_seq_len=dim("max_seq_len", 128),
+        weight_dtype=shape_meta.get("weight_dtype") or fb.get("weight_dtype") or None,
+        quant_group_size=dim("quant_group_size", 0),
+        kv_cache_dtype=shape_meta.get("kv_cache_dtype") or fb.get("kv_cache_dtype") or None,
+        compute_dtype=dtype,
+    )
 
 
 def load_lm_bundle(path: str, fallback_shapes: dict | None = None,
@@ -681,13 +710,16 @@ def load_lm_bundle(path: str, fallback_shapes: dict | None = None,
     dtype (``utils/device.py::compute_dtype``) with dense attention, as the
     JAX package's loader builds it. The config comes from the bundle's
     metadata, else ``fallback_shapes`` (CLI flags); pp bundles are
-    unstacked. Raises ValueError for tp/ep/3d/sp_tp bundles (another
-    parameter factorization) and for quantized bundles (not ported yet)."""
-    from distributed_tensorflow_tpu_torch.models.convert import transformer_params_from_jax
-    from distributed_tensorflow_tpu_torch.models.transformer import (
-        TransformerConfig,
-        TransformerLM,
+    unstacked. A quantized bundle (``cli/quantize_lm.py`` or the JAX
+    package's ``tools/quantize_lm.py``) gives a model of ``QuantDense``
+    layers holding its leaves as stored, and its ``kv_cache_dtype`` the
+    config's KV format. Raises ValueError for tp/ep/3d/sp_tp bundles
+    (another parameter factorization)."""
+    from distributed_tensorflow_tpu_torch.models.convert import (
+        model_from_tree,
+        transformer_params_from_jax,
     )
+    from distributed_tensorflow_tpu_torch.models.transformer import TransformerLM
     from distributed_tensorflow_tpu_torch.utils.device import compute_dtype, resolve_device
 
     device = resolve_device(device)
@@ -701,30 +733,9 @@ def load_lm_bundle(path: str, fallback_shapes: dict | None = None,
         )
     if "stages" in state:
         state = unstack_stage_params(state)
-    fb = fallback_shapes or {}
-    shape_meta = meta.get("config") or {}
-    quant = {k: shape_meta.get(k, fb.get(k)) for k in _QUANT_KEYS}
-    if any(quant.values()):
-        raise ValueError(f"quantized bundles ({', '.join(f'{k}={v}' for k, v in quant.items() if v)}) "
-                         "are not ported yet: models/quant.py has no counterpart in this package")
-
-    def dim(name, default):
-        return int(shape_meta.get(name, fb.get(name, default)))
-
-    cfg = TransformerConfig(
-        vocab_size=dim("vocab_size", 256),
-        d_model=dim("d_model", 128),
-        num_heads=dim("num_heads", 4),
-        num_kv_heads=dim("num_kv_heads", 0) or None,  # 0/absent: multi-head
-        attention_window=dim("attention_window", 0) or None,
-        use_bias=bool(dim("use_bias", 1)),  # absent: biased, as bundles before the key
-        position="rope" if dim("rope", 0) else "learned",
-        rope_theta=float(shape_meta.get("rope_theta", fb.get("rope_theta", 10000.0))),
-        num_layers=dim("num_layers", 4),
-        d_ff=dim("d_ff", 512),
-        max_seq_len=dim("max_seq_len", 128),
-        compute_dtype=compute_dtype(device),
-    )
+    cfg = lm_config_from_meta(meta, fallback_shapes, compute_dtype(device))
+    if cfg.weight_dtype:
+        return cfg, model_from_tree(cfg, state, device), meta
     model = TransformerLM(cfg, device=device)
     model.load_state_dict(transformer_params_from_jax(state))
     return cfg, model, meta

@@ -8,6 +8,11 @@ with the same payload. An array of more than :data:`MAX_CHUNK_SIZE` bytes is
 written as flax's chunked form, ``{"__msgpack_chunked_array__": True,
 "shape": {"0": ...}, "chunks": {"0": ...}}``, and read back whole.
 
+numpy has no bfloat16 of its own, so a ``bfloat16`` array travels as
+:class:`Bfloat16Bits`: its uint16 bit patterns, written under flax's dtype
+name ``bfloat16`` and read back as the same class (quantized bundles keep
+their high-precision leaves in bf16).
+
 Maps are written with their keys in sorted order, as flax writes them (it
 rebuilds the tree with ``jax.tree_util.tree_map`` first), so a params tree
 gives flax's bytes exactly. :func:`dump` streams to a file: each array's
@@ -21,6 +26,25 @@ import struct
 from typing import Any, BinaryIO
 
 import numpy as np
+
+class Bfloat16Bits(np.ndarray):
+    """A bfloat16 array as its uint16 bit patterns (``arr.view(Bfloat16Bits)``
+    of a uint16 array). The codec names its dtype ``bfloat16``; nothing
+    should compute on the integers: convert with :func:`bf16_to_f32`."""
+
+
+def bf16_bits(x) -> "Bfloat16Bits":
+    """f32 (or any float) numpy array → bfloat16 bits, rounded to nearest
+    even (as torch and ml_dtypes round)."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    bits = ((u + (((u >> 16) & 1) + 0x7FFF)) >> 16).astype(np.uint16)
+    return bits.view(Bfloat16Bits)
+
+
+def bf16_to_f32(bits) -> np.ndarray:
+    """The f32 values of bfloat16 bits (exact)."""
+    return (np.asarray(bits).view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
 
 MAX_CHUNK_SIZE = 2**30  # flax's limit: msgpack caps one object at 2**31 - 1 bytes
 _CHUNKED = "__msgpack_chunked_array__"
@@ -98,8 +122,9 @@ def _ndarray_parts(arr: np.ndarray, code: int) -> tuple[bytes, memoryview]:
     if not arr.flags.c_contiguous:  # (np.ascontiguousarray would make a scalar 1-d)
         arr = arr.copy(order="C")
     data = memoryview(arr.reshape(-1)).cast("B") if arr.size else memoryview(b"")
+    name = "bfloat16" if isinstance(arr, Bfloat16Bits) else arr.dtype.name
     inner = (_array_header(3) + _array_header(arr.ndim) + b"".join(_int(d) for d in arr.shape)
-             + _str(arr.dtype.name) + _bin_header(len(data)))
+             + _str(name) + _bin_header(len(data)))
     return _ext_header(code, len(inner) + len(data)) + inner, data
 
 
@@ -107,7 +132,7 @@ def _chunk(arr: np.ndarray) -> dict:
     """flax ``serialization._chunk``: the flat array in pieces of at most
     ``MAX_CHUNK_SIZE`` bytes, with the shape."""
     size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
-    flat = np.ascontiguousarray(arr).reshape(-1)
+    flat = np.ascontiguousarray(arr).reshape(-1).view(type(arr))
     chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
     return {_CHUNKED: True, "shape": {str(i): d for i, d in enumerate(arr.shape)},
             "chunks": {str(i): c for i, c in enumerate(chunks)}}
@@ -253,7 +278,11 @@ class _Reader:
             raise ValueError(f"unsupported msgpack ext type {code}")
         inner = _Reader(data)
         shape, dtype_name, buf = inner.obj(raw=True)
-        arr = np.frombuffer(buf, dtype=np.dtype(dtype_name.decode())).reshape(shape)
+        name = dtype_name.decode()
+        if name == "bfloat16":
+            arr = np.frombuffer(buf, dtype=np.uint16).reshape(shape).view(Bfloat16Bits)
+        else:
+            arr = np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
         return arr[()] if code == _EXT_NPSCALAR else arr
 
 
@@ -262,7 +291,7 @@ def _unchunk(obj: Any) -> Any:
         if _CHUNKED in obj:
             shape = tuple(obj["shape"][str(i)] for i in range(len(obj["shape"])))
             chunks = [obj["chunks"][str(i)] for i in range(len(obj["chunks"]))]
-            return np.concatenate(chunks).reshape(shape)
+            return np.concatenate(chunks).reshape(shape).view(type(chunks[0]))
         return {k: _unchunk(v) for k, v in obj.items()}
     return obj
 

@@ -64,9 +64,10 @@ def test_importing_every_module_loads_no_jax(imports):
 
 
 def test_port_tools_import_no_root_tools_or_bench(imports):
-    # The port's probes are counterparts of the repo root's tools/*_probe.py,
-    # which import bench and the JAX package; the port keeps its own copies.
-    assert len(_tools_modules()) == 3, _tools_modules()
+    # The port's probes and load generator are counterparts of the repo
+    # root's tools/*_probe.py and tools/loadgen.py, which import bench and
+    # the JAX package; the port keeps its own copies.
+    assert len(_tools_modules()) == 4, _tools_modules()
     bad = sorted(m for m in imports["tools"] if m.split(".")[0] in ("tools", "bench"))
     assert not bad, bad
 

@@ -176,11 +176,17 @@ def test_pp_bundle_unstacks_as_in_jax(tmp_path, params):
 
 
 def test_quantized_bundle_is_not_ported_yet(tmp_path, params):
+    """Quantized bundles load now (tests/test_torch_quant.py); a bundle
+    whose quantization the model's shapes refuse (int8 with a group size)
+    is refused with the JAX loader's message."""
     path = str(tmp_path / "q.msgpack")
     meta = {**META, "config": {**CONFIG, "weight_dtype": "int8", "quant_group_size": 32}}
     TC.export_inference_bundle(path, params, metadata=meta)
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError) as want:
+        JC.load_lm_bundle(path)
+    with pytest.raises(ValueError) as got:
         TC.load_lm_bundle(path, device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

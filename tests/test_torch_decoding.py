@@ -6,13 +6,17 @@ offset prefill and at single-token decode steps, and the cache it writes,
 equal the JAX ``TransformerLM`` with a cache within 1e-5 relative to the
 largest value; ``filter_logits_batched`` equals JAX's within 1e-6 and keeps
 the same tokens but for ones of mass under 1e-6; greedy
-``build_generate_fn`` tokens are identical. Sampled streams draw from torch
+``build_generate_fn`` tokens are identical; ``quantize_kv_rows`` is bit for
+bit JAX's, and the int8 cache's logits equal JAX's int8 cache's within 1e-5
+and the exact forward's within JAX's 5% bound. Sampled streams draw from torch
 generators, so they are held to the port's own contracts instead: seed
 determinism, top_k 1 equal to greedy, every draw inside the filtered
 support. The shapes are tests/test_serve_engine.py's (vocab 64, d_model 32,
 4 heads, 2 layers, 48 positions), plus rope θ 500000 with GQA (4 on 2) and
 a window of 6.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -154,6 +158,19 @@ def test_sampling_contracts():
     assert not torch.equal(TD.stream_uniforms(9, 3, 64), TD.stream_uniforms(9, 4, 64))
 
 
+def test_streams_differ_by_seed_and_sub_stream():
+    """The CPU generator keeps 32 bits of its seed: a key of seed << 32 |
+    made gave every request the same draws (fixed). Draws differ by seed, by
+    index and by sub-stream, and repeat for the same triple."""
+    draws = {(s, m, k): TD.stream_uniforms(s, m, 16, stream=k)
+             for s in (0, 1, 9, 2**31 + 5) for m in (0, 1, 7) for k in (0, 1, 3)}
+    flat = torch.stack(list(draws.values()))
+    assert len({tuple(r.tolist()) for r in flat}) == len(draws)
+    assert torch.equal(TD.stream_uniforms(9, 7, 16, stream=3), draws[(9, 7, 3)])
+    firsts = torch.stack([TD.stream_uniforms(s, 0, 1)[0] for s in range(2000)])
+    assert abs(float(firsts.mean()) - 0.5) < 0.03 and float(firsts.std()) > 0.25
+
+
 def test_compute_copy_gives_the_per_call_casts_logits():
     """bf16 compute: the engine's held bf16 weights give the logits the
     per-call casts give (the same values), and leave LayerNorm in f32."""
@@ -171,10 +188,60 @@ def test_compute_copy_gives_the_per_call_casts_logits():
 
 
 def test_unported_cache_options_raise():
-    cfg = TT.TransformerConfig(kv_cache_dtype="int8", **BASE)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TD.init_cache(cfg, 1, 8)
+    """What stays unported: positions and a tree mask on the uncached path
+    (sequence shards). A KV format other than int8 is refused as JAX
+    refuses it, and so is a tree mask under a window."""
+    with pytest.raises(ValueError, match="kv_cache_dtype must be None or 'int8'"):
+        TT.TransformerConfig(kv_cache_dtype="int4", **BASE)
     model = TT.TransformerLM(TT.TransformerConfig(**BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model(torch.zeros(1, 2, dtype=torch.long), cache=TD.init_cache(model.cfg, 1, 8),
-              self_mask=torch.ones(2, 2, dtype=torch.bool))
+    toks = torch.zeros(1, 2, dtype=torch.long)
+    for kw in (dict(self_mask=torch.ones(2, 2, dtype=torch.bool)),
+               dict(positions=torch.zeros(1, 2, dtype=torch.long))):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            model(toks, **kw)
+    windowed = TT.TransformerLM(TT.TransformerConfig(attention_window=4, **BASE), device="cpu")
+    with pytest.raises(ValueError, match="incompatible with attention_window"):
+        windowed(toks, cache=TD.init_cache(windowed.cfg, 1, 8),
+                 self_mask=torch.ones(2, 2, dtype=torch.bool))
+
+
+def test_quantize_kv_rows_is_bit_equal_to_jax():
+    x = (3.0 * np.random.default_rng(6).standard_normal((2, 4, 16, 8))).astype(np.float32)
+    x[0, 0, 0] = 0.0  # an all-zero row takes the 1e-8 floor
+    want_q, want_s = JT.quantize_kv_rows(jnp.asarray(x))
+    got_q, got_s = TT.quantize_kv_rows(torch.from_numpy(x))
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+def test_int8_cache_matches_jax_and_tracks_the_exact_forward(pair):
+    """The int8 cache (quantize on write, the row scales on the score and
+    weight matrices): every call's logits within REL of JAX's int8 cache,
+    and within JAX's bound of the exact forward (5% of the largest logit
+    plus 5% of each); the buffers are int8 codes with (B, KV, S) f32 scales
+    equal to JAX's (a code may differ by one where an f32 sum of another
+    order lands the other side of a rounding tie)."""
+    jcfg, params, tcfg, model = pair
+    jq = dataclasses.replace(jcfg, kv_cache_dtype="int8")
+    tq = dataclasses.replace(tcfg, kv_cache_dtype="int8")
+    qmodel = model.with_config(tq)
+    toks = np.random.default_rng(0).integers(0, 64, (2, 20)).astype(np.int32)
+    apply = jax.jit(lambda t, c: JT.TransformerLM(jq).apply({"params": params}, t, cache=c))
+    jc = JD.init_cache(jq, 2, 32)
+    tc = TD.init_cache(tq, 2, 32)
+    with torch.no_grad():
+        full = model(torch.from_numpy(toks).long()).numpy()
+        for a, b in ((0, 12), (12, 17), (17, 18), (18, 19), (19, 20)):
+            jl, jc = apply(jnp.asarray(toks[:, a:b]), jc)
+            tl, tc = qmodel(torch.from_numpy(toks[:, a:b]).long(), cache=tc)
+            assert _rel(tl.numpy(), jl) <= REL, (a, b)
+            scale = np.abs(full).max()
+            np.testing.assert_allclose(tl.numpy(), full[:, a:b], atol=0.05 * scale, rtol=0.05)
+    for tl_, jl_ in zip(tc["layers"], jc["layers"]):
+        for name in ("k", "v"):
+            assert tl_[name].dtype == torch.int8 and jl_[name].dtype == jnp.int8
+            assert np.abs(tl_[name].numpy().astype(int) - np.asarray(jl_[name], int)).max() <= 1
+        for name in ("k_scale", "v_scale"):
+            assert tl_[name].shape == (2, tq.kv_heads, 32)
+            assert _rel(tl_[name].numpy(), jl_[name]) <= REL

@@ -9,11 +9,14 @@ configuration the greedy token streams are identical, ``pages_free`` and
 ``compile_count`` (distinct program signatures) is flat after warmup. The
 configurations cover the monolithic layout and page size 16, prefix
 adoption on and off, two bucket sets, chunked prefill at two widths,
-``steps_per_sync`` 1 and 4, and a rope + GQA + window model. Each JAX
+``steps_per_sync`` 1 and 4, a rope + GQA + window model, and the int8 KV
+pool (whose pool bytes per token are JAX's). Each JAX
 engine is built once per module and runs without warmup; sampled decoding is held to the port's
 own contracts (seed determinism, top_k 1 equal to greedy, draws inside the
 top-k support).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +30,7 @@ from distributed_tensorflow_tpu_torch.models import transformer as TT
 from distributed_tensorflow_tpu_torch.models.convert import transformer_params_from_jax
 from distributed_tensorflow_tpu_torch.obs.perf import RecompileSentinel
 from distributed_tensorflow_tpu_torch.obs.registry import MetricsRegistry
-from distributed_tensorflow_tpu_torch.serve.engine import SlotEngine
+from distributed_tensorflow_tpu_torch.serve.engine import ShardedSlotEngine, SlotEngine
 from distributed_tensorflow_tpu_torch.serve.kv_pool import InsufficientPages
 
 pytestmark = pytest.mark.torch_port
@@ -49,6 +52,8 @@ CONFIGS = {
     "paged16_noprefix_buckets4_12_chunk12_rope": (
         "rope_gqa_window", dict(page_size=16, prefix_cache=False, prefill_len=24,
                                 prefill_buckets=(4, 12), prefill_chunk_tokens=12)),
+    # The int8 KV pool (quantize on write, f32 scale planes) under churn.
+    "paged16_prefix_int8kv": ("learned_int8kv", dict(page_size=16, prefill_len=32)),
 }
 
 
@@ -62,6 +67,10 @@ def _models():
         model = TT.TransformerLM(tcfg, device="cpu")
         model.load_state_dict(transformer_params_from_jax(params))
         out[name] = (jcfg, params, tcfg, model)
+    jcfg, params, tcfg, model = out["learned"]
+    tq = dataclasses.replace(tcfg, kv_cache_dtype="int8")
+    out["learned_int8kv"] = (dataclasses.replace(jcfg, kv_cache_dtype="int8"), params, tq,
+                             model.with_config(tq))
     return out
 
 
@@ -230,8 +239,29 @@ def test_engine_runs_on_the_card_unless_cpu_is_asked(models):
     assert SlotEngine(tcfg, model, device="cpu").device.type == "cpu"
 
 
+def test_int8_pool_bytes_and_labels_match_jax(models):
+    jcfg, params, tcfg, model = models["learned_int8kv"]
+    from distributed_tensorflow_tpu.models.quant import kv_cache_bytes_per_token
+
+    from distributed_tensorflow_tpu_torch.models import quant as TQ
+
+    engine = SlotEngine(tcfg, model, slots=2, max_len=48, page_size=16, device="cpu")
+    want = JaxEngine(jcfg, params, slots=2, max_len=48, page_size=16)
+    assert engine.kv_dtype == want.kv_dtype == "int8"
+    assert engine.kv_bytes_per_token == want.kv_bytes_per_token
+    assert engine.pool.hbm_bytes == want.pool.hbm_bytes
+    assert TQ.kv_cache_bytes_per_token(tcfg) == kv_cache_bytes_per_token(jcfg)
+    layer = engine.pool.layers[0]
+    assert layer["k"].dtype == torch.int8 and layer["k_scale"].dtype == torch.float32
+
+
 def test_unported_engine_options_raise(models):
+    """What stays unported: weight swap, slot export/import (handoff) and
+    the sharded engine."""
     _, _, tcfg, model = models["learned"]
-    for kw in (dict(spec_k=4), dict(draft_params={}), dict(spec_branches=2)):
+    engine = SlotEngine(tcfg, model, device="cpu")
+    for call in (lambda: engine.check_swap_compatible({}), lambda: engine.adopt_weights({}),
+                 lambda: engine.export_slot(0), lambda: engine.import_slot(0),
+                 lambda: ShardedSlotEngine(tcfg, model, device="cpu")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            SlotEngine(tcfg, model, device="cpu", **kw)
+            call()

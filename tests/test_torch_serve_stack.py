@@ -366,14 +366,50 @@ def test_generate_cli_matches_jax_tool(bundle, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--quant", "int8"], ["--weight_dtype", "int4"], ["--kv_dtype", "int8"], ["--spec_k", "4"],
-    ["--draft_model", "d.msgpack"], ["--tp", "2"], ["--watch_dir", "x"], ["--role", "prefill"],
-    ["--slo", "default"], ["--obs_dir", "x"],
+    ["--role", "decode"], ["--handoff_peers", "http://x"], ["--slo_interval_s", "5"],
+    ["--serve_log_dir", "x"], ["--deploy_variant", "b"], ["--tp", "2"], ["--watch_dir", "x"],
+    ["--role", "prefill"], ["--slo", "default"], ["--obs_dir", "x"],
 ])
 def test_serve_cli_refuses_flags_of_later_slices(flags, capsys):
     with pytest.raises(SystemExit):
         serve_cli.parse_args(flags)
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_serve_cli_takes_the_deployed_flags(bundle):
+    """--weight_dtype/--quant, --quant_group_size, --kv_dtype, --spec_k,
+    --spec_branches and --draft_model: the stack quantizes the target and
+    the drafter (int4) on the fly, pages int8 KV, drafts with the model, and
+    a greedy request's tokens equal those of a plain engine on the same
+    quantized model."""
+    for flags in (["--quant", "int8"], ["--spec_k", "2", "--spec_branches", "3"],
+                  ["--kv_dtype", "bf16"]):
+        serve_cli.parse_args(flags)
+    args, scfg = serve_cli.parse_args([
+        "--weight_dtype", "int4", "--quant_group_size", "16", "--kv_dtype", "int8",
+        "--spec_k", "3", "--draft_model", bundle, "--draft_window", "8", "--port", "0",
+        "--slots", "2", "--serve_max_len", "48", "--prefill_len", "24"])
+    cfg, model, _ = load_lm_bundle(bundle, device="cpu")
+    engine, sched, metrics, server = serve_cli.build_stack(scfg, cfg, model)
+    server.server_close()
+    assert (engine.weight_dtype, engine.draft_weight_dtype, engine.kv_dtype) == (
+        "int4", "int4", "int8")
+    assert engine.drafter == "model" and engine.spec_k == 3 and engine.draft_window == 8
+    sched.start(poll_s=0.001)
+    try:
+        done = sched.submit(TS.Request(prompt=(5, 6, 7, 5, 6), max_new_tokens=10)).result(
+            timeout=30)
+    finally:
+        sched.stop()
+    plain = SlotEngine(engine.cfg, engine.model, slots=1, max_len=48, prefill_len=24,
+                       device="cpu")
+    slot = plain.acquire_slot()
+    toks = [plain.start(slot, [5, 6, 7, 5, 6], max_new_tokens=10)[0]]
+    while len(toks) < 10:
+        t, v, _ = plain.step()
+        toks += [int(x) for x in t[v[:, slot], slot]]
+    assert list(done.tokens) == toks
+    assert metrics.snapshot()["weight_dtype"] == "int4"
 
 
 def test_serve_cli_demo_serves_and_drains_on_sigterm():
