@@ -140,11 +140,13 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  step, losses within LOSS_TOL of dp's); steps/s, tokens/s,
                  MFU and the peak device memory of each run beside dp's;
      train_dir — checkpoints, resume, export and eval at the flagship's
-                 full width, byte-level on a file of the repo's own text:
+                 full width, byte-level on a file of the repo's own text,
+                 every run at learning rate TRAIN_DIR_LR (1e-4):
                  run A trains 8 steps with --train_dir (only the forced
                  final save fires) and commits step 8; run B, the same
-                 command to step 12 with --output, restores step 8, makes
-                 exactly 4 steps x 8 layers of K1 and K2 launches on
+                 command to step 12 with --output, restores step 8 (the
+                 restored state, saved again, equal to the step bitwise),
+                 makes exactly 4 steps x 8 layers of K1 and K2 launches on
                  flash_fwd_sm90.cu and flash_bwd_sm90.cu, commits step 12
                  and writes the bundle; run C trains 12 steps straight, its
                  loss within 1e-2 of B's; a flagship model and its fused
@@ -153,6 +155,23 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  schedule's count), with the save, restore and export
                  seconds and bytes; cli/eval_lm.py on the bundle on the card
                  and on the CPU (two holdout windows, nll within 2e-2);
+                 then --train_dir under pp and 3d (one stage, one rank),
+                 sp and sp_tp (a world of one) at the flagship's width, 2
+                 of its 8 layers: run A commits step 3, run B restores it
+                 (bitwise, as above; exactly 3 steps of the mode's launches: pp K1/K2, 3d
+                 K3/K4, sp and sp_tp none) and commits step 6, its loss
+                 within 1e-2 of run C's, 6 steps straight; save seconds and
+                 bytes, restore seconds;
+     seq_parallel — the modes that attend without a flash kernel, at the
+                 flagship byte-level on the repo's text, 6 steps each: dp
+                 with --attention blockwise, sp and sp_tp in a world of one
+                 (the ring as one hop); every launch count stays 0 while
+                 they train, and each first-step loss is within 1e-2 of the
+                 flash forward's on the same seed's weights and batch;
+                 steps/s, tokens/s, MFU and peak memory; then sp at the
+                 long recipe (seq 8192, rope θ 500000, 4 kv heads, batch 3,
+                 cut to 2 or 1 only if it does not fit, the cut printed),
+                 its losses within LOSS_TOL of phase 4's long path;
      serve     — the serving core at the flagship's width: weights from a
                  seed exported to a bundle and served by cli/serve_lm.py's
                  build_stack (8 slots, page 16, prefix cache, buckets 64 and
@@ -193,7 +212,8 @@ Phases, in order; any failed check exits non-zero and no result is printed:
                  flash_attention_bshd forward and backward at one batch row
                  of the long call (one K7 launch, four K8 segments) against
                  the plain versions;
-     parity    — one step at flagship width (batch 2) through the kernels and
+     parity    — one step at flagship width (batch 2, 2 of its 8 layers)
+                 through the kernels and
                  through plain dense attention, same weights and tokens: the
                  dp model, and the tp model against the dp model (its fused
                  qkv weight split into q/k/v) and against dense attention;
@@ -262,7 +282,17 @@ card and no network.
 
     python3 chip_smoke.py --serve
 
-runs the card line and the serve phase alone.
+runs the card line and the serve phase alone;
+
+    python3 chip_smoke.py --seq
+
+the card line, phase seq_parallel and the extended train_dir runs alone.
+
+    python3 chip_smoke.py --spread
+
+the card line and, for a few seeds, two uninterrupted runs of each
+train_dir phase's command and how far apart their last losses end, at the
+trainer's default learning rate and at TRAIN_DIR_LR.
 
     python3 chip_smoke.py --dispatch [--tree DIR]
 
@@ -1789,6 +1819,11 @@ def _parity(phase, name_a, a, name_b, b):
         fail(f"{phase}: {name_a} and {name_b} disagree")
 
 
+# The flagship parity step's depth: 2 of its 8 layers (one layer's math is
+# what it checks; the script's time went to the sequence-parallel phases).
+PARITY_LAYERS = 2
+
+
 def phase_parity():
     from distributed_tensorflow_tpu_torch.models.transformer import TransformerLM
     from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import TpTransformerLM
@@ -1799,7 +1834,8 @@ def phase_parity():
     tokens = torch.randint(0, 256, (2, fl["seq_len"]), device="cuda", generator=gen)
     results = {}
     for attention in ("flash", "dense"):
-        model = TransformerLM(_cfg(attention=attention), seed=0, device="cuda")
+        model = TransformerLM(_cfg(attention=attention, num_layers=PARITY_LAYERS), seed=0,
+                              device="cuda")
         loss = _loss_and_backward(model, tokens)
         results[attention] = (loss, model.block_0.qkv.weight.grad.float()[:d].clone())
         if attention == "flash":
@@ -1816,7 +1852,8 @@ def phase_parity():
         torch.cuda.empty_cache()
     _parity("parity", "flash", results["flash"], "dense", results["dense"])
     for attention in ("flash", "dense"):
-        model = TpTransformerLM(_cfg(attention=attention), device="cuda")
+        model = TpTransformerLM(_cfg(attention=attention, num_layers=PARITY_LAYERS),
+                                device="cuda")
         model.load_state_dict(tp_state)
         loss = _loss_and_backward(model, tokens)
         results[f"tp_{attention}"] = (loss, model.block_0.q.weight.grad.float().clone())
@@ -3158,11 +3195,32 @@ def phase_profile(path):
     torch.cuda.empty_cache()
 
 
+def _train_dir_argv(text):
+    """phase_train_dir's trainer flags: the flagship on ``text``, flash
+    attention, TRAIN_DIR_LR."""
+    shape = FLAGSHIP
+    return [
+        "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
+        "--num_layers", str(shape["num_layers"]), "--d_ff", str(shape["d_ff"]),
+        "--seq_len", str(shape["seq_len"]), "--batch_size", str(shape["batch_size"]),
+        "--use_bias", "0", "--attention", "flash", "--device", "cuda",
+        "--text_file", text, "--eval_step_interval", "4", "--learning_rate", str(TRAIN_DIR_LR),
+    ]
+
+
 # phase_train_dir: the flagship (batch 12, seq 2048) trained byte-level on a
 # file of the repo's own text, checkpointed (run A, 8 steps), resumed and
 # exported (run B, to step 12), against an uninterrupted run (C).
 TRAIN_DIR_STEPS, TRAIN_DIR_RESUMED = 8, 12
 TRAIN_DIR_TOL = 1e-2  # B's step-12 loss against C's, relative (dq's atomics)
+# The learning rate of every train_dir run. At the trainer's default (3e-3)
+# the flagship's first steps diverge (losses 10-14 against ln 256 = 5.5), and
+# two uninterrupted runs of one seed, which differ only in the order in which
+# the backward kernels' atomics add into dq, can end a sizeable share of
+# TRAIN_DIR_TOL apart. At 1e-4 the loss falls below ln 256 within six steps
+# and such runs end some 1e-5 apart. ``chip_smoke.py --spread`` measures
+# both; PERF.md §6 has readings.
+TRAIN_DIR_LR = 1e-4
 EVAL_TOL = 2e-2  # eval_lm's nll on the card (bf16) against the CPU's (f32), relative
 
 
@@ -3252,7 +3310,8 @@ def phase_train_dir(smi):
     """Checkpoints, resume and export on the card, through the trainer's
     flags, at the flagship's full width with --text_file: run A trains 8
     steps with --train_dir (only the forced final save fires); run B, the
-    same command to step 12 with --output, restores step 8 and launches
+    same command to step 12 with --output, restores step 8 (the state
+    restored equal to the step's tree bitwise) and launches
     exactly 4 steps x 8 layers of K1 and K2 on the warpgroup kernels, then
     commits step 12 and writes the bundle; run C trains 12 steps straight,
     its loss within TRAIN_DIR_TOL of B's. Then the manager's round trip
@@ -3270,13 +3329,7 @@ def phase_train_dir(smi):
         text, d, bundle = (os.path.join(work, n) for n in ("text.bin", "train", "lm.msgpack"))
         size = _repo_text(text)
         shape = FLAGSHIP
-        argv = [
-            "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
-            "--num_layers", str(shape["num_layers"]), "--d_ff", str(shape["d_ff"]),
-            "--seq_len", str(shape["seq_len"]), "--batch_size", str(shape["batch_size"]),
-            "--use_bias", "0", "--attention", "flash", "--device", "cuda",
-            "--text_file", text, "--eval_step_interval", "4",
-        ]
+        argv = _train_dir_argv(text)
         ckpt = ["--train_dir", d, "--save_secs", "1000000"]
         _zero_counts()
         t0 = time.perf_counter()
@@ -3291,15 +3344,20 @@ def phase_train_dir(smi):
 
         _zero_counts()
         t0 = time.perf_counter()
-        loss_b, rec_b, lines_b = _run_cli(train_lm, [
-            *argv, *ckpt, "--training_steps", str(TRAIN_DIR_RESUMED), "--output", bundle])
+        with _managers() as (_, _, checked):
+            loss_b, rec_b, lines_b = _run_cli(train_lm, [
+                *argv, *ckpt, "--training_steps", str(TRAIN_DIR_RESUMED), "--output", bundle])
         wall_b = time.perf_counter() - t0
+        if len(checked) != 1 or checked[0][1]:
+            fail(f"train_dir: the state restored from step {TRAIN_DIR_STEPS} differs from the "
+                 f"step's tree in {checked}")
         launches, sources = dict(A.KERNEL_LAUNCHES), dict(A.SOURCE_LAUNCHES)
         n = (TRAIN_DIR_RESUMED - TRAIN_DIR_STEPS) * shape["num_layers"]
         want = {k: n if k in ("flash_fwd", "flash_bwd") else 0 for k in A.KERNEL_LAUNCHES}
         want_sources = expected_sources(want)
         emit(phase="train_dir", run="B", records=rec_b, lines=lines_b, launches=launches,
-             expected=want, source_launches=sources, expected_sources=want_sources)
+             expected=want, source_launches=sources, expected_sources=want_sources,
+             restored_leaves_bitwise=checked[0][0])
         if lines_b != [f"restored checkpoint at step {TRAIN_DIR_STEPS} from {d}",
                        f"exported {bundle}"]:
             fail(f"train_dir: run B printed {lines_b}")
@@ -3369,6 +3427,327 @@ def phase_train_dir(smi):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     _zero_counts()
+
+
+# phase_seq_parallel: the modes that attend without a flash kernel — dp with
+# --attention blockwise, sp and sp_tp in a world of one (the ring as one hop)
+# — at the flagship, byte-level on the repo's text, each run's launch counts
+# flat; then sp at the long recipe. Each run's first-step loss against the
+# uninterrupted forward of the same seed's weights on K1 (dp's
+# TransformerLM for blockwise and sp, tp's TpTransformerLM for sp_tp).
+SEQ_RUNS = {
+    "blockwise": (["--attention", "blockwise"], "dp"),
+    "sp": (["--parallelism", "sp", "--model_parallel", "1"], "dp"),
+    "sp_tp": (["--parallelism", "sp_tp", "--pipeline_parallel", "1", "--model_parallel", "1"],
+              "tp"),
+}
+SEQ_TOL = 1e-2  # first-step loss against flash's, relative (bf16 logits, dense blocks)
+SEQ_LONG_BATCHES = (3, 2, 1)  # the long recipe's batch, cut in turn if it does not fit
+
+
+def _text_flags(text):
+    return ["--text_file", text, "--holdout_fraction", "0.05"]
+
+
+def _first_step_loss(kind, text):
+    """The trainer's first-step loss, computed apart: the forward of
+    ``TransformerLM`` (``kind`` "dp") or ``TpTransformerLM`` ("tp") from seed
+    0 at the flagship, flash attention, on the trainer's first text batch."""
+    from distributed_tensorflow_tpu_torch.data.text import ByteTextDataset, load_byte_tokens
+    from distributed_tensorflow_tpu_torch.models.transformer import (
+        TransformerLM,
+        next_token_loss,
+    )
+    from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import TpTransformerLM
+
+    data = ByteTextDataset(load_byte_tokens(text), FLAGSHIP["seq_len"], holdout_fraction=0.05,
+                           seed=0)
+    tokens = torch.from_numpy(data.train_batch(FLAGSHIP["batch_size"], step=0)).cuda()
+    cls = TransformerLM if kind == "dp" else TpTransformerLM
+    model = cls(_cfg(), seed=0, device="cuda")
+    with torch.no_grad():
+        loss = float(next_token_loss(model(tokens), tokens))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def phase_seq_parallel(smi, text, long_base=None):
+    """dp --attention blockwise, sp and sp_tp (a world of one) at the
+    flagship for 6 steps each on ``text`` (:data:`SEQ_RUNS`), by
+    :func:`_trainer_run` with no launch allowed: every KERNEL_LAUNCHES and
+    SOURCE_LAUNCHES count stays 0 while they train. Each run's first-step
+    loss within SEQ_TOL of the flash forward's on the same weights and
+    batch; steps/s, tokens/s, MFU and peak memory printed beside each other.
+    Then sp at the long recipe (seq 8192, rope θ 500000, 4 kv heads, batch 3
+    cut to 2 or 1 if it does not fit, the cut printed), its losses within
+    LOSS_TOL of ``long_base`` (phase 4's long records) when the batch is
+    whole."""
+    from distributed_tensorflow_tpu_torch.cli.tp_cards import LOSS_TOL
+
+    t0 = time.perf_counter()
+    first = {kind: _first_step_loss(kind, text) for kind in ("dp", "tp")}
+    for name, (flags, against) in SEQ_RUNS.items():
+        phase = f"seq_parallel_{name}"
+        _, records, peak = _trainer_run(smi, phase, FLAGSHIP, [*flags, *_text_flags(text)], {},
+                                        interval=1)
+        rel = abs(records[0]["loss"] - first[against]) / abs(first[against])
+        emit(phase=phase, first_step_loss=records[0]["loss"], flash_first_step_loss=first[against],
+             flash_model=against, rel=rel, tol=SEQ_TOL, max_memory_allocated=peak, card=smi)
+        if not rel <= SEQ_TOL:
+            fail(f"{phase}: first-step loss {records[0]['loss']} against flash's {first[against]}")
+    flags = ["--parallelism", "sp", "--model_parallel", "1", *MAIN_PATHS["long"][0]]
+    for batch in SEQ_LONG_BATCHES:
+        shape = dict(LONG, batch_size=batch)
+        error = None
+        try:
+            _, records, peak = _trainer_run(smi, "seq_parallel_sp_long", shape, flags, {})
+        except torch.OutOfMemoryError as e:
+            error = str(e).splitlines()[0]
+        if error is not None:  # the traceback's tensors are gone here
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit(phase="seq_parallel_sp_long", batch_size=batch, fits=False, error=error,
+                 card=smi)
+            continue
+        cut = batch != LONG["batch_size"]
+        emit(phase="seq_parallel_sp_long", batch_size=batch, fits=True,
+             batch_cut_from=LONG["batch_size"] if cut else None, max_memory_allocated=peak,
+             card=smi)
+        if long_base is not None and not cut:
+            losses = [r["loss"] for r in records]
+            base = [r["loss"] for r in long_base]
+            worst = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+            emit(phase="seq_parallel_sp_long", losses=losses, long_flash_losses=base,
+                 loss_rel_diff=worst, loss_tol=LOSS_TOL)
+            if len(losses) != len(base) or not worst <= LOSS_TOL:
+                fail(f"seq_parallel_sp_long: losses {losses} against long's {base}")
+        break
+    else:
+        fail("seq_parallel_sp_long: no batch of the long recipe fits one card")
+    emit(phase="seq_parallel", phase_s=round(time.perf_counter() - t0, 2))
+
+
+# phase_train_dir, extended: --train_dir in the pipeline and sequence modes at
+# the flagship's width on the repo's text, depth cut to TRAIN_DIR_MODE_LAYERS
+# of its 8 layers (a full-depth save and restore take 6-7 s and 8-11 s each,
+# four modes 191 s, measured on one H100; dp's run above saves the whole
+# flagship). Run A trains TRAIN_DIR_MODE_SAVE steps (its forced final save
+# commits them), run B resumes to TRAIN_DIR_MODE_STEPS, run C trains them
+# straight. Each mode's flags and launches a layer a step.
+TRAIN_DIR_MODE_SAVE, TRAIN_DIR_MODE_STEPS, TRAIN_DIR_MODE_LAYERS = 3, 6, 2
+TRAIN_DIR_MODES = {
+    "pp": (PIPELINE_RUNS["pp"][0], PIPELINE_RUNS["pp"][1]),
+    "3d": (PIPELINE_RUNS["3d"][0], PIPELINE_RUNS["3d"][1]),
+    "sp": (SEQ_RUNS["sp"][0], {}),
+    "sp_tp": (SEQ_RUNS["sp_tp"][0], {}),
+}
+
+
+def _restored_diff(tree, step, model, opt, mesh):
+    """(leaves compared, keys that differ): the tree ``train_state`` makes
+    of a model and optimizer just restored from ``tree`` (a step as read)
+    against ``tree``, leaf by leaf and bitwise; a block against its bounds
+    in the whole leaf. A key the step holds that the restored state does
+    not write counts as differing."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.train import checkpoint as ck
+
+    saved = {ck._keystr(t): v for t, v in ck._flatten(tree)}
+    seen, bad = set(), []
+    for tokens, leaf in ck._flatten(ck.train_state(model, opt, step, mesh)):
+        key = ck._keystr(tokens)
+        seen.add(key)
+        want = saved.get(key)
+        if want is None:
+            bad.append(key)
+            continue
+        want = np.asarray(want)
+        if isinstance(leaf, ck.Shard):
+            got = ck._host(leaf.value)
+            want = want[tuple(slice(a, b) for a, b in leaf.index)]
+        else:
+            got = ck._host(leaf)
+        if want.shape != got.shape or not np.array_equal(want, got):
+            bad.append(key)
+    return len(seen), bad + sorted(set(saved) - seen)
+
+
+@contextlib.contextmanager
+def _managers():
+    """Every CheckpointManager the trainer makes inside, in a list, the
+    seconds its restore_train_state took, and for each restore
+    :func:`_restored_diff` of what it loaded (outside the timing)."""
+    from distributed_tensorflow_tpu_torch.train import checkpoint as ck
+
+    made, load_s, checked = [], [], []
+    init, restore = ck.CheckpointManager.__init__, ck.restore_train_state
+
+    def tracked_init(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def timed_restore(step, tree, model, opt, mesh=None):
+        t0 = time.perf_counter()
+        try:
+            global_step = restore(step, tree, model, opt, mesh)
+        finally:
+            torch.cuda.synchronize()
+            load_s.append(time.perf_counter() - t0)
+        checked.append(_restored_diff(tree, global_step, model, opt, mesh))
+        return global_step
+
+    ck.CheckpointManager.__init__, ck.restore_train_state = tracked_init, timed_restore
+    try:
+        yield made, load_s, checked
+    finally:
+        ck.CheckpointManager.__init__, ck.restore_train_state = init, restore
+
+
+def phase_train_dir_modes(smi, text):
+    """pp and 3d (one stage, one rank), sp and sp_tp (a world of one) with
+    --train_dir at the flagship's width (TRAIN_DIR_MODE_LAYERS layers): run
+    A commits step TRAIN_DIR_MODE_SAVE, run B restores it and trains to
+    TRAIN_DIR_MODE_STEPS with exactly the mode's launches for those steps
+    (none for sp and sp_tp) and commits it; the state B restored, saved
+    again, equals the step's tree bitwise (:func:`_restored_diff`); B's
+    loss within TRAIN_DIR_TOL of run C's, the same steps uninterrupted.
+    Prints save seconds and bytes
+    and restore seconds (the read, then the load into the model and
+    optimizer)."""
+    from distributed_tensorflow_tpu_torch.cli import train_lm
+    from distributed_tensorflow_tpu_torch.train.checkpoint import list_committed_steps
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".scratch", "chip_smoke_train_dir_modes")
+    shape, n = FLAGSHIP, TRAIN_DIR_MODE_LAYERS
+    argv = [
+        "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
+        "--num_layers", str(n), "--d_ff", str(shape["d_ff"]),
+        "--seq_len", str(shape["seq_len"]), "--batch_size", str(shape["batch_size"]),
+        "--use_bias", "0", "--attention", "flash", "--device", "cuda", *_text_flags(text),
+        "--eval_step_interval", str(TRAIN_DIR_MODE_SAVE),
+        "--learning_rate", str(TRAIN_DIR_LR),
+    ]
+    t0 = time.perf_counter()
+    for mode, (flags, per_layer) in TRAIN_DIR_MODES.items():
+        shutil.rmtree(work, ignore_errors=True)
+        d = os.path.join(work, "train")
+        ckpt = ["--train_dir", d, "--save_secs", "1000000"]
+        with _managers() as (made, _, _):
+            _, rec_a, _ = _run_cli(train_lm, [*argv, *flags, *ckpt, "--training_steps",
+                                              str(TRAIN_DIR_MODE_SAVE)])
+        save_a = made[-1]
+        if list_committed_steps(d) != [TRAIN_DIR_MODE_SAVE]:
+            fail(f"train_dir {mode}: run A committed {list_committed_steps(d)}")
+        step_bytes = sum(os.path.getsize(os.path.join(p, f))
+                         for p, _, fs in os.walk(os.path.join(d, str(TRAIN_DIR_MODE_SAVE)))
+                         for f in fs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _zero_counts()
+        with _managers() as (made, load_s, checked):
+            loss_b, rec_b, lines_b = _run_cli(train_lm, [*argv, *flags, *ckpt, "--training_steps",
+                                                         str(TRAIN_DIR_MODE_STEPS)])
+        mngr_b = made[-1]
+        launches, sources = dict(A.KERNEL_LAUNCHES), dict(A.SOURCE_LAUNCHES)
+        steps = TRAIN_DIR_MODE_STEPS - TRAIN_DIR_MODE_SAVE
+        want = {k: per_layer.get(k, 0) * n * steps for k in A.KERNEL_LAUNCHES}
+        want_sources = expected_sources(want)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if lines_b != [f"restored checkpoint at step {TRAIN_DIR_MODE_SAVE} from {d}"]:
+            fail(f"train_dir {mode}: run B printed {lines_b}")
+        if len(checked) != 1 or checked[0][1]:
+            fail(f"train_dir {mode}: the state restored from step {TRAIN_DIR_MODE_SAVE} differs "
+                 f"from the step's tree in {checked}")
+        if launches != want or sources != want_sources:
+            fail(f"train_dir {mode}: run B launched {launches} by source {sources}, expected "
+                 f"{want} by source {want_sources}")
+        if list_committed_steps(d) != [TRAIN_DIR_MODE_SAVE, TRAIN_DIR_MODE_STEPS]:
+            fail(f"train_dir {mode}: run B left committed steps {list_committed_steps(d)}")
+        straight, _, _ = _run_cli(train_lm, [*argv, *flags, "--training_steps",
+                                             str(TRAIN_DIR_MODE_STEPS)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = abs(loss_b - straight) / abs(straight)
+        emit(phase="train_dir", mode=mode, num_layers=n, records_a=rec_a, records_b=rec_b,
+             launches=launches, expected=want, loss_resumed=loss_b, loss_uninterrupted=straight,
+             rel=rel, tol=TRAIN_DIR_TOL, save_s=round(save_a.last_save_seconds, 3),
+             save_bytes=save_a.last_save_bytes, step_dir_bytes=step_bytes,
+             restore_read_s=round(mngr_b.last_restore_seconds, 3),
+             restore_load_s=round(load_s[0], 3), restored_leaves_bitwise=checked[0][0],
+             card=smi)
+        if not rel <= TRAIN_DIR_TOL:
+            fail(f"train_dir {mode}: resumed loss {loss_b} against uninterrupted {straight}")
+    shutil.rmtree(work, ignore_errors=True)
+    _zero_counts()
+    emit(phase="train_dir", modes_phase_s=round(time.perf_counter() - t0, 2))
+
+
+@contextlib.contextmanager
+def _seq_text():
+    """The repo's text (:func:`_repo_text`) in a file for the phase, removed after."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    text = os.path.join(root, ".scratch", "chip_smoke_seq_text.bin")
+    os.makedirs(os.path.dirname(text), exist_ok=True)
+    _repo_text(text)
+    try:
+        yield text
+    finally:
+        os.remove(text)
+
+
+def seq_main():
+    """``chip_smoke.py --seq``: the card line, phase seq_parallel and the
+    extended train_dir modes alone (no phase 4 records to hold the long
+    run's losses against)."""
+    smi = phase_card()
+    with _seq_text() as text:
+        phase_seq_parallel(smi, text)
+        phase_train_dir_modes(smi, text)
+    print(smi, flush=True)
+
+
+def spread_main():
+    """``chip_smoke.py --spread``: how far apart two uninterrupted runs of
+    one seed end, in the commands the train_dir phases give run C, by
+    learning rate, mode and seed: the modes' (2 layers, 6 steps; 3d and pp
+    at the trainer's default 3e-3, 3d at 3e-4 and TRAIN_DIR_LR, seeds 1-6)
+    and dp's (8 layers, 12 steps, 3e-3 and TRAIN_DIR_LR, seeds 1-3). The
+    two runs differ only in the order in which the backward kernels'
+    atomics add into dq."""
+    from distributed_tensorflow_tpu_torch.cli import train_lm
+
+    smi = phase_card()
+    shape = FLAGSHIP
+    with _seq_text() as text:
+        modes = [
+            "--d_model", str(shape["d_model"]), "--num_heads", str(shape["num_heads"]),
+            "--num_layers", str(TRAIN_DIR_MODE_LAYERS), "--d_ff", str(shape["d_ff"]),
+            "--seq_len", str(shape["seq_len"]), "--batch_size", str(shape["batch_size"]),
+            "--use_bias", "0", "--attention", "flash", "--device", "cuda", *_text_flags(text),
+            "--eval_step_interval", "1", "--training_steps", str(TRAIN_DIR_MODE_STEPS),
+        ]
+        dp = [*_train_dir_argv(text), "--training_steps", str(TRAIN_DIR_RESUMED)]
+        runs = [(lr, mode, modes + TRAIN_DIR_MODES[mode][0], range(1, 7))
+                for lr, names in ((3e-3, ("3d", "pp")), (3e-4, ("3d",)), (TRAIN_DIR_LR, ("3d",)))
+                for mode in names]
+        runs += [(lr, "dp", dp, range(1, 4)) for lr in (3e-3, TRAIN_DIR_LR)]
+        for lr, mode, argv, seeds in runs:
+            for seed in seeds:
+                run = [*argv, "--learning_rate", str(lr), "--seed", str(seed)]
+                losses = []
+                for _ in range(2):
+                    last, rec, _ = _run_cli(train_lm, run)
+                    losses.append([r["loss"] for r in rec[:-1]] + [last])
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                emit(phase="spread", learning_rate=lr, mode=mode, seed=seed, losses=losses,
+                     rel=abs(losses[0][-1] - losses[1][-1]) / abs(losses[0][-1]), card=smi)
+    print(smi, flush=True)
 
 
 # phase_serve: the serving core (cli/serve_lm.py's stack) at the flagship's
@@ -4030,23 +4409,46 @@ def serve_main():
     print(smi, flush=True)
 
 
+class _Clock:
+    """Seconds between marks, by the name of the phases each span ran."""
+
+    def __init__(self):
+        self.t, self.spans = time.perf_counter(), {}
+
+    def mark(self, name):
+        now = time.perf_counter()
+        self.spans[name] = round(now - self.t, 2)
+        self.t = now
+
+
 def main():
+    clock = _Clock()
     smi = phase_card()
     phase_build()
+    clock.mark("build")
     errs = phase_kernels()
     errs.update(phase_kernels_long())
     errs.update(phase_head_dims())
     errs.update(phase_head_dims_above_256())
     phase_pipe_head_dims()
+    clock.mark("kernels")
     main_runs = {path: phase_main(smi, path) for path in ("dp", "tp", "long")}
     by_path = {path: run[0] for path, run in main_runs.items()}
     by_path["wide"] = phase_wide(smi)
     cli_runs = phase_cli_head_dims()
     d512 = phase_d512(smi)
     pipeline = phase_pipeline(smi, {p: main_runs[p][1:] for p in ("dp", "tp")})
+    clock.mark("main_paths")
     phase_train_dir(smi)
+    with _seq_text() as text:
+        phase_seq_parallel(smi, text, long_base=main_runs["long"][1])
+        clock.mark("seq_parallel")
+        phase_train_dir_modes(smi, text)
+    clock.mark("train_dir")
     phase_serve(smi)
+    clock.mark("serve")
     phase_serve_variants(smi)
+    clock.mark("serve_variants")
     # A kernel's launches are those of the first path of by_path it serves
     # (`d512`'s launches run the column-group sources and go to their own
     # rows); the record lists every path's, and the routes phase's for the
@@ -4107,17 +4509,24 @@ def main():
                 notes[k]["launches_by_route"] = {name: route_launches[k]}
     for k in ("bwd_dq", "bwd_dkv"):
         notes[k]["library_call"] = "SDPA backward alone (all three gradients)"
+    clock.mark("routes")
     phase_parity()
     phase_parity_wide()
+    clock.mark("parity")
     phase_turns(notes)
     d32_device_times(notes)
     phase_host_dispatch(notes)
+    clock.mark("turns_dispatch")
     kernels = phase_timing(launches, errs, notes) + phase_timing_long(launches, errs, notes)
     kernels += phase_timing_wide(launches, errs, notes)
     kernels += phase_timing_dstream(launches, errs, notes)
+    clock.mark("timing")
     kernels += phase_probes()
+    clock.mark("probes")
     for path in MAIN_PATHS:
         phase_profile(path)
+    clock.mark("profile")
+    emit(phase="seconds", **clock.spans)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4131,5 +4540,9 @@ if __name__ == "__main__":
         dispatch_main(TREE)
     elif "--serve" in sys.argv:
         serve_main()
+    elif "--seq" in sys.argv:
+        seq_main()
+    elif "--spread" in sys.argv:
+        spread_main()
     else:
         main()

@@ -1,8 +1,9 @@
-"""Run the tp, dp, pp and 3d trainers on one card and across the cards of
-one host, and compare.
+"""Run the tp, dp, pp, 3d, sp and sp_tp trainers on one card and across the
+cards of one host, and compare.
 
     python -m distributed_tensorflow_tpu_torch.cli.tp_cards [--cards 4] [--only pp,3d]
         [trainer flags]
+    python -m distributed_tensorflow_tpu_torch.cli.tp_cards --only sp [the long recipe's flags]
 
 Runs of ``cli/train_lm.py`` with the same flags, seed and global batch
 (default: the bench flagship, 6 steps). tp: ``--parallelism tp
@@ -13,6 +14,9 @@ one card, then under the same ``torchrun`` over N cards (each rank its rows
 of the batch, the gradients averaged in one all-reduce). pp: N pipeline
 stages (``--model_parallel N --num_microbatches N``) against the one-card
 dp run. 3d: data 1 x pipe 2 x model N/2 (``--pipeline_parallel 2
+--model_parallel N/2``) against the one-card tp run. sp: the sequence over N
+cards (``--model_parallel N``, ring attention) against the one-card dp run.
+sp_tp: data 1 x seq 2 x model N/2 (``--pipeline_parallel 2
 --model_parallel N/2``) against the one-card tp run. Every split trains the
 same whole model, so its losses must agree with its one-card run's up to
 bf16 rounding (relative ``LOSS_TOL``). ``--only`` runs the named modes and
@@ -39,7 +43,7 @@ FLAGSHIP = [
 ]
 TRAINER = ["-m", "distributed_tensorflow_tpu_torch.cli.train_lm"]
 LOSS_TOL = 1e-2  # bf16 compute: splits sum partial products in other orders
-MODES = ("tp", "dp", "pp", "3d")
+MODES = ("tp", "dp", "pp", "3d", "sp", "sp_tp")
 
 
 def run(cmd: list[str]) -> list[dict]:
@@ -80,7 +84,7 @@ def main(argv: list[str] | None = None) -> None:
     trainer = lambda mode: [*TRAINER, "--parallelism", mode, *flags]  # noqa: E731
     # Each run and the one-card run of its mode that it is held against.
     runs = {}
-    if {"tp", "3d"} & set(modes):
+    if {"tp", "3d", "sp_tp"} & set(modes):
         runs["tp1_one_card"] = (run([sys.executable, *trainer("tp"), "--model_parallel", "1"]),
                                 "tp1_one_card")
     if "tp" in modes:
@@ -88,7 +92,7 @@ def main(argv: list[str] | None = None) -> None:
                           "tp1_one_card")
         runs[f"data2_tp{half}"] = (run([*torchrun, *trainer("tp"), "--model_parallel", half]),
                                    "tp1_one_card")
-    if {"dp", "pp"} & set(modes):
+    if {"dp", "pp", "sp"} & set(modes):
         runs["dp1_one_card"] = (run([sys.executable, *trainer("dp")]), "dp1_one_card")
     if "dp" in modes:
         runs[f"dp{n}"] = (run([*torchrun, *trainer("dp")]), "dp1_one_card")
@@ -98,6 +102,12 @@ def main(argv: list[str] | None = None) -> None:
     if "3d" in modes:
         runs[f"3d_pipe2_tp{half}"] = (run([*torchrun, *trainer("3d"), "--pipeline_parallel",
                                            "2", "--model_parallel", half]), "tp1_one_card")
+    if "sp" in modes:
+        runs[f"sp{n}"] = (run([*torchrun, *trainer("sp"), "--model_parallel", n]),
+                          "dp1_one_card")
+    if "sp_tp" in modes:
+        runs[f"sp_tp_seq2_tp{half}"] = (run([*torchrun, *trainer("sp_tp"), "--pipeline_parallel",
+                                             "2", "--model_parallel", half]), "tp1_one_card")
     summary = {"cards": args.cards, "nvidia_smi": nvidia_smi()}
     ok = True
     for name, (records, base_name) in runs.items():

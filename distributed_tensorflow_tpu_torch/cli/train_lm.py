@@ -1,6 +1,8 @@
 """Transformer-LM training CLI — the port of ``tools/train_lm.py`` in its
 ``dp`` (data parallelism), ``tp`` (Megatron tensor parallelism), ``pp``
-(GPipe pipeline parallelism) and ``3d`` (data x pipe x model) modes.
+(GPipe pipeline parallelism), ``3d`` (data x pipe x model), ``sp``
+(sequence parallelism, ring attention) and ``sp_tp`` (data x sequence x
+tensor parallelism) modes.
 
     python -m distributed_tensorflow_tpu_torch.cli.train_lm \\
         --d_model 2048 --num_heads 16 --num_layers 8 --d_ff 8192 \\
@@ -13,6 +15,10 @@
         --parallelism pp --model_parallel N --num_microbatches N --attention flash ...
     torchrun --nproc_per_node 4 -m distributed_tensorflow_tpu_torch.cli.train_lm \\
         --parallelism 3d --pipeline_parallel 2 --model_parallel 2 --attention flash ...
+    torchrun --nproc_per_node 4 -m distributed_tensorflow_tpu_torch.cli.train_lm \\
+        --parallelism sp --model_parallel 4 --seq_len 8192 ...
+    torchrun --nproc_per_node 4 -m distributed_tensorflow_tpu_torch.cli.train_lm \\
+        --parallelism sp_tp --pipeline_parallel 2 --model_parallel 2 ...
 
 Flags keep the JAX trainer's names and defaults. It runs on the card
 (``--device cuda``, the default) in bf16, or on the CPU in f32 when asked
@@ -30,9 +36,19 @@ pipeline stages, as the JAX trainer does (the rest of the world is data
 parallel), and runs ``--num_microbatches`` microbatches through them
 (``parallel/pipeline_parallel.py``); ``3d`` runs ``--pipeline_parallel``
 stages of ``--model_parallel``-way tensor-parallel blocks, data parallel
-across the rest (``parallel/three_d.py``). ``--remat`` recomputes each
-block on backward in every mode. Gradient clipping under tp, pp and 3d is
-per rank, over what the rank holds, as in the JAX step. Data:
+across the rest (``parallel/three_d.py``). ``sp`` splits the sequence
+over ``--model_parallel`` ranks (the rest of the world is data parallel)
+and attends by a ring over them (``parallel/sequence_parallel.py``,
+``parallel/ring_attention.py``); ``sp_tp`` splits it over
+``--pipeline_parallel`` ranks, with ``--model_parallel``-way tensor
+parallelism inside each (``parallel/three_d.py``). In both the ring
+replaces whatever ``--attention`` names, as in the JAX trainer, and runs
+no flash kernel; ``--attention blockwise`` is the online softmax over key
+blocks, also without one. After a run of more than one process, dp and sp
+check that every rank holds bitwise-equal parameters. ``--remat``
+recomputes each block on backward in every mode. Gradient clipping under
+tp, pp, 3d and sp_tp is per rank, over what the rank holds, as in the JAX
+step. Data:
 ``--text_file`` trains byte-level (vocab 256) on random windows of a file;
 without it, the JAX trainer's synthetic copy task
 from ``np.random.default_rng(seed)``. One JSON record per eval boundary,
@@ -40,8 +56,8 @@ printed by the chief (rank 0): step, loss, parallelism and, after the first
 (warm-up) window, steps/s, tokens/s and MFU (over the peak of every rank's
 card), timed over windows drained by ``torch.cuda.synchronize()``.
 
-Checkpoints (``--train_dir``, ``train/checkpoint.py``): before the loop the
-newest committed step is restored (parameters, optimizer state, the
+Checkpoints (``--train_dir``, ``train/checkpoint.py``), in every mode: before
+the loop the newest committed step is restored (parameters, optimizer state, the
 schedule's count and the global step) and training goes on from there;
 the state is saved when ``--save_secs`` have passed (checked every step in
 a world of one, at eval boundaries over a group) and always at the last
@@ -50,11 +66,13 @@ TensorBoard scalars there. A run resumed at its last step trains nothing
 and returns NaN. With ``--text_file`` a resumed run draws the windows an
 uninterrupted run would have drawn (they are keyed by step); the synthetic
 copy task's generator restarts from ``--seed``, as in the JAX trainer.
-``--train_dir`` under pp and 3d is not ported yet. ``--output`` exports the
-final parameters as an inference bundle from the chief (not for tp, pp or
-3d over several processes, whose parameters are split across them), with
-the JAX trainer's metadata; pp and 3d export the stage-stacked tree the JAX
-trainer exports.
+pp and 3d save the stage-stacked tree (each stage's block written by the
+rank that holds it), tp and sp_tp their tensor-parallel slices, dp and sp
+the replicated parameters; a step resumes at any split that divides the
+layers. ``--output`` exports the final parameters as an inference bundle
+from the chief (not for tp, pp, 3d or sp_tp over several processes, whose
+parameters are split across them), with the JAX trainer's metadata; pp and
+3d export the stage-stacked tree the JAX trainer exports.
 """
 
 from __future__ import annotations
@@ -76,14 +94,18 @@ def synthetic_tokens(rng, batch, seq_len, vocab):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--parallelism", choices=("dp", "tp", "pp", "3d"), default="dp",
-                   help="dp: data parallelism over every rank; tp: tensor parallelism over "
+    p.add_argument("--parallelism", choices=("dp", "sp", "tp", "pp", "3d", "sp_tp"),
+                   default="dp",
+                   help="dp: data parallelism over every rank; sp: the sequence over "
+                        "--model_parallel ranks (ring attention); tp: tensor parallelism over "
                         "--model_parallel ranks; pp: --model_parallel pipeline stages; 3d: "
-                        "--pipeline_parallel stages of --model_parallel-way tp; data "
-                        "parallelism across the rest (other modes are not ported yet)")
+                        "--pipeline_parallel stages of --model_parallel-way tp; sp_tp: the "
+                        "sequence over --pipeline_parallel ranks, tp over --model_parallel; "
+                        "data parallelism across the rest (ep and fsdp are not ported yet)")
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="size of the 'pipe' mesh axis: pipeline stages (3d)")
+                   help="size of the 'pipe' mesh axis: pipeline stages (3d) or "
+                        "sequence shards (sp_tp)")
     p.add_argument("--training_steps", type=int, default=100)
     p.add_argument("--eval_step_interval", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=8)
@@ -111,7 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("constant", "cosine", "warmup_cosine", "linear"))
     p.add_argument("--warmup_steps", type=int, default=0)
     p.add_argument("--grad_clip_norm", type=float, default=0.0)
-    p.add_argument("--attention", default="dense", choices=("dense", "flash"))
+    p.add_argument("--attention", default="dense", choices=("dense", "blockwise", "flash"))
     p.add_argument("--remat", action="store_true",
                    help="rematerialise transformer blocks on backward (activation "
                         "memory O(L*S*d_model) instead of every intermediate)")
@@ -132,9 +154,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> float:
     """Train; returns the last step's loss."""
     args = build_parser().parse_args(argv)
-    if args.train_dir and args.parallelism in ("pp", "3d"):
-        raise SystemExit(f"train_lm: --train_dir under --parallelism {args.parallelism} is not "
-                         "ported yet")
 
     from distributed_tensorflow_tpu_torch.utils.device import resolve_device
 
@@ -191,21 +210,47 @@ def _train(args, device, cluster) -> float:
                              f"data-parallel ranks")
         per = args.batch_size // world
         rows = slice(cluster.rank * per, (cluster.rank + 1) * per)  # this rank's batch rows
+        block = lambda t: t[rows]  # noqa: E731
         model, mesh = TransformerLM(cfg, seed=args.seed, device=device), None
         build_step = functools.partial(build_lm_train_step, group=dist.group.WORLD)
     else:
         from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh3
 
-        # pp takes its stage count from --model_parallel, as the JAX trainer does.
+        # pp and sp take their stage or shard count from --model_parallel,
+        # sp_tp its shard count from --pipeline_parallel, as the JAX trainer does.
         pipe, tp = {"tp": (1, args.model_parallel), "pp": (args.model_parallel, 1),
-                    "3d": (args.pipeline_parallel, args.model_parallel)}[args.parallelism]
+                    "3d": (args.pipeline_parallel, args.model_parallel),
+                    "sp": (1, args.model_parallel),
+                    "sp_tp": (args.pipeline_parallel, args.model_parallel)}[args.parallelism]
         mesh = make_mesh3(pipe, tp)
         if args.batch_size % mesh.data_size:
             raise ValueError(f"--batch_size {args.batch_size} does not split over "
                              f"{mesh.data_size} data-parallel ranks")
         per = args.batch_size // mesh.data_size
         rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)  # this rank's batch rows
-        if args.parallelism == "tp":
+        block = lambda t: t[rows]  # noqa: E731
+        if args.parallelism in ("sp", "sp_tp"):
+            from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import shard_lm_batch
+
+            seq_axis = "model" if args.parallelism == "sp" else "pipe"
+            block = lambda t: shard_lm_batch(t, mesh, seq_axis)  # noqa: E731
+        if args.parallelism == "sp":
+            from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+                build_lm_train_step as build_sp_lm_train_step,
+                make_sp_model,
+            )
+
+            model = make_sp_model(cfg, mesh, seed=args.seed, device=device)
+            build_step = functools.partial(build_sp_lm_train_step, mesh=mesh)
+        elif args.parallelism == "sp_tp":
+            from distributed_tensorflow_tpu_torch.parallel.three_d import (
+                build_sp_tp_lm_train_step,
+                make_sp_tp_model,
+            )
+
+            model = make_sp_tp_model(cfg, mesh, seed=args.seed, device=device)
+            build_step = functools.partial(build_sp_tp_lm_train_step, mesh=mesh)
+        elif args.parallelism == "tp":
             from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
                 TpTransformerLM,
                 build_tp_lm_train_step,
@@ -277,8 +322,9 @@ def _train(args, device, cluster) -> float:
         writer = SummaryWriter(args.train_dir)
     try:
         for i in range(start, args.training_steps):
-            # Every rank draws the same global batch and trains on its rows.
-            tokens = torch.from_numpy(batch_for(i)[rows]).to(device, non_blocking=True)
+            # Every rank draws the same global batch and trains on its block.
+            tokens = torch.from_numpy(np.ascontiguousarray(block(batch_for(i))))
+            tokens = tokens.to(device, non_blocking=True)
             m = step(tokens)
             i_end = i + 1
             boundary = i_end % args.eval_step_interval == 0 or i_end == args.training_steps
@@ -312,9 +358,9 @@ def _train(args, device, cluster) -> float:
     finally:
         if writer is not None:
             writer.close()
-    if args.parallelism == "dp" and world > 1:
+    if args.parallelism in ("dp", "sp") and world > 1:
         # Replicated parameters: every rank must hold the same bits (the
-        # JAX trainer's check after multi-process dp).
+        # JAX trainer's check after multi-process dp and sp).
         from distributed_tensorflow_tpu_torch.parallel.consistency import (
             check_cross_process_consistency,
         )
@@ -328,7 +374,7 @@ def _train(args, device, cluster) -> float:
 def _export(args, cfg, model, world) -> None:
     """The chief's ``--output``: the bundle with the JAX trainer's metadata
     (enough to rebuild the config at load time)."""
-    if world > 1 and args.parallelism != "dp":
+    if world > 1 and args.parallelism not in ("dp", "sp"):
         print(
             f"skipping --output: {args.parallelism} params are sharded across "
             "processes (not addressable from the chief alone) — use "

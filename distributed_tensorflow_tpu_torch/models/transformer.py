@@ -3,8 +3,13 @@
 Counterpart of ``distributed_tensorflow_tpu/models/transformer.py``:
 pre-norm blocks, tanh-GELU MLP, learned or rotary positions, GQA,
 sliding-window causal attention, and the attention implementation chosen by
-name — ``dense`` (the O(S²) reference) or ``flash`` (the packed-qkv kernels
-of ``ops/attention.py``) — on the uncached (training) path. Under
+name — ``dense`` (the O(S²) reference), ``blockwise`` (the online softmax
+over key blocks) or ``flash`` (the packed-qkv kernels of
+``ops/attention.py``) — or given as a callable ``attend(q, k, v)`` on
+(B, H, S, dh) operands, rotated and with the kv heads expanded (the ring of
+``parallel/ring_attention.py``), on the uncached (training) path. The
+training forward takes ``positions=`` (the global positions of a sequence
+shard: learned embeddings and rope rotate at them). Under
 ``remat`` that path recomputes each block on backward
 (``torch.utils.checkpoint``) instead of keeping its activations.
 
@@ -42,6 +47,7 @@ import copy
 import dataclasses
 import math
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -50,11 +56,11 @@ from torch.utils.checkpoint import checkpoint
 
 from distributed_tensorflow_tpu_torch.models.quant import QuantDense, validate_weight_quant
 from distributed_tensorflow_tpu_torch.ops import attention as A
-from distributed_tensorflow_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_tables
+from distributed_tensorflow_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from distributed_tensorflow_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
-ATTENTION = ("dense", "flash")
+ATTENTION = ("dense", "blockwise", "flash")
 _NOT_PORTED = "is not ported yet"
 
 
@@ -66,7 +72,7 @@ class TransformerConfig:
     num_layers: int = 2
     d_ff: int = 512
     max_seq_len: int = 2048
-    attention: str = "dense"  # 'dense' | 'flash'
+    attention: str | Callable = "dense"  # 'dense' | 'blockwise' | 'flash' | attend(q, k, v)
     compute_dtype: torch.dtype = torch.float32
     use_bias: bool = True
     num_kv_heads: int | None = None  # None = multi-head
@@ -85,7 +91,7 @@ class TransformerConfig:
             raise ValueError(f"kv_cache_dtype must be None or 'int8', got {self.kv_cache_dtype!r}")
         if self.weight_dtype is not None or self.quant_group_size:
             validate_weight_quant(self.weight_dtype, self.quant_group_size, self.d_model, self.d_ff)
-        if self.attention not in ATTENTION:
+        if not callable(self.attention) and self.attention not in ATTENTION:
             raise ValueError(f"attention must be one of {ATTENTION}, got {self.attention!r}")
         kv = self.kv_heads
         if not 1 <= kv <= self.num_heads or self.num_heads % kv:
@@ -220,8 +226,7 @@ class Block(nn.Module):
             if rope is not None:
                 q, k = apply_rope(q, *rope), apply_rope(k, *rope)
             heads = lambda t: t.transpose(1, 2).repeat_interleave(h // t.shape[2], dim=1)
-            attn = A.dense_attention(heads(q), heads(k), heads(v), causal=True,
-                                     window=cfg.attention_window)
+            attn = attend(cfg, heads(q), heads(k), heads(v))
             attn = attn.transpose(1, 2).reshape(b, s, cfg.d_model)
         return x + self.proj(attn)
 
@@ -266,6 +271,17 @@ class Block(nn.Module):
             x = self.cached_attention(x, rope, cache, layer, allowed)
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
         return x + self.mlp_out(h)
+
+
+def attend(cfg: TransformerConfig, q, k, v):
+    """Causal attention over (B, H, S, dh) operands by ``cfg.attention``
+    other than the packed flash path: ``dense``, ``blockwise``, a
+    callable, or ``flash`` on these operands (the BHSD kernels)."""
+    if callable(cfg.attention):
+        return cfg.attention(q, k, v)
+    fn = {"dense": A.dense_attention, "blockwise": A.blockwise_attention,
+          "flash": A.flash_attention}[cfg.attention]
+    return fn(q, k, v, causal=True, window=cfg.attention_window)
 
 
 def apply_block(block: nn.Module, x: torch.Tensor, rope, remat: bool) -> torch.Tensor:
@@ -349,20 +365,16 @@ class TransformerLM(nn.Module):
         ``len`` advanced by S and its buffers written in place. On the cached
         path ``positions`` (B, S) replaces the write offsets for the
         embeddings and rotations, and ``self_mask`` (S, S) bool marks each
-        fed token's in-block ancestors (tree verify)."""
+        fed token's in-block ancestors (tree verify). Uncached,
+        ``positions`` (S,) or (B, S) are the tokens' global positions (a
+        sequence shard's), default ``arange(S)``."""
         if cache is not None:
             return self._cached_forward(tokens, cache, positions, self_mask)
-        if self_mask is not None or positions is not None:
-            raise NotImplementedError(f"self_mask/positions without a cache {_NOT_PORTED}")
+        if self_mask is not None:
+            raise NotImplementedError(f"self_mask without a cache {_NOT_PORTED}")
         cfg = self.cfg
-        s = tokens.shape[1]
         x = self.tok_embed(tokens)
-        rope = None
-        if cfg.position == "rope":
-            rope = rope_tables(cfg.head_dim, s, cfg.rope_theta, device=tokens.device)
-        else:
-            # Unbatched lookup of positions 0..S-1, broadcast over the batch.
-            x = x + self.pos_embed(torch.arange(s, device=tokens.device))[None]
+        x, rope = position_inputs(self, x, positions)
         for i in range(cfg.num_layers):
             x = apply_block(getattr(self, f"block_{i}"), x, rope, cfg.remat)
         return self.lm_head(self.ln_f(x)).float()
@@ -406,6 +418,24 @@ class TransformerLM(nn.Module):
         if isinstance(cache, dict):
             cache = {"layers": cache["layers"], "len": cache["len"] + s}
         return logits, cache
+
+
+def position_inputs(model: nn.Module, x: torch.Tensor, positions=None):
+    """The training forward's positions: ``x`` with the learned position
+    embeddings of ``positions`` added, or the rope tables at them.
+    ``positions`` (S,) are every row's (an unbatched lookup, broadcast over
+    the batch; tables (1, S, dh/2)), (B, S) each row's own; None is
+    ``arange(S)``."""
+    cfg = model.cfg
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.as_tensor(positions, device=x.device)
+    one = positions.dim() == 1
+    if cfg.position == "rope":
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        return x, ((cos[None], sin[None]) if one else (cos, sin))
+    emb = model.pos_embed(positions)
+    return x + (emb[None] if one else emb), None
 
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -216,6 +216,159 @@ def dense_attention(q, k, v, causal: bool = False, scale: float | None = None,
 
 
 # ---------------------------------------------------------------------------
+# The online-softmax block update, shared by blockwise and ring attention.
+# These are stock torch ops: the JAX package runs them in XLA, with no
+# Pallas kernel, so no flash kernel is launched here.
+# ---------------------------------------------------------------------------
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over the last two dims with an f32 result: f32 operands
+    multiply in f32; half-precision operands on the card multiply on the
+    tensor cores with f32 accumulation and an f32 output (the JAX einsums'
+    ``preferred_element_type=f32``), elsewhere in f32."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        lead = a.shape[:-2]
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.view(*lead, a.shape[-2], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+def _block_probs(q, k, mask, scale, m_safe):
+    """exp(q·kᵀ·scale − m_safe) in f32, masked entries 0 (built in place)."""
+    p = _dot_f32(q, k.transpose(-1, -2)).mul_(scale)
+    if mask is not None:
+        p.masked_fill_(~mask, NEG_INF)
+    return p.sub_(m_safe[..., None]).exp_()
+
+
+class _BlockUpdate(torch.autograd.Function):
+    """One online-softmax accumulation step (the JAX
+    ``_online_block_update``): the carry (acc (..., q, d) f32, m (..., q)
+    running max, l (..., q) running denominator) folds in one key block.
+    ``mask`` (q, k) bool, True = attend, or None for all.
+
+    Nothing of the (q, k) block is kept for the backward: it recomputes the
+    block's probabilities from q, k and the row maxima, so a call holds
+    O(q + k) rows between the directions, never the block. The running max
+    is treated as a constant there: the finished output does not depend on
+    the shift it subtracts, so its gradient through m is exactly zero."""
+
+    @staticmethod
+    def forward(ctx, acc, m, l, q, k, v, mask, scale):
+        logits = _dot_f32(q, k.transpose(-1, -2)).mul_(scale)
+        if mask is not None:
+            logits.masked_fill_(~mask, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        # Guard fully-masked rows: keep m finite so exp() stays 0, not NaN.
+        dead = m_new <= NEG_INF / 2
+        m_safe = torch.where(dead, 0.0, m_new)
+        corr = torch.exp(m - m_safe)
+        p = logits.sub_(m_safe[..., None]).exp_()
+        l_new = l * corr + p.sum(dim=-1)
+        acc_new = acc * corr[..., None] + _dot_f32(p.to(v.dtype), v)
+        m_out = m_safe + torch.where(dead, NEG_INF, 0.0)
+        ctx.save_for_backward(q, k, v, mask, m_safe, corr)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(m_out)
+        return acc_new, m_out, l_new
+
+    @staticmethod
+    def backward(ctx, g_acc, _g_m, g_l):
+        q, k, v, mask, m_safe, corr = ctx.saved_tensors
+        p = _block_probs(q, k, mask, ctx.scale, m_safe)
+        g_c = g_acc.to(v.dtype)
+        dv = _dot_f32(p.to(v.dtype).transpose(-1, -2), g_c).to(v.dtype)
+        # dS = P ∘ (dacc·vᵀ + dl), times the softmax scale.
+        ds = _dot_f32(g_c, v.transpose(-1, -2)).add_(g_l[..., None]).mul_(p).mul_(ctx.scale)
+        ds = ds.to(q.dtype)
+        dq = _dot_f32(ds, k).to(q.dtype)
+        dk = _dot_f32(ds.transpose(-1, -2), q).to(k.dtype)
+        return (g_acc * corr[..., None], None, g_l * corr, dq, dk, dv, None, None)
+
+
+def online_block_update(carry, q, k_blk, v_blk, mask, scale):
+    """``(acc, m, l)`` after folding in one key/value block (the JAX
+    ``_online_block_update``; :class:`_BlockUpdate`)."""
+    return _BlockUpdate.apply(*carry, q, k_blk, v_blk, mask, scale)
+
+
+def init_carry(q: torch.Tensor, d_v: int | None = None):
+    """The empty carry for ``q`` (..., Sq, D): zero acc, NEG_INF max, zero
+    denominator, all f32."""
+    lead = q.shape[:-1]
+    return (torch.zeros(*lead, q.shape[-1] if d_v is None else d_v, dtype=torch.float32,
+                        device=q.device),
+            torch.full(lead, NEG_INF, dtype=torch.float32, device=q.device),
+            torch.zeros(lead, dtype=torch.float32, device=q.device))
+
+
+def finalize(acc: torch.Tensor, l: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The JAX ``_finalize``: acc / max(l, 1e-30) in ``dtype`` (rows that
+    attended nothing come out 0)."""
+    return (acc / l.clamp_min(1e-30)[..., None]).to(dtype)
+
+
+def block_visible(q_lo: int, sq: int, k_lo: int, sk: int, causal: bool,
+                  window: int | None) -> bool:
+    """Whether any query at global positions ``q_lo + i`` (i < sq) attends
+    any key at ``k_lo + j`` (j < sk). A block no query sees changes nothing
+    in the carry, bit for bit, so its update can be skipped."""
+    if not causal:
+        return True
+    return k_lo <= q_lo + sq - 1 and (window is None or k_lo + sk - 1 > q_lo - window)
+
+
+def position_mask(q_lo: int, sq: int, k_lo: int, sk: int, causal: bool, window: int | None,
+                  device):
+    """The (sq, sk) mask of queries at global positions ``q_lo + i`` over keys
+    at ``k_lo + j`` (True = attend), or None when every pair attends."""
+    if not causal:
+        return None
+    if k_lo + sk - 1 <= q_lo and (window is None or k_lo > q_lo + sq - 1 - window):
+        return None
+    q_pos = torch.arange(q_lo, q_lo + sq, device=device)[:, None]
+    k_pos = torch.arange(k_lo, k_lo + sk, device=device)[None, :]
+    mask = k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def blockwise_attention(q, k, v, causal: bool = False, block_kv: int = 512,
+                        scale: float | None = None, q_offset: int | None = None,
+                        kv_offset: int = 0, window: int | None = None):
+    """Memory-efficient attention (the JAX ``blockwise_attention``): the
+    online softmax over key/value blocks of ``block_kv``, never the whole
+    (Sq, Skv) matrix; the backward recomputes each block
+    (:class:`_BlockUpdate`). q (B, H, Sq, D), k/v (B, H, Skv, D); returns
+    (B, H, Sq, D) in q's dtype.
+
+    ``q_offset``/``kv_offset`` are the global positions of q's first row and
+    k's first row; ``q_offset=None`` end-aligns (Skv - Sq), as
+    :func:`dense_attention`. ``window`` requires ``causal``. A last block
+    that ``block_kv`` does not divide is shorter (the JAX function pads it
+    with masked keys: the same result). Blocks no query can see are skipped,
+    which leaves the carry exactly as their masked update would."""
+    _check_window(causal, window)
+    sq, skv = q.shape[2], k.shape[2]
+    q_offset = skv - sq if q_offset is None else int(q_offset)
+    s = _scale(q.shape[-1], scale)
+    block_kv = min(block_kv, skv)
+    carry = init_carry(q, v.shape[-1])
+    for lo in range(0, skv, block_kv):
+        hi = min(skv, lo + block_kv)
+        if not block_visible(q_offset, sq, kv_offset + lo, hi - lo, causal, window):
+            continue
+        mask = position_mask(q_offset, sq, kv_offset + lo, hi - lo, causal, window, q.device)
+        carry = online_block_update(carry, q, k[:, :, lo:hi], v[:, :, lo:hi], mask, s)
+    return finalize(carry[0], carry[2], q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # The backward's route gate: the JAX package's, so that a shape takes the
 # same route on both. The gate is sized for the TPU kernel's VMEM dq
 # scratch; the CUDA kernels have no such limit, but which counterpart runs

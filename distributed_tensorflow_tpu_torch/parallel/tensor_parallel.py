@@ -35,10 +35,11 @@ from distributed_tensorflow_tpu_torch.models.transformer import (
     LayerNorm,
     TransformerConfig,
     apply_block,
+    attend,
     next_token_loss,
+    position_inputs,
 )
-from distributed_tensorflow_tpu_torch.ops import attention as A
-from distributed_tensorflow_tpu_torch.ops.rope import apply_rope, rope_tables
+from distributed_tensorflow_tpu_torch.ops.rope import apply_rope
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import mean_over_group
 from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
 from distributed_tensorflow_tpu_torch.parallel.rules import TP_TRAIN_RULES, match_partition_rules
@@ -120,10 +121,10 @@ class TpBlock(nn.Module):
             self.mlp_out_bias = nn.Parameter(torch.zeros(d))
 
     def attend(self, q, k, v):
-        cfg = self.cfg
-        if cfg.attention == "flash":
-            return A.flash_attention(q, k, v, causal=True, window=cfg.attention_window)
-        return A.dense_attention(q, k, v, causal=True, window=cfg.attention_window)
+        """This rank's heads (B, H/tp, S, dh) by ``cfg.attention``: the
+        BHSD flash kernels, dense, blockwise, or a callable (the ring of
+        ``sp_tp``, on the local head shard)."""
+        return attend(self.cfg, q, k, v)
 
     def forward(self, x, rope=None):
         cfg = self.cfg
@@ -184,15 +185,10 @@ class TpTransformerLM(nn.Module):
             self.load_state_dict(shard_params(init_tp_params(cfg, seed), mesh))
         self.to(device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, positions=None) -> torch.Tensor:
+        """Logits; ``positions`` as ``TransformerLM``'s training forward."""
         cfg = self.cfg
-        s = tokens.shape[1]
-        x = self.tok_embed(tokens)
-        rope = None
-        if cfg.position == "rope":
-            rope = rope_tables(cfg.head_dim, s, cfg.rope_theta, device=tokens.device)
-        else:
-            x = x + self.pos_embed(torch.arange(s, device=tokens.device))[None]
+        x, rope = position_inputs(self, self.tok_embed(tokens), positions)
         for i in range(cfg.num_layers):
             x = apply_block(getattr(self, f"block_{i}"), x, rope, cfg.remat)
         return self.lm_head(self.ln_f(x)).float()

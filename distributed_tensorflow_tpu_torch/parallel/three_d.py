@@ -11,9 +11,17 @@ collective of its own. Gradient sync, as in JAX: stage layers are averaged
 over the data group; embeddings, live only through stage 0, are summed
 over the pipe group, then averaged over data; ln_f and the head come out
 equal over pipe and model and are averaged over data. The stages attend
-through the BHSD ``flash_attention`` (K3/K4 on the card). The ``sp_tp``
-composite (ring attention over the pipe axis) waits for the port of
-sequence parallelism.
+through the BHSD ``flash_attention`` (K3/K4 on the card).
+
+The second composite, ``sp_tp`` (the JAX ``build_sp_tp_lm_train_step``):
+data x seq x tensor parallelism, the sequence split over the pipe axis
+with ring attention streaming k/v shards round the pipe group, heads and
+the MLP over the model axis (``TpTransformerLM``), the batch over data.
+The ring runs on each rank's local heads and the two axes' collectives
+never touch the same dimension, so the step is sequence parallelism's
+(``parallel/sequence_parallel.py``: targets, loss and gradient mean over
+data x pipe) around a tensor-parallel model, whose f/g pairs need no
+gradient collective of their own.
 """
 
 from __future__ import annotations
@@ -27,8 +35,13 @@ from distributed_tensorflow_tpu_torch.parallel.pipeline_parallel import (
     build_pp_lm_train_step,
     stage_state_dict,
 )
+from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+    build_lm_train_step,
+    ring_config,
+)
 from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
     TpBlock,
+    TpTransformerLM,
     init_tp_params,
     shard_params,
     tp_param_specs,
@@ -72,3 +85,17 @@ def build_3d_lm_train_step(model: ThreeDLM, opt, num_microbatches: int = 2):
     if not all(isinstance(b, TpBlock) for b in model.blocks):
         raise TypeError("build_3d_lm_train_step needs a stage of TpBlocks (ThreeDLM)")
     return build_pp_lm_train_step(model, opt, num_microbatches)
+
+
+def make_sp_tp_model(cfg: TransformerConfig, mesh: Mesh, seed: int = 0,
+                     device: torch.device | str = "cuda") -> TpTransformerLM:
+    """The ``sp_tp`` model: ``TpTransformerLM(cfg, mesh, seed)`` (tp's
+    weights and splits) attending by a causal ring over the pipe group."""
+    return TpTransformerLM(ring_config(cfg, mesh.pipe_group), mesh, seed=seed, device=device)
+
+
+def build_sp_tp_lm_train_step(model: TpTransformerLM, opt, mesh: Mesh):
+    """``step(tokens) -> {"loss"}`` on this rank's block of the global
+    batch (``sequence_parallel.shard_lm_batch(tokens, mesh, "pipe")``):
+    sequence parallelism's step over the pipe axis."""
+    return build_lm_train_step(model, opt, mesh, seq_axis="pipe")

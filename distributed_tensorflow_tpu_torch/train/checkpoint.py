@@ -118,7 +118,10 @@ def _set_path(tree: dict, path: tuple, value: Any) -> None:
 
 
 def _host(value: Any) -> np.ndarray:
-    """A leaf's value as a C-ordered numpy array on the host."""
+    """A leaf's value as a C-ordered numpy array on the host (a function
+    that builds it is called first)."""
+    if callable(value):
+        value = value()
     if isinstance(value, torch.Tensor):
         return value.detach().contiguous().cpu().numpy()
     return np.ascontiguousarray(value) if np.ndim(value) else np.asarray(value)
@@ -523,50 +526,126 @@ def _state_keys(optimizer: torch.optim.Optimizer) -> tuple[str, ...]:
 
 
 def _specs(model: torch.nn.Module, mesh) -> dict[str, int | None]:
+    """The dims a model rank slices, by parameter name: tensor-parallel
+    blocks' split over more than one model rank (tp, 3d, sp_tp), else none
+    (dp, pp, sp, or a model group of one: whole parameters)."""
+    from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+        TpBlock,
+        tp_param_specs,
+    )
+
     if mesh is None or mesh.model_size == 1:
         return {}
-    from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import tp_param_specs
-
+    if not any(isinstance(m, TpBlock) for m in model.modules()):
+        return {}
     return tp_param_specs(model.state_dict())
+
+
+def _stage(model: torch.nn.Module):
+    """(stage, stages, layers a stage) of a pipeline stage's model, else None."""
+    from distributed_tensorflow_tpu_torch.parallel.pipeline_parallel import PipelineLM
+
+    if not isinstance(model, PipelineLM):
+        return None
+    return model.mesh.pipe_rank, model.mesh.pipe_size, len(model.blocks)
+
+
+def _model_coords(mesh):
+    return (0, 0, 0, 1) if mesh is None else (
+        mesh.data_rank, mesh.pipe_rank, mesh.model_rank, mesh.model_size)
 
 
 def _owned(t: torch.Tensor, dim: int | None, mesh, transposed: bool = False):
     """``t`` whole, or this rank's block of it as a :class:`Shard` (None
-    when another data row's rank writes that block)."""
+    when a rank of another data row, or another seq shard under ``sp_tp``,
+    writes that block)."""
     if dim is None:
         return t.t() if transposed else t
-    if mesh.data_rank != 0:
+    data_rank, pipe_rank, model_rank, _ = _model_coords(mesh)
+    if data_rank != 0 or pipe_rank != 0:
         return None
     n = t.shape[dim]
     index = [[0, s] for s in t.shape]
-    index[dim] = [mesh.model_rank * n, (mesh.model_rank + 1) * n]
+    index[dim] = [model_rank * n, (model_rank + 1) * n]
     if transposed:
         return Shard(t.t(), index[::-1])
     return Shard(t, index)
+
+
+def _stacked(layers: list, dim: int | None, stage, mesh, transposed: bool = False):
+    """A pipeline stage's layers of one leaf as its block of the stacked leaf
+    (S, L/S, ...): a :class:`Shard` at ``[stage, stage + 1)`` on the stage
+    dim, the model rank's slice on ``dim`` (torch's orientation, of one
+    layer), written by the first data row's ranks, a whole-width leaf by
+    its model rank 0; else None. The stack is built when it is written."""
+    data_rank, _, model_rank, _ = _model_coords(mesh)
+    if data_rank != 0 or (dim is None and model_rank != 0):
+        return None
+    s, _, per = stage
+    one = layers[0].t() if transposed else layers[0]
+    index = [[s, s + 1], [0, per]] + [[0, n] for n in one.shape]
+    if dim is not None:
+        at = 2 + (one.dim() - 1 - dim if transposed else dim)
+        n = index[at][1]
+        index[at] = [model_rank * n, (model_rank + 1) * n]
+    value = lambda: torch.stack([t.t() if transposed else t for t in layers])[None]  # noqa: E731
+    return Shard(value, index)
+
+
+def _layer_name(name: str):
+    """(layer, rest) of a stage's ``blocks.<i>.<rest>`` name, else None."""
+    head, _, rest = name.partition(".")
+    if head != "blocks":
+        return None
+    i, _, rest = rest.partition(".")
+    return int(i), rest
 
 
 def train_state(model: torch.nn.Module, opt, global_step: int, mesh=None) -> dict:
     """The state tree this rank writes (module docstring): the model's
     parameters under flax paths, ``opt`` (a ``train.optimizers.Optimizer``)
     by parameter name, the schedule's count and ``global_step``. ``mesh``
-    (a tensor-parallel ``parallel.mesh.Mesh``) marks the sliced leaves."""
+    (``parallel.mesh.Mesh``) places the rank: tensor-parallel slices are
+    written by the first data row (and the first seq shard), and a
+    pipeline stage's layers (``PipelineLM``, ``ThreeDLM``) go into the
+    stage-stacked ``stages`` leaves, each stage's block written by the rank
+    that holds it."""
     from distributed_tensorflow_tpu_torch.models.convert import flax_param_paths
 
-    specs = _specs(model, mesh)
+    specs, stage = _specs(model, mesh), _stage(model)
     named = dict(model.named_parameters())
     params: dict = {}
+    layers: dict = {}  # stacked leaf -> (parameter names in layer order, transposed)
     for name, (path, transposed) in flax_param_paths(model).items():
+        if stage is not None and _layer_name(name) is not None:
+            names, _ = layers.setdefault(("stages", *path[2:]), ([], transposed))
+            names.append(name)
+            continue
         _set_path(params, path, _owned(named[name], specs.get(name), mesh, transposed))
+    for path, (names, transposed) in layers.items():
+        _set_path(params, path, _stacked([named[n] for n in names], specs.get(names[0]), stage,
+                                         mesh, transposed))
     name_of = {id(p): n for n, p in named.items()}
     moments: dict = {}
+    stacked: dict = {}  # "stages.<rest>" -> {key: (values in layer order, dim)}
     for p, st in opt.optimizer.state.items():
         name = name_of[id(p)]
+        layer = None if stage is None else _layer_name(name)
         for key, v in st.items():
             if v is None:
                 continue
             sliced = torch.is_tensor(v) and v.dim() > 0
-            moments.setdefault(name, {})[key] = (
-                _owned(v, specs.get(name), mesh) if sliced else v)
+            if layer is not None:
+                entry = stacked.setdefault(f"stages.{layer[1]}", {}).setdefault(key, {})
+                entry[layer[0]] = (v, specs.get(name) if sliced else None)
+            else:
+                moments.setdefault(name, {})[key] = (
+                    _owned(v, specs.get(name), mesh) if sliced else v)
+    for name, keys in stacked.items():
+        for key, by_layer in keys.items():
+            values = [by_layer[i][0] for i in sorted(by_layer)]
+            moments.setdefault(name, {})[key] = _stacked(
+                [torch.as_tensor(v) for v in values], by_layer[0][1], stage, mesh)
     return {
         "params": params,
         "opt_state": {"state": moments,
@@ -575,18 +654,52 @@ def train_state(model: torch.nn.Module, opt, global_step: int, mesh=None) -> dic
     }
 
 
+def _unstack_saved(step: int, tree: dict) -> dict:
+    """A saved tree with its ``stages`` leaves (params) and ``stages.<rest>``
+    entries (optimizer state) split into per-layer ``block_<g>`` ones, the
+    plain model's layout: one restore path for every split."""
+    params = tree.get("params", {})
+    if isinstance(params, dict) and "stages" in params:
+        params = unstack_stage_params(params)
+    state = dict(tree.get("opt_state", {}).get("state", {}))
+    for name in [n for n in state if n.startswith("stages.")]:
+        rest = name[len("stages."):]
+        for key, arr in state.pop(name).items():
+            arr = np.asarray(arr)
+            if arr.ndim < 2:
+                raise OSError(f"checkpoint step {step}: stacked optimizer state {name}/{key} "
+                              f"has shape {arr.shape}")
+            flat = arr.reshape(arr.shape[0] * arr.shape[1], *arr.shape[2:])
+            for g in range(flat.shape[0]):
+                state.setdefault(f"block_{g}.{rest}", {})[key] = flat[g]
+    opt_state = dict(tree.get("opt_state", {}), state=state)
+    return dict(tree, params=params, opt_state=opt_state)
+
+
 def restore_train_state(step: int, tree: dict, model: torch.nn.Module, opt,
                         mesh=None) -> int:
     """Load a step's whole tree (:meth:`CheckpointManager.restore_latest`)
     into ``model`` and ``opt``, split for this rank when ``mesh`` slices
-    them; returns the global step. Raises ``OSError`` naming a leaf the
-    model or optimizer needs that the step lacks or holds at another
-    shape: a directory of another model never trains on silently."""
+    them; returns the global step. A pipeline stage (``PipelineLM``,
+    ``ThreeDLM``) takes its own layers of the whole model, so a run may
+    resume at another stage count or model split (and a pipeline's step
+    restores into the plain model, and back). Raises ``OSError`` naming a
+    leaf the model or optimizer needs that the step lacks or holds at
+    another shape: a directory of another model never trains on
+    silently."""
     from distributed_tensorflow_tpu_torch.models.convert import flax_param_paths
 
-    specs = _specs(model, mesh)
+    specs, stage = _specs(model, mesh), _stage(model)
     named = dict(model.named_parameters())
     optimizer, keys = opt.optimizer, _state_keys(opt.optimizer)
+    tree = _unstack_saved(step, tree)
+
+    def whole_name(name):
+        """The plain model's name of this model's parameter ``name``."""
+        layer = None if stage is None else _layer_name(name)
+        if layer is None:
+            return name
+        return f"block_{stage[0] * stage[2] + layer[0]}.{layer[1]}"
 
     def whole(name):
         shape = list(named[name].shape)
@@ -606,13 +719,15 @@ def restore_train_state(step: int, tree: dict, model: torch.nn.Module, opt,
         t = t.to(named[name].device)
         return (t.t() if transposed else t).contiguous()
 
-    paths = flax_param_paths(model)
+    paths = {name: ((whole_name(name).split(".")[0], *path[2:]) if whole_name(name) != name
+                    else path, transposed)
+             for name, (path, transposed) in flax_param_paths(model).items()}
     template: dict = {"params": {}, "opt_state": {"state": {}, "schedule_count": _Spec(())},
                       "global_step": _Spec(())}
     for name, (path, transposed) in paths.items():
         _set_path(template["params"], path, _Spec(whole(name)[::-1] if transposed else whole(name)))
         if keys:
-            template["opt_state"]["state"][name] = {
+            template["opt_state"]["state"][whole_name(name)] = {
                 k: _Spec(() if k == "step" else whole(name)) for k in keys}
     got = _match_template(step, tree, template)
 
@@ -627,7 +742,7 @@ def restore_train_state(step: int, tree: dict, model: torch.nn.Module, opt,
     params = [p for group in optimizer.param_groups for p in group["params"]]
     state = {}
     for i, p in enumerate(params):
-        saved = got["opt_state"]["state"].get(name_of[id(p)])
+        saved = got["opt_state"]["state"].get(whole_name(name_of[id(p)]))
         if saved:
             state[i] = {k: torch.from_numpy(np.array(v)) if k == "step"
                         else local(name_of[id(p)], v) for k, v in saved.items()}

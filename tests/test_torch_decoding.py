@@ -188,17 +188,19 @@ def test_compute_copy_gives_the_per_call_casts_logits():
 
 
 def test_unported_cache_options_raise():
-    """What stays unported: positions and a tree mask on the uncached path
-    (sequence shards). A KV format other than int8 is refused as JAX
-    refuses it, and so is a tree mask under a window."""
+    """What stays unported: a tree mask on the uncached path. Positions
+    there are ported (sequence shards embed their global positions), and
+    the default ones give the plain forward's logits. A KV format other
+    than int8 is refused as JAX refuses it, and so is a tree mask under a
+    window."""
     with pytest.raises(ValueError, match="kv_cache_dtype must be None or 'int8'"):
         TT.TransformerConfig(kv_cache_dtype="int4", **BASE)
     model = TT.TransformerLM(TT.TransformerConfig(**BASE), device="cpu")
     toks = torch.zeros(1, 2, dtype=torch.long)
-    for kw in (dict(self_mask=torch.ones(2, 2, dtype=torch.bool)),
-               dict(positions=torch.zeros(1, 2, dtype=torch.long))):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            model(toks, **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        model(toks, self_mask=torch.ones(2, 2, dtype=torch.bool))
+    with torch.no_grad():
+        assert torch.equal(model(toks, positions=torch.arange(2)[None]), model(toks))
     windowed = TT.TransformerLM(TT.TransformerConfig(attention_window=4, **BASE), device="cpu")
     with pytest.raises(ValueError, match="incompatible with attention_window"):
         windowed(toks, cache=TD.init_cache(windowed.cfg, 1, 8),

@@ -318,9 +318,17 @@ def test_cli_pp_and_3d_train_in_a_world_of_one(mode, base, tmp_path, capsys):
 
 @pytest.mark.parametrize("mode", ["pp", "3d"])
 def test_cli_train_dir_under_pp_and_3d_is_not_ported_yet(mode, tmp_path):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--device", "cpu", "--parallelism", mode, "--train_dir", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+    """--train_dir under pp and 3d is ported now (the name stays, so that
+    runs before and after line up): the run commits its last step in the
+    stage-stacked layout. Resume, restores at another split and the layout
+    against the JAX reader: tests/test_torch_checkpoint_modes.py."""
+    from distributed_tensorflow_tpu_torch.train.checkpoint import list_committed_steps, read_step
+
+    cli.main([*PP_FLAGS[2:], "--parallelism", mode, "--training_steps", "2",
+              "--train_dir", str(tmp_path)])
+    assert list_committed_steps(str(tmp_path)) == [2]
+    stages = read_step(str(tmp_path), 2)["params"]["stages"]
+    assert jax.tree_util.tree_leaves(stages)[0].shape[:2] == (1, 2)  # (stages, layers a stage)
 
 
 def test_cli_tp_raises_without_a_card_unless_cpu_is_asked():
@@ -331,9 +339,9 @@ def test_cli_tp_raises_without_a_card_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--parallelism", "sp"], ["--parallelism", "ep"], ["--steps_per_call", "2"],
+    ["--profile_start_step", "1"], ["--parallelism", "ep"], ["--steps_per_call", "2"],
     ["--num_experts", "2"], ["--parallelism", "fsdp"], ["--profile_dir", "x"], ["--obs_dir", "x"],
-    ["--slo", "default"], ["--attention", "blockwise"],
+    ["--slo", "default"], ["--job_name", "ps"],
 ])
 def test_cli_rejects_flags_of_later_slices(flag):
     with pytest.raises(SystemExit):

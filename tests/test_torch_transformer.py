@@ -106,6 +106,6 @@ def test_config_rejects_unknown_choices():
     with pytest.raises(ValueError, match="position"):
         TT.TransformerConfig(position="rotary")
     with pytest.raises(ValueError, match="attention"):
-        TT.TransformerConfig(attention="blockwise")
+        TT.TransformerConfig(attention="ring")  # blockwise is a choice since it was ported
     with pytest.raises(ValueError, match="num_kv_heads"):
         TT.TransformerConfig(num_heads=4, num_kv_heads=3)
